@@ -1,0 +1,110 @@
+"""The dense-family transformer of the port (``repro.models.transformer``).
+
+``forward(params, cfg, tokens, cache=..., mode=...)`` has the
+reference's three modes:
+
+* ``"train"``   — full causal pass, no cache;
+* ``"prefill"`` — right-padded prompts (``input_mask``) written into the
+  paged pool, attention over the fresh K/V;
+* ``"decode"``  — T tokens against the paged pool (T = 1 for a draft
+  step, K+1 for verification), K/V written first through the block
+  table (``write_mask`` drops per-token writes), then attention straight
+  off the pool through :func:`paged_ragged_attention` — the CUDA kernel
+  when the pool is a CUDA tensor, its plain version on the CPU.
+
+The pool writes happen in place (see ``models/cache.py``); the returned
+cache dict shares the pool tensors with the one passed in.  ``commit``
+is length arithmetic on the verified cache.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.models import cache as cache_lib
+from repro_torch.models.layers import (attend, attn_output, mlp_apply,
+                                       qkv_project, rmsnorm, rope_angles)
+from repro_torch.models.weights import Params
+
+
+def _layer(params: Params, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked ``[L, ...]`` parameters."""
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[i]) for k, v in params["layers"].items()}
+
+
+def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
+                   mode: str, positions: torch.Tensor, rope,
+                   input_mask: Optional[torch.Tensor],
+                   cache: Optional[cache_lib.CacheT],
+                   slots: Optional[torch.Tensor]) -> torch.Tensor:
+    q, k, v = qkv_project(p, x, rope)
+    b, t = x.shape[:2]
+    window = cfg.attention_window
+    if mode in ("train", "prefill"):
+        valid = (input_mask if input_mask is not None
+                 else torch.ones((b, t), dtype=torch.bool, device=x.device))
+        out = attend(q, k, v, q_pos=positions, kv_pos=positions,
+                     kv_valid=valid, window=window)
+        if cache is not None:
+            cache_lib.write_kv_paged(cache["k"][layer], cache["v"][layer], k, v,
+                                     slots)
+        return attn_output(p, out)
+    pool_k, pool_v = cache["k"][layer], cache["v"][layer]
+    cache_lib.write_kv_paged(pool_k, pool_v, k, v, slots)
+    out = paged_ragged_attention(q.contiguous(), pool_k, pool_v,
+                                 cache["block_table"], positions,
+                                 cache["kv_pos"], window=window)
+    return attn_output(p, out)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            cache: Optional[cache_lib.CacheT] = None, mode: str = "train",
+            input_mask: Optional[torch.Tensor] = None,
+            write_mask: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[cache_lib.CacheT]]:
+    """Returns (logits [B, T, Vp] float32, cache).  ``write_mask [B, T]``
+    (decode) drops the KV writes of masked positions, so a short-SL
+    sequence never writes outside its allocated blocks."""
+    assert mode in ("train", "prefill", "decode")
+    assert (cache is None) == (mode == "train"), (
+        "train runs without a cache; prefill and decode need one")
+    x = params["embed"][tokens.long()]
+    b, t = x.shape[:2]
+    ar = torch.arange(t, dtype=torch.int32, device=x.device)[None]
+    if mode == "decode":
+        positions = cache["length"][:, None] + ar
+    else:
+        positions = ar.expand(b, t)
+    # per-call quantities every layer shares: RoPE angles, write slots
+    rope = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    slots = None
+    if cache is not None:
+        slots = cache_lib.write_slots(
+            positions, cache["block_table"], cache["kv_pos"].shape[1],
+            cache["kv_pos"].shape[0],
+            keep=write_mask if mode == "decode" else None)
+        cache_lib.write_pos_paged(
+            cache["kv_pos"], positions, slots,
+            valid=input_mask if mode == "prefill" else None)
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        x = x + _attn_sublayer(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
+                               i, mode, positions, rope, input_mask, cache,
+                               slots)
+        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["embed"].t()
+    return logits.float(), (None if cache is None else dict(cache))
+
+
+def commit(snapshot: cache_lib.CacheT, verified: cache_lib.CacheT,
+           n_committed: torch.Tensor) -> cache_lib.CacheT:
+    """Commit ``n_committed[b]`` of the tokens just verified: the pool
+    already holds their K/V, so this is ``length`` arithmetic (stale
+    speculative slots are overwritten or masked, DESIGN.md §4)."""
+    return cache_lib.commit_length(verified,
+                                   snapshot["length"] + n_committed.to(torch.int32))

@@ -1,0 +1,224 @@
+"""Look-ahead scheduler over the block pool (paper §3.2;
+``repro.serving.scheduler`` without the prefix cache and the SLO gate).
+
+* :class:`BlockAllocator` — free list over the shared KV block pool.  A
+  block id names the same slot of the target AND the draft pool (the
+  tables mirror), so one decision covers the speculative pair.
+* :class:`LookaheadScheduler` — waiting queue, slot table and both
+  admission decisions.  Admission charges the prefill's blocks; each
+  round the engine grows every sequence to ``committed +
+  policy.lookahead(SL_i)`` (:meth:`ensure_capacity`), preempting the
+  youngest running request (evict + requeue at the front, recompute on
+  readmit) when the pool runs dry; after the round the speculative
+  tail returns to the pool (:meth:`shrink_to`).  A request whose worst
+  case cannot fit ``max_seq_len`` is ``REJECTED``.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+from repro_torch.core.policies import HostRoundContext, SpecPolicy, build_policy
+from repro_torch.serving.request import Request, RequestState
+
+
+class BlockAllocator:
+    """LIFO free list over ``num_blocks`` pool blocks."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        assert num_blocks > 0 and block_size > 0
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # seeded so the first allocations come out in ascending id order
+        self._free = list(range(num_blocks - 1, -1, -1))
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return self.num_blocks - self.n_free
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return max(0, -(-n_tokens // self.block_size))
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n blocks, or None (and no state change) if the pool is short."""
+        if n > len(self._free):
+            return None
+        if n <= 0:
+            return []
+        out = self._free[-n:][::-1]
+        del self._free[-n:]
+        return out
+
+    def free(self, blocks: List[int]) -> None:
+        self._free.extend(blocks)
+        assert len(self._free) <= self.num_blocks, "double free"
+
+
+class LookaheadScheduler:
+    def __init__(self, serving: ServingConfig, spec: SpecDecodeConfig,
+                 policy: Optional[SpecPolicy] = None):
+        self.serving = serving
+        self.spec = spec
+        self.policy = policy if policy is not None else build_policy(spec)
+        self.queue: collections.deque[Request] = collections.deque()
+        self.slots: List[Optional[Request]] = [None] * serving.max_batch_size
+        self.allocator = BlockAllocator(serving.pool_blocks(),
+                                        serving.kv_block_size)
+        # the pool must hold one max-length sequence outright, so LIFO
+        # preemption always converges
+        if serving.pool_blocks() * serving.kv_block_size < serving.max_seq_len:
+            raise ValueError("KV pool smaller than one max-length sequence: "
+                             "preemption could never free enough blocks")
+        # latest per-slot SL predictions (host mirror, engine-refreshed)
+        self.sl_pred = np.full((serving.max_batch_size,),
+                               self.policy.initial_sl_value(), np.int32)
+        self._rejected: List[Request] = []
+        self._admit_seq = 0
+        self.preempted_total = 0
+
+    # ------------------------------------------------------------- admission
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def update_predictions(self, sl_next: np.ndarray) -> None:
+        self.sl_pred = np.array(sl_next)
+
+    def host_context(self, sl_next: Optional[np.ndarray] = None
+                     ) -> HostRoundContext:
+        """The round's host-side view for the policy hooks, from state
+        the scheduler owns (no device sync)."""
+        sl = self.sl_pred if sl_next is None else np.asarray(sl_next)
+        return HostRoundContext(sl_next=sl, active=self.active_mask)
+
+    def lookahead_slots(self, sl_next: Optional[np.ndarray] = None
+                        ) -> np.ndarray:
+        return self.policy.lookahead(self.host_context(sl_next))
+
+    def _fits(self, req: Request) -> bool:
+        # the policy's WORST-case round footprint must fit: a dynamic
+        # policy admitted at its initial SL can later predict its max
+        need = (len(req.prompt) + req.max_new_tokens
+                + self.policy.max_lookahead())
+        return need <= self.serving.max_seq_len
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slots) if r is None]
+
+    def admit(self) -> List[Request]:
+        """Move queued requests into free slots in strict queue order,
+        charging each ``ceil(prefill_len / block_size)`` blocks; a
+        request the pool cannot cover stays queued (round-time
+        preemption resolves sustained pressure).  Oversize requests
+        become ``REJECTED`` (drained by :meth:`pop_rejected`)."""
+        admitted = []
+        free = collections.deque(self.free_slots())
+        while free and self.queue:
+            req = self.queue[0]
+            if not self._fits(req):
+                self.queue.popleft()
+                req.state = RequestState.REJECTED
+                req.finish_time = time.monotonic()
+                self._rejected.append(req)
+                continue
+            blocks = self.allocator.alloc(
+                self.allocator.blocks_for(len(req.prefill_tokens())))
+            if blocks is None:
+                break               # pool dry: keep queued, stop here
+            req.block_ids = blocks
+            self.queue.popleft()
+            i = free.popleft()
+            req.slot = i
+            req.state = RequestState.RUNNING
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            self.slots[i] = req
+            admitted.append(req)
+        return admitted
+
+    def pop_rejected(self) -> List[Request]:
+        out, self._rejected = self._rejected, []
+        return out
+
+    # ---------------------------------------------------------- block budget
+    def ensure_capacity(self, req: Request, n_tokens: int
+                        ) -> Tuple[List[int], List[Request]]:
+        """Grow ``req`` to cover ``n_tokens`` KV slots, preempting the
+        youngest other running requests while the pool is dry.  Returns
+        (newly allocated block ids, preempted requests)."""
+        need = self.allocator.blocks_for(n_tokens) - len(req.block_ids)
+        if need <= 0:
+            return [], []
+        preempted: List[Request] = []
+        while True:
+            blocks = self.allocator.alloc(need)
+            if blocks is not None:
+                req.block_ids.extend(blocks)
+                return blocks, preempted
+            victim = self._pick_victim(exclude=req)
+            assert victim is not None, (
+                "pool exhausted with nothing to preempt — the single-"
+                "sequence pool guarantee makes this unreachable")
+            self.preempt(victim)
+            preempted.append(victim)
+
+    def _pick_victim(self, exclude: Request) -> Optional[Request]:
+        running = [r for r in self.slots if r is not None and r is not exclude]
+        if not running:
+            return None
+        return max(running, key=lambda r: r.admit_seq)   # LIFO: youngest
+
+    def preempt(self, req: Request) -> None:
+        """Evict-and-requeue at the FRONT: free every block; the request
+        readmits first and recomputes prompt + emitted output."""
+        self.allocator.free(req.block_ids)
+        req.block_ids = []
+        self.slots[req.slot] = None
+        req.slot = None
+        req.cache_len = 0
+        req.state = RequestState.QUEUED
+        req.preemptions += 1
+        self.preempted_total += 1
+        self.queue.appendleft(req)
+
+    def shrink_to(self, req: Request, n_tokens: int) -> List[int]:
+        """Return the blocks beyond ``n_tokens`` committed slots."""
+        keep = self.allocator.blocks_for(n_tokens)
+        freed = req.block_ids[keep:]
+        if freed:
+            del req.block_ids[keep:]
+            self.allocator.free(freed)
+        return freed
+
+    def release(self, req: Request) -> None:
+        if req.slot is not None:
+            self.slots[req.slot] = None
+            req.slot = None
+        if req.block_ids:
+            self.allocator.free(req.block_ids)
+            req.block_ids = []
+
+    # ------------------------------------------------------------- telemetry
+    @property
+    def active_mask(self) -> np.ndarray:
+        return np.array([r is not None for r in self.slots], bool)
+
+    @property
+    def running(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
+
+    def kv_blocks_in_use(self) -> int:
+        return self.allocator.n_used
+
+    def kv_blocks_total(self) -> int:
+        return self.allocator.num_blocks
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.slots)
