@@ -17,13 +17,19 @@ Phases, each printing one JSON line:
              could take (bytes over 3.35 TB/s or operations over the
              peak for their operand type, 989 TFLOP/s for bf16 and
              67 TFLOP/s for fp32, whichever is larger).
-4. serve   — ``ServingEngine(...).run`` at smollm-135m full width (30
+4. serve   — the host cost of one full-width decode step and of one
+             KV write on each pool (forward phase), then
+             ``ServingEngine(...).run`` at smollm-135m full width (30
              layers, d 576, 9/3 heads, vocab 49152 padded to 49280) with
-             seeded random weights, the model drafter (target + 0.03 x
-             noise) and the dsde policy on the block-paged fp32 pool;
-             the kernels' launch counters must rise during the serve.
-             Then the same engine at the reduced width on the card and on
-             the CPU (plain versions) must emit the same greedy streams.
+             seeded random weights and the dsde policy (``SERVES``): the
+             model drafter (target + 0.03 x noise) on the fp32 pool and
+             on the int8 pool, and the n-gram drafter on the int8 pool
+             (undamped, printed only, and damped).  Each kernel of a
+             serve's path must launch during it.  Then each serve again
+             under ``torch.profiler`` for a few rounds (device busy
+             share, top kernels and host calls), and the same paths at
+             the reduced width on the card and on the CPU (plain
+             versions) must emit the same greedy streams.
 
 It ends with the kernels line, the ``nvidia-smi`` line and the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -42,6 +48,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory
 FP32_FLOP_S = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_S = 989e12         # H100 SXM bf16 tensor cores, dense
+# the n-gram serve's target: residual output projections scaled by this
+NGRAM_DAMP = 2e-4
 
 
 def emit(obj) -> None:
@@ -95,6 +103,24 @@ def paged_case(b, t, ctx, dtype, seed):
     return args, nbytes, flops
 
 
+def quant_case(b, t, ctx, dtype, seed):
+    """:func:`paged_case` over an int8 pool: the same tables, the K/V
+    quantized on the card (one scale per stored vector), q in ``dtype``.
+    Bytes: the int8 K/V and fp32 scales of ``ctx`` slots per row, plus
+    kv_pos, the table, q_pos, q and out."""
+    import torch
+    from repro_torch.models.cache import quantize_kv
+    (q, pk, pv, table, q_pos, kv_pos), _, flops = paged_case(
+        b, t, ctx, torch.float32, seed)
+    (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+    q = q.to(dtype)
+    kv, d = pk.shape[2], pk.shape[3]
+    nbytes = (2 * q.numel() * q.element_size() + 2 * b * ctx * kv * d
+              + 2 * b * ctx * kv * 4 + b * ctx * 4 + table.numel() * 4
+              + q_pos.numel() * 4)
+    return [q, pk, pv, ks, vs, table, q_pos, kv_pos], nbytes, flops
+
+
 def bound(nbytes, flops, flop_s):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
     and operations over the peak for the operand type."""
@@ -103,67 +129,96 @@ def bound(nbytes, flops, flop_s):
                                         else "operations")
 
 
-def sdpa_ms(args, flush) -> float:
-    """``F.scaled_dot_product_attention`` over the gathered per-sequence
-    view with the same mask: a yardstick, never called by the port."""
+def sdpa_ms(q, k, v, pos, q_pos, flush) -> float:
+    """``F.scaled_dot_product_attention`` over an already gathered
+    per-sequence view ``k``/``v [B, S, KV, D]`` with the same mask: a
+    yardstick, never called by the port.  Only the call is timed."""
     import torch
-    from repro_torch.models.cache import gather_paged_kv, gather_paged_pos
-    q, pk, pv, table, q_pos, kv_pos = args
-    k, v = gather_paged_kv(pk, pv, table)
-    pos = gather_paged_pos(kv_pos, table)
     g = q.shape[2] // k.shape[2]
     qh = q.transpose(1, 2)
-    kh = k.repeat_interleave(g, dim=2).transpose(1, 2)
-    vh = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    kh = k.to(q.dtype).repeat_interleave(g, dim=2).transpose(1, 2)
+    vh = v.to(q.dtype).repeat_interleave(g, dim=2).transpose(1, 2)
     mask = ((pos[:, None, :] >= 0)
             & (pos[:, None, :] <= q_pos[:, :, None]))[:, None]
     return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask), flush=flush)
 
 
-def kernel_phase(flush):
+def attention_rows(flush):
+    """B1 and B4 at draft-step (T 1) and verify (T 11) shapes, ctx 256
+    and 2048, fp32 and bf16 q.  Returns each kernel's contract row: the
+    draft-step shape of the serves (fp32, T 1, ctx 256) with the largest
+    error over all its rows."""
     import torch
-    from repro_torch.kernels import kld_accept as kl
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as pq
+    from repro_torch.models.cache import (gather_paged_kv,
+                                          gather_paged_kv_quant,
+                                          gather_paged_pos)
 
-    rows, b1_err = [], 0.0
     # |kernel - plain| <= atol + rtol * |plain|, elementwise: fp32 at the
     # reference's own kernel tolerance; in bf16 both sides accumulate in
     # fp32 and round once, so they may differ by one bf16 ulp (rtol) or
     # a few ulps near 0 (atol)
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
     peak = {torch.float32: FP32_FLOP_S, torch.bfloat16: BF16_FLOP_S}
-    for dtype in (torch.float32, torch.bfloat16):
-        for ctx in (256, 2048):
-            for t in (1, 11):
-                args, nbytes, flops = paged_case(4, t, ctx, dtype, seed=t + ctx)
-                got = pa.paged_ragged_verify_attention_cuda(*args)
-                want = pa.paged_ragged_verify_attention_plain(*args)
-                torch.cuda.synchronize()
-                diff = (got.float() - want.float()).abs()
-                err = diff.max().item()
-                atol, rtol = tol[dtype]
-                if not bool((diff <= atol + rtol * want.float().abs()).all()):
-                    raise AssertionError(f"paged attention {dtype} ctx={ctx} "
-                                         f"t={t}: max abs err {err}")
-                b1_err = max(b1_err, err)
-                bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
-                row = {
-                    "phase": "kernel", "name": "paged_ragged_verify_attention",
-                    "dtype": str(dtype).replace("torch.", ""), "B": 4, "T": t,
-                    "H": 9, "KV": 3, "D": 64, "BS": 16, "ctx": ctx,
-                    "max_abs_err": err, "atol": atol, "rtol": rtol,
-                    "ms": time_ms(lambda: pa.paged_ragged_verify_attention_cuda(*args),
-                                  flush=flush),
-                    "plain_ms": time_ms(lambda: pa.paged_ragged_verify_attention_plain(*args),
-                                        flush=flush),
-                    "library_ms": sdpa_ms(args, flush),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                }
-                emit(row)
-                rows.append(row)
+    kernels = (
+        # B1 computes in the operand type; B4 dequantizes to fp32 before
+        # its dots (the reference's order), so its operations count at
+        # the fp32 peak whatever q's type.  The SDPA yardstick of B4
+        # reads the view dequantized beforehand (not timed).
+        ("paged_ragged_verify_attention", paged_case,
+         pa.paged_ragged_verify_attention_cuda,
+         pa.paged_ragged_verify_attention_plain,
+         lambda a: gather_paged_kv(a[1], a[2], a[3]), lambda dt: peak[dt]),
+        ("paged_ragged_verify_attention_quant", quant_case,
+         pq.paged_ragged_verify_attention_quant_cuda,
+         pq.paged_ragged_verify_attention_quant_plain,
+         lambda a: gather_paged_kv_quant(*a[1:6]), lambda dt: FP32_FLOP_S),
+    )
+    contract = {}
+    for name, case, kernel, plain, gather, flop_s in kernels:
+        rows, worst = [], 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for ctx in (256, 2048):
+                for t in (1, 11):
+                    args, nbytes, flops = case(4, t, ctx, dtype, seed=t + ctx)
+                    got = kernel(*args)
+                    want = plain(*args)
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want.float()).abs()
+                    err = diff.max().item()
+                    atol, rtol = tol[dtype]
+                    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                        raise AssertionError(f"{name} {dtype} ctx={ctx} t={t}: "
+                                             f"max abs err {err}")
+                    worst = max(worst, err)
+                    bound_ms, bound_by = bound(nbytes, flops, flop_s(dtype))
+                    k, v = gather(args)
+                    pos = gather_paged_pos(args[-1], args[-3])
+                    row = {
+                        "phase": "kernel", "name": name,
+                        "dtype": str(dtype).replace("torch.", ""), "B": 4,
+                        "T": t, "H": 9, "KV": 3, "D": 64, "BS": 16, "ctx": ctx,
+                        "max_abs_err": err, "atol": atol, "rtol": rtol,
+                        "ms": time_ms(lambda: kernel(*args), flush=flush),
+                        "plain_ms": time_ms(lambda: plain(*args), flush=flush),
+                        "library_ms": sdpa_ms(args[0], k, v, pos, args[-2],
+                                              flush),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                    }
+                    emit(row)
+                    rows.append(row)
+        first = next(r for r in rows if r["dtype"] == "float32"
+                     and r["T"] == 1 and r["ctx"] == 256)
+        contract[name] = dict(first, max_abs_err=worst)
+    return contract
 
-    # B2 at the round's shape: t_logits[:, :K] of [B, K+1, V], B*K = 40
+
+def kld_row(flush):
+    """B2 at the round's shape: t_logits[:, :K] of [B, K+1, V], B*K = 40."""
+    import torch
+    from repro_torch.kernels import kld_accept as kl
     b, k, v = 4, 10, 49280
     g = torch.Generator(device="cpu").manual_seed(5)
     tl = (torch.randn(b, k + 1, v, generator=g) * 3).cuda()
@@ -191,29 +246,136 @@ def kernel_phase(flush):
     nbytes = 2 * b * k * v * 4 + b * k * 4 + 4 * b * k * 4
     flops = 12 * b * k * v
     bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_S)
-    b2 = {"phase": "kernel", "name": "fused_kld_accept", "dtype": "float32",
-          "rows": b * k, "V": v, "max_abs_err": b2_err,
-          "p_q_max_rel_err": b2_rel, **b2_tol,
-          "ms": time_ms(lambda: kl.fused_kld_accept_cuda(tl[:, :k], dl, tok),
-                        flush=flush),
-          "plain_ms": time_ms(lambda: kl.kld_accept_plain(tl[:, :k], dl, tok),
-                              flush=flush),
-          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-    emit(b2)
-    # the contract row for B1: the draft-step shape of the serve phase
-    # (T = 1, max_seq_len 256 -> 16 logical blocks), float32
-    b1 = next(r for r in rows if r["dtype"] == "float32" and r["T"] == 1
-              and r["ctx"] == 256)
-    return dict(b1, max_abs_err=b1_err), b2
+    row = {"phase": "kernel", "name": "fused_kld_accept", "dtype": "float32",
+           "rows": b * k, "V": v, "max_abs_err": b2_err,
+           "p_q_max_rel_err": b2_rel, **b2_tol,
+           "ms": time_ms(lambda: kl.fused_kld_accept_cuda(tl[:, :k], dl, tok),
+                         flush=flush),
+           "plain_ms": time_ms(lambda: kl.kld_accept_plain(tl[:, :k], dl, tok),
+                               flush=flush),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    return row
+
+
+def ngram_rows(flush):
+    """B3 at the drafter's shape (B 4, n 3, k 10) over history buffers
+    of L 256 (the serves' max_seq_len) and 4096, tokens from a 4-symbol
+    alphabet so that matches exist; per row ctx is n (too short to
+    match), L/3, L-1 and L.  Integer-exact against the plain version.
+    Bound: the bytes of the tokens the function needs (each matchable
+    row's first ctx entries), ctx, the proposals and the counts; no
+    single PyTorch call computes this function.  Returns the L 256 row."""
+    import torch
+    from repro_torch.kernels import ngram_match as ng
+    b, n, k = 4, 3, 10
+    rows = []
+    for l in (256, 4096):
+        g = torch.Generator(device="cpu").manual_seed(l)
+        buf = torch.randint(0, 4, (b, l), generator=g,
+                            dtype=torch.int32).cuda()
+        ctx_host = [n, l // 3, l - 1, l]
+        ctx = torch.tensor(ctx_host, dtype=torch.int32).cuda()
+        got = ng.ngram_suffix_propose_cuda(buf, ctx, n=n, k=k)
+        want = ng.ngram_propose_plain(buf, ctx, n=n, k=k)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"ngram match L={l}: kernel {got} "
+                                 f"!= plain {want}")
+        counts = want[1].tolist()
+        if counts[0] != 0 or max(counts) <= 0:
+            raise AssertionError(f"ngram match L={l}: counts {counts}")
+        needed = sum(min(c, l) for c in ctx_host if c >= n + 1)
+        nbytes = 4 * needed + 4 * b + 4 * b * k + 4 * b
+        bound_ms, bound_by = bound(nbytes, n * needed, FP32_FLOP_S)
+        row = {"phase": "kernel", "name": "ngram_suffix_propose",
+               "dtype": "int32", "B": b, "L": l, "n": n, "k": k,
+               "ctx": ctx_host, "counts": counts,
+               "max_abs_err": max((x - y).abs().max().item()
+                                  for x, y in zip(got, want)),
+               "ms": time_ms(lambda: ng.ngram_suffix_propose_cuda(
+                   buf, ctx, n=n, k=k), flush=flush),
+               "plain_ms": time_ms(lambda: ng.ngram_propose_plain(
+                   buf, ctx, n=n, k=k), flush=flush),
+               "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows.append(row)
+    return rows[0]
+
+
+def kernel_phase(flush):
+    contract = attention_rows(flush)
+    contract["fused_kld_accept"] = kld_row(flush)
+    contract["ngram_suffix_propose"] = ngram_rows(flush)
+    return contract
+
+
+def _counter_modules():
+    from repro_torch.kernels import (kld_accept, ngram_match, paged_attention,
+                                     paged_attention_quant)
+    return (paged_attention, kld_accept, paged_attention_quant, ngram_match)
+
+
+def reset_launches() -> None:
+    for mod in _counter_modules():
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
+
+
+def read_launches():
+    return {k: v for mod in _counter_modules() for k, v in mod.LAUNCHES.items()}
+
+
+# name, drafter, kv_quant, num_kv_blocks, residual damping of the
+# target, the kernels on the serve's path.  32 blocks of 16 are half the
+# dense equivalent of batch 4 x 256 tokens; the n-gram drafter holds no
+# draft KV, so its 16 are doubled to 32.  "serve-ngram-undamped" shows
+# why the n-gram serve's target is damped: the seeded random target's
+# greedy streams repeat no n-gram, so prompt lookup never proposes
+# (its count is printed, not required).
+SERVES = (
+    ("serve", "model", "none", 32, 1.0,
+     ("paged_ragged_verify_attention", "fused_kld_accept")),
+    ("serve-int8", "model", "int8", 32, 1.0,
+     ("paged_ragged_verify_attention_quant", "fused_kld_accept")),
+    ("serve-ngram-undamped", "ngram", "int8", 16, 1.0,
+     ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
+    ("serve-ngram-int8", "ngram", "int8", 16, NGRAM_DAMP,
+     ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
+)
+
+
+def damped(params, alpha):
+    """``params`` with the residual branches' output projections
+    (``attn.wo``, ``mlp.w_down``) scaled by ``alpha``: every layer still
+    runs at full width, but the token embedding stays large in the
+    residual stream, so greedy streams run in repeats of a token, which
+    the n-gram drafter's lookup finds."""
+    if alpha == 1.0:
+        return params
+    layers = dict(params["layers"])
+    layers["attn"] = dict(layers["attn"], wo=layers["attn"]["wo"] * alpha)
+    layers["mlp"] = dict(layers["mlp"], w_down=layers["mlp"]["w_down"] * alpha)
+    return dict(params, layers=layers)
+
+
+def serve_prompts(vocab, drafter):
+    """8 requests, 32 new tokens each.  The n-gram serve's prompts repeat
+    a seeded 8-token phrase 3 times before a random tail."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    if drafter != "ngram":
+        return [rng.randint(0, vocab, size=rng.randint(6, 21)).tolist()
+                for _ in range(8)]
+    return [rng.randint(0, vocab, size=8).tolist() * 3
+            + rng.randint(0, vocab, size=rng.randint(2, 9)).tolist()
+            for _ in range(8)]
 
 
 def serve_phase():
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
-    from repro_torch.kernels import kld_accept as kl
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.weights import init_params, map_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
@@ -222,76 +384,173 @@ def serve_phase():
     pt = init_params(cfg, seed=0, device="cuda")
     noise = init_params(cfg, seed=1, device="cuda")
     pd = map_params(lambda a, n: a + 0.03 * n, pt, noise)
-    serving = ServingConfig(max_batch_size=4, max_seq_len=256,
-                            kv_block_size=16,
-                            num_kv_blocks=4 * (256 // 16) // 2)  # 50% of dense
-    rng = np.random.RandomState(0)
-    reqs = [Request(i, prompt=rng.randint(0, cfg.vocab_size,
-                                          size=rng.randint(6, 21)).tolist(),
-                    max_new_tokens=32) for i in range(8)]
-    def engine():
-        return ServingEngine(pt, cfg, pd, cfg, SpecDecodeConfig(policy="dsde"),
-                             serving, seed=0, device="cuda")
+    # every untraced measurement comes before the first profiled run, so
+    # that none follows a torch.profiler session
+    forward_phase(cfg, pt)
+    total = {k: 0 for k in read_launches()}
+    profiled = []
+    for name, drafter, kv_quant, nblocks, damp, path in SERVES:
+        model = drafter == "model"
+        serving = ServingConfig(max_batch_size=4, max_seq_len=256,
+                                kv_block_size=16, num_kv_blocks=nblocks,
+                                kv_quant=kv_quant)
 
-    # one-time set-up (library handles, allocator pools) outside the
-    # measured run
-    engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
-    eng = engine()
-    pa.LAUNCHES["paged_ragged_verify_attention"] = 0
-    kl.LAUNCHES["fused_kld_accept"] = 0
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    m = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"paged_ragged_verify_attention":
-                pa.LAUNCHES["paged_ragged_verify_attention"],
-                "fused_kld_accept": kl.LAUNCHES["fused_kld_accept"]}
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never ran on the serving path: {launches}")
-    if m["requests_finished"] != 8 or any(len(r.output) != 32 for r in reqs):
-        raise AssertionError(f"serve did not finish every request: {m}")
-    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
-        raise AssertionError("a token outside the vocabulary was emitted")
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-          "requests": len(reqs), "rounds": m["rounds"],
-          "tokens": m["tokens_emitted"], "preemptions": m["preemptions"],
-          "mean_acceptance": m["mean_acceptance"],
-          "block_efficiency": m["block_efficiency"], "wall_s": wall,
-          "tokens_per_s": m["tokens_emitted"] / wall,
-          "draft_steps": m["draft_steps"], "launches": launches,
-          "tf32": False})
-    profile_phase(engine, reqs)
+        def engine(target=damped(pt, damp), model=model, drafter=drafter,
+                   serving=serving):
+            return ServingEngine(target, cfg, pd if model else None,
+                                 cfg if model else None,
+                                 SpecDecodeConfig(policy="dsde",
+                                                  drafter=drafter),
+                                 serving, seed=0, device="cuda")
 
-    # the same path at the reduced width: card (kernels) vs CPU (plain)
+        reqs = [Request(i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(serve_prompts(cfg.vocab_size, drafter))]
+        # one-time set-up (library handles, allocator pools) outside the
+        # measured run
+        engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
+        eng = engine()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        m = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        if min(launches[k] for k in path) <= 0:
+            raise AssertionError(f"{name}: a kernel of the path never ran: "
+                                 f"{launches}")
+        if m["requests_finished"] != 8 or any(len(r.output) != 32 for r in reqs):
+            raise AssertionError(f"{name} did not finish every request: {m}")
+        if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+            raise AssertionError(f"{name}: a token outside the vocabulary")
+        proposing = sum(1 for r in eng.round_log if r["proposed"] > 0)
+        if name == "serve-ngram-int8" and proposing == 0:
+            raise AssertionError(f"{name}: no round proposed a token")
+        emit({"phase": name, "arch": cfg.name, "layers": cfg.num_layers,
+              "drafter": drafter, "kv_quant": kv_quant,
+              "residual_scale": damp,
+              "requests": len(reqs), "rounds": m["rounds"],
+              "tokens": m["tokens_emitted"], "preemptions": m["preemptions"],
+              "proposed": sum(r["proposed"] for r in eng.round_log),
+              "proposing_rounds": proposing,
+              "mean_acceptance": m["mean_acceptance"],
+              "block_efficiency": m["block_efficiency"], "wall_s": wall,
+              "tokens_per_s": m["tokens_emitted"] / wall,
+              "draft_steps": m["draft_steps"],
+              "kv_pool_blocks": m["kv_pool_blocks"],
+              "kv_block_bytes": m["kv_block_bytes"],
+              "kv_pool_bytes": m["kv_pool_bytes"], "launches": launches,
+              "tf32": False})
+        if name != "serve-ngram-undamped":
+            for k in total:
+                total[k] += launches[k]
+            profiled.append((name, engine, reqs))
+    for args in profiled:
+        profile_phase(*args)
+    check_phase(cfg)
+    return total
+
+
+def forward_phase(cfg, params) -> None:
+    """Host cost of one full-width decode step (B 4, T 1, 128 committed
+    tokens per row) on each pool, and of its per-layer KV write alone:
+    the serve is host-bound, so these set its pace.  Wall time per call
+    with a synchronise after the timed loop."""
+    import torch
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.transformer import forward
+
+    b, ctx, bs = 4, 128, 16
+    row = {"phase": "forward", "B": b, "T": 1, "ctx": ctx}
+    for mode in ("none", "int8"):
+        cache = cache_lib.paged_cache_struct(cfg, b, 256, b * ctx // bs + 8,
+                                             bs, device="cuda", kv_quant=mode)
+        cache["block_table"][:, :ctx // bs] = torch.arange(
+            b * ctx // bs, dtype=torch.int32, device="cuda").reshape(b, -1)
+        cache["kv_pos"][:b * ctx // bs] = torch.arange(
+            ctx, dtype=torch.int32, device="cuda").reshape(-1, bs).repeat(b, 1)
+        cache["length"] = torch.full((b,), ctx, dtype=torch.int32,
+                                     device="cuda")
+        tok = torch.ones((b, 1), dtype=torch.int32, device="cuda")
+        slots = cache_lib.write_slots(cache["length"][:, None],
+                                      cache["block_table"], bs,
+                                      cache["kv_pos"].shape[0])
+        kv = torch.randn(2, b, 1, cfg.num_kv_heads, cfg.resolved_head_dim,
+                         device="cuda")
+        if mode == "int8":
+            layer = [cache[n][0] for n in ("k", "v", "k_scale", "v_scale")]
+            write = lambda: cache_lib.write_kv_paged_quant(*layer, kv[0], kv[1],
+                                                           slots)
+        else:
+            layer = [cache[n][0] for n in ("k", "v")]
+            write = lambda: cache_lib.write_kv_paged(*layer, kv[0], kv[1], slots)
+        for fn, n, key in ((lambda: forward(params, cfg, tok, cache=cache,
+                                            mode="decode"), 20, "forward_ms"),
+                           (write, 200, "kv_write_ms")):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            row[f"{key}_{mode}"] = 1e3 * (time.monotonic() - t0) / n
+    emit(row)
+
+
+def check_phase(cfg) -> None:
+    """The serves' paths at the reduced width: card (kernels) vs CPU
+    (plain versions), equal greedy streams.  The n-gram engine looks up
+    1-grams here: with random weights the streams never repeat a trigram
+    at this width, and the check needs proposals to be made."""
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params, map_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
     small = cfg.reduced()
     p_small = init_params(small, seed=2, device="cpu")
     d_small = map_params(lambda a, n: a + 0.03 * n, p_small,
                          init_params(small, seed=3, device="cpu"))
-    outs = {}
-    for device in ("cuda", "cpu"):
-        rs = [Request(i, prompt=list(range(3 + i, 12 + 2 * i)),
-                      max_new_tokens=24) for i in range(4)]
-        ServingEngine(p_small, small, d_small, small,
-                      SpecDecodeConfig(policy="dsde"),
-                      ServingConfig(max_batch_size=2, max_seq_len=128,
-                                    kv_block_size=16, num_kv_blocks=8),
-                      device=device).run(rs)
-        outs[device] = [r.output for r in rs]
-    same = outs["cuda"] == outs["cpu"]
-    emit({"phase": "check", "what": "reduced-width greedy streams, card vs CPU",
-          "requests": 4, "equal": same})
-    if not same:
-        raise AssertionError(f"card and CPU streams differ: {outs}")
-    return launches
+    for drafter, kv_quant in (("model", "none"), ("model", "int8"),
+                              ("ngram", "int8")):
+        model = drafter == "model"
+        outs, proposed = {}, {}
+        for device in ("cuda", "cpu"):
+            rs = [Request(i, prompt=list(range(3 + i, 12 + 2 * i)) * 2,
+                          max_new_tokens=24) for i in range(4)]
+            eng = ServingEngine(
+                p_small, small, d_small if model else None,
+                small if model else None,
+                SpecDecodeConfig(policy="dsde", drafter=drafter,
+                                 ngram_n=3 if model else 1),
+                ServingConfig(max_batch_size=2, max_seq_len=128,
+                              kv_block_size=16, num_kv_blocks=8,
+                              kv_quant=kv_quant),
+                device=device)
+            eng.run(rs)
+            outs[device] = [r.output for r in rs]
+            proposed[device] = sum(r["proposed"] for r in eng.round_log)
+        same = outs["cuda"] == outs["cpu"] and proposed["cuda"] == proposed["cpu"]
+        if proposed["cuda"] <= 0:
+            raise AssertionError(f"check ({drafter}, {kv_quant}): no proposals")
+        emit({"phase": "check", "what": "reduced-width greedy streams, card vs CPU",
+              "drafter": drafter, "kv_quant": kv_quant, "requests": 4,
+              "proposed": proposed["cuda"], "equal": same})
+        if not same:
+            raise AssertionError(f"card and CPU streams differ ({drafter}, "
+                                 f"{kv_quant}): {outs}")
 
 
-def profile_phase(engine, reqs) -> None:
-    """The first four requests again, for their prefill and first six
-    rounds, under ``torch.profiler``: device kernel time against the
-    run's wall (the device's busy share) and the kernels that take it.
-    A separate run, so the serve's tokens/s above carries no tracing
-    cost; kept short because the trace is processed on the host."""
+def profile_phase(serve, engine, reqs) -> None:
+    """The first four requests of ``serve`` again, for their prefill and
+    first six rounds, under ``torch.profiler``: device kernel time
+    against the run's wall (the device's busy share), the kernels that
+    take it, and on the host the operator and CUDA runtime calls that
+    take the most time (a synchronising call shows as
+    ``cudaStreamSynchronize`` / ``cudaMemcpyAsync``).  A separate run, so
+    the serve's tokens/s above carries no tracing cost; kept short
+    because the trace is processed on the host."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -306,16 +565,23 @@ def profile_phase(engine, reqs) -> None:
         eng.run(again, max_rounds=6)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": "profile", "requests": len(again), "rounds": eng.rounds,
-          "wall_s": wall, "device_kernel_s": device_us / 1e6,
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    emit({"phase": "profile", "serve": serve, "requests": len(again),
+          "rounds": eng.rounds, "wall_s": wall,
+          "device_kernel_s": device_us / 1e6,
           "device_busy_share": device_us / 1e6 / wall,
+          "kernel_launches": sum(e.count for e in kernels),
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "device_ms": e.self_device_time_total / 1e3}
-                          for e in top]})
+                          for e in top],
+          "top_host": [{"name": e.key[:60], "calls": e.count,
+                        "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                       for e in host]})
 
 
 def main() -> int:
@@ -342,7 +608,7 @@ def main() -> int:
           "per_source_s": per_source})
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    b1, b2 = kernel_phase(flush)
+    contract = kernel_phase(flush)
     del flush
     launches = serve_phase()
 
@@ -352,13 +618,18 @@ def main() -> int:
             "src/repro/kernels/ragged_attention.py:189"),
         "fused_kld_accept": ("src/repro_torch/csrc/kld_accept.cu",
                              "src/repro/kernels/kld_accept.py:99"),
+        "ngram_suffix_propose": ("src/repro_torch/csrc/ngram_match.cu",
+                                 "src/repro/kernels/ngram_match.py:66"),
+        "paged_ragged_verify_attention_quant": (
+            "src/repro_torch/csrc/paged_attention_quant.cu",
+            "src/repro/kernels/ragged_attention.py:309"),
     }
     kernels = []
-    for row in (b1, b2):
-        src, replaces = sources[row["name"]]
+    for kernel, (src, replaces) in sources.items():
+        row = contract[kernel]
         kernels.append({
-            "name": row["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[row["name"]],
+            "name": kernel, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

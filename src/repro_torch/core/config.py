@@ -74,6 +74,7 @@ class SpecDecodeConfig:
     ``drafter`` a registered :class:`repro_torch.core.drafters.Drafter`."""
     policy: str = "dsde"
     drafter: str = "model"
+    ngram_n: int = 3                   # n-gram drafter suffix length
     sl_min: int = 2
     sl_max: int = 10
     static_sl: int = 4
@@ -94,11 +95,14 @@ class SpecDecodeConfig:
 class ServingConfig:
     """Serving shape.  The block-paged pool is the port's only KV layout
     and the schedule is synchronous; the reference's dense ring,
-    pipelined, prefix-caching and int8 options come with their slices."""
+    pipelined and prefix-caching options come with their slices.
+    ``kv_quant`` is the pool's storage mode: ``"none"`` (fp32) or
+    ``"int8"`` (int8 values plus one fp32 scale per stored vector)."""
     max_batch_size: int = 64
     max_seq_len: int = 4096
     kv_block_size: int = 16
     num_kv_blocks: Optional[int] = None     # None = dense-equivalent
+    kv_quant: str = "none"
 
     def blocks_per_seq(self) -> int:
         """Block-table width: worst-case blocks one sequence can hold."""

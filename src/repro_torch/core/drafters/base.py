@@ -55,7 +55,10 @@ class Drafter:
 
     # ------------------------------------------------------- device-side
     def init_cache(self, batch: int, max_len: int, paged: Tuple[int, int],
-                   dtype=torch.float32, device="cpu") -> State:
+                   dtype=torch.float32, device="cpu",
+                   kv_quant: str = "none") -> State:
+        """``kv_quant`` is the target pool's storage mode; a drafter that
+        mirrors the pool stores its own the same way."""
         return ()
 
     def prefill(self, params_d, cache: State, idx: torch.Tensor,
@@ -75,9 +78,18 @@ class Drafter:
         step j (identity-threaded)."""
         raise NotImplementedError
 
-    def commit(self, snapshot: State, drafted: State,
+    def commit(self, tokens: torch.Tensor, snapshot: State, drafted: State,
                n_committed: torch.Tensor) -> State:
+        """Commit ``n_committed[b]`` of the round's ``tokens [B, K+1]``
+        (pending + proposals).  ``snapshot`` is the pre-round cache,
+        ``drafted`` the one :meth:`propose` returned."""
         return snapshot
+
+    def reset_rows(self, cache: State, rows: torch.Tensor) -> State:
+        """Clear the rows ``rows [B]`` bool that an admission replaces
+        (identity unless the drafter keeps per-row state that prefill
+        does not rewrite)."""
+        return cache
 
     def observation_kld(self, target_logits: torch.Tensor,
                         draft_logits: torch.Tensor, tokens: torch.Tensor,

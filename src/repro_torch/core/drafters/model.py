@@ -82,15 +82,19 @@ class ModelDrafter(Drafter):
                 / max(model_flops_per_token(self.cfg_t), 1.0))
 
     def init_cache(self, batch, max_len, paged, dtype=torch.float32,
-                   device="cpu"):
+                   device="cpu", kv_quant="none"):
+        # the mirror inherits the target pool's storage mode, so a block
+        # id means the same bytes on both sides
         n_blocks, bs = paged
         return cache_lib.paged_cache_struct(self.cfg_d, batch, max_len,
-                                            n_blocks, bs, dtype, device)
+                                            n_blocks, bs, dtype, device,
+                                            kv_quant=kv_quant)
 
     def prefill(self, params_d, cache, idx, tokens, prompt_lens, table_rows):
         rows, _ = prefill_lib.prefill_paged_rows(
             params_d, self.cfg_d, cache["k"], cache["v"], cache["kv_pos"],
-            table_rows, tokens, prompt_lens)
+            table_rows, tokens, prompt_lens, cache.get("k_scale"),
+            cache.get("v_scale"))
         return prefill_lib.scatter_paged_rows(cache, rows, idx)
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
@@ -101,5 +105,5 @@ class ModelDrafter(Drafter):
         return DraftProposal(tokens=toks, logits=logits, cache=cache,
                              eff_sl=eff)
 
-    def commit(self, snapshot, drafted, n_committed):
+    def commit(self, tokens, snapshot, drafted, n_committed):
         return commit_model(snapshot, drafted, n_committed)

@@ -3,7 +3,7 @@ by the engine (target) and the model drafter (draft mirror): one call
 per admission group per model."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,15 +15,19 @@ from repro_torch.models.transformer import forward
 def prefill_paged_rows(params, cfg: ModelConfig, pool_k: torch.Tensor,
                        pool_v: torch.Tensor, kv_pos: torch.Tensor,
                        table_rows: torch.Tensor, tokens: torch.Tensor,
-                       prompt_lens: torch.Tensor
+                       prompt_lens: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None
                        ) -> Tuple[dict, torch.Tensor]:
     """Prefill R right-padded prompts ``tokens [R, S]`` straight into
-    their allocated blocks (``table_rows [R, max_blocks]``; the pools are
+    their allocated blocks (``table_rows [R, max_blocks]``; the pools,
+    and the scale pools ``k_scale``/``v_scale`` of an int8 pool, are
     written in place).  Returns (cache view with per-row ``length``,
     last-token logits [R, V])."""
     mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
             < prompt_lens[:, None])
-    view = cache_lib.paged_prefill_view(pool_k, pool_v, kv_pos, table_rows)
+    view = cache_lib.paged_prefill_view(pool_k, pool_v, kv_pos, table_rows,
+                                        k_scale, v_scale)
     logits, view = forward(params, cfg, tokens, cache=view, mode="prefill",
                            input_mask=mask)
     view["length"] = prompt_lens.to(torch.int32)

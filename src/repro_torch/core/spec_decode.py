@@ -1,7 +1,8 @@
 """One speculative-decoding round on the paged pool (``repro.core.spec_decode``).
 
   1. propose      — the drafter (``ModelDrafter``: K+1 single-token draft
-                    decode steps against its mirrored pool);
+                    decode steps against its mirrored pool;
+                    ``NGramDrafter``: one suffix-match lookup);
   2. verification — ONE target forward over [pending, d_1..d_K];
   3. rejection    — exact batched ragged rejection sampling;
   4. post-hoc     — KL per proposed position (the fused KLD kernel on
@@ -146,7 +147,8 @@ def spec_decode_round_impl(params_t, params_d, cfg_t: ModelConfig,
     # --- 5. commit ------------------------------------------------------------
     n_committed = (1 + rej.num_accepted) * live.to(torch.int32)
     t_cache = commit(state.target_cache, t_cache_v, n_committed)
-    d_cache = (drafter.commit(state.draft_cache, drafted_cache, n_committed)
+    d_cache = (drafter.commit(verify_tokens, state.draft_cache, drafted_cache,
+                              n_committed)
                if k > 0 else state.draft_cache)
 
     # --- 6. device-side termination -------------------------------------------
@@ -188,11 +190,15 @@ def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
                      spec: SpecDecodeConfig, batch: int, max_len: int,
                      paged: Tuple[int, int], base_seed: int = 0,
                      drafter: Optional[Drafter] = None,
-                     dtype=torch.float32, device="cuda") -> RoundState:
+                     dtype=torch.float32, device="cuda",
+                     kv_quant: str = "none") -> RoundState:
     """Fresh round state on ``device``: the target's block-paged cache
-    (``paged=(num_blocks, block_size)``) plus the drafter's cache.  The
-    termination fields default to "never terminate" (the engine sets
-    them per slot at prefill)."""
+    (``paged=(num_blocks, block_size)``, stored as ``kv_quant`` says)
+    plus the drafter's cache (a mirrored pool inherits the storage
+    mode).  The termination fields default to "never terminate" (the
+    engine sets them per slot at prefill)."""
+    if kv_quant not in cache_lib.KV_QUANT_MODES:
+        raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
     device = resolve_device(device)
     policy = build_policy(spec)
     if drafter is None:
@@ -201,8 +207,10 @@ def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
     i32 = dict(dtype=torch.int32, device=device)
     return RoundState(
         target_cache=cache_lib.paged_cache_struct(cfg_t, batch, max_len,
-                                                  n_blocks, bs, dtype, device),
-        draft_cache=drafter.init_cache(batch, max_len, paged, dtype, device),
+                                                  n_blocks, bs, dtype, device,
+                                                  kv_quant=kv_quant),
+        draft_cache=drafter.init_cache(batch, max_len, paged, dtype, device,
+                                       kv_quant=kv_quant),
         policy_state=policy.init_state(batch, device),
         pending=torch.zeros((batch,), **i32),
         sl_next=policy.initial_sl(batch, device),

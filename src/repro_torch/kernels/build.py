@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
 Every source ``src/repro_torch/csrc/<name>.cu`` has a plain C interface
-and is compiled on its own with
+(kernel bodies shared by several sources sit in ``csrc/*.cuh``) and is
+compiled on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/lib<name>.so <name>.cu
@@ -29,7 +30,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("paged_attention", "kld_accept")
+SOURCES = ("paged_attention", "kld_accept", "paged_attention_quant",
+           "ngram_match")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -47,9 +49,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its name carries a hash of the source and of
+    every shared header in ``csrc/``, so an edit to either rebuilds it."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:

@@ -11,7 +11,10 @@ A cache is a dict of tensors:
 * ``block_table [B, max_blocks]`` int32 — logical -> physical block per
   sequence (-1 = unallocated); position ``p`` of sequence ``b`` lives at
   slot ``block_table[b, p // bs] * bs + p % bs``;
-* ``length [B]`` int32 — committed tokens per sequence.
+* ``length [B]`` int32 — committed tokens per sequence;
+* ``k_scale``/``v_scale [L, n_blocks + 1, block_size, KV]`` fp32 — only
+  in an int8 pool (``kv_quant="int8"``): ``k``/``v`` are then int8 and
+  each stored vector has its own amax scale (``x ≈ int8 * scale``).
 
 Where the reference is functional (``.at[].set`` returns a new pool),
 the port writes the pools and ``kv_pos`` IN PLACE: every caller drops
@@ -50,43 +53,118 @@ def max_blocks_per_seq(max_len: int, block_size: int) -> int:
     return -(-max_len // block_size)
 
 
-def kv_block_bytes(cfg: ModelConfig, block_size: int,
+# ---------------------------------------------------------------------------
+# int8 storage (kv_quant="int8"; the reference's DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+KV_QUANT_MODES = ("none", "int8")
+INT8_QMAX = 127.0
+
+
+def is_quantized(cache: CacheT) -> bool:
+    return "k_scale" in cache
+
+
+def supports_kv_quant(cfg: ModelConfig) -> bool:
+    """The families whose paged cache is a pure attention pool (the
+    reference's list; the port carries the dense one so far)."""
+    return cfg.family in ("dense", "moe", "vlm")
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., KV, D] -> (int8 values, fp32 per-[..., KV] amax scales).
+    Every step in fp32 with round-half-even (``torch.round``, like
+    ``jnp.round``), so the values and scales are bit-identical to the
+    reference's; a zero vector maps to scale 1.0."""
+    xf = x.float()
+    amax = xf.abs().amax(-1)
+    scale = torch.where(amax > 0, amax / INT8_QMAX, 1.0)
+    q = torch.round(xf / scale[..., None]).clamp(-INT8_QMAX, INT8_QMAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`: int8 [..., KV, D] and scales
+    [..., KV] -> fp32, one ``int8 * scale`` product per element."""
+    return q.float() * scale[..., None]
+
+
+def fake_quantize_kv(x: torch.Tensor) -> torch.Tensor:
+    """``dequantize(quantize(x))`` at x's dtype: what prefill attention
+    reads, so prefill and later reads of the stored pool see the same
+    values."""
+    q, s = quantize_kv(x)
+    return dequantize_kv(q, s).to(x.dtype)
+
+
+def kv_block_bytes(cfg: ModelConfig, block_size: int, kv_quant: str,
                    dtype=torch.float32) -> int:
-    """Device bytes one pool block costs across all layers (K + V)."""
+    """Device bytes one pool block costs across all layers (K + V, plus
+    the scales of an int8 pool)."""
     elems = cfg.num_layers * block_size * cfg.num_kv_heads * cfg.resolved_head_dim
-    return 2 * elems * torch.tensor([], dtype=dtype).element_size()
+    if kv_quant == "int8":
+        scales = cfg.num_layers * block_size * cfg.num_kv_heads
+        return 2 * (elems * 1 + scales * 4)
+    if kv_quant == "none":
+        return 2 * elems * torch.tensor([], dtype=dtype).element_size()
+    raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
+
+
+def equal_byte_blocks(cfg: ModelConfig, fp_blocks: int, block_size: int,
+                      fp_dtype=torch.float32) -> int:
+    """How many int8 blocks the bytes of ``fp_blocks`` fp blocks buy."""
+    fp = kv_block_bytes(cfg, block_size, "none", dtype=fp_dtype)
+    q8 = kv_block_bytes(cfg, block_size, "int8")
+    return fp_blocks * fp // q8
 
 
 def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                        num_blocks: int, block_size: int,
-                       dtype=torch.float32, device="cpu") -> CacheT:
+                       dtype=torch.float32, device="cpu",
+                       kv_quant: str = "none") -> CacheT:
     """Fresh paged cache: zero pools of ``num_blocks`` blocks plus the
     drop block, every slot empty, every table entry unallocated, every
-    length 0."""
+    length 0.  ``kv_quant="int8"`` stores the pools as int8 and adds the
+    fp32 scale pools, drop block included."""
     if not supports_paged(cfg):
         raise ValueError(f"family {cfg.family!r} has no paged KV layout")
+    if kv_quant not in KV_QUANT_MODES:
+        raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
+    if kv_quant != "none" and not supports_kv_quant(cfg):
+        raise ValueError(f"family {cfg.family!r} has no quantized KV layout")
     maxb = max_blocks_per_seq(max_len, block_size)
     shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     i32 = dict(dtype=torch.int32, device=device)
-    return {"length": torch.zeros((batch,), **i32),
-            "kv_pos": torch.full((num_blocks + 1, block_size), -1, **i32),
-            "block_table": torch.full((batch, maxb), -1, **i32),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    pool_dtype = torch.int8 if kv_quant == "int8" else dtype
+    cache = {"length": torch.zeros((batch,), **i32),
+             "kv_pos": torch.full((num_blocks + 1, block_size), -1, **i32),
+             "block_table": torch.full((batch, maxb), -1, **i32),
+             "k": torch.zeros(shape, dtype=pool_dtype, device=device),
+             "v": torch.zeros(shape, dtype=pool_dtype, device=device)}
+    if kv_quant == "int8":
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def paged_prefill_view(pool_k: torch.Tensor, pool_v: torch.Tensor,
-                       kv_pos: torch.Tensor,
-                       table_rows: torch.Tensor) -> CacheT:
+                       kv_pos: torch.Tensor, table_rows: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None) -> CacheT:
     """Batch-R cache view over the shared pools for prefilling a group
     of requests straight into their allocated blocks: the pool leaves
-    ARE the live pools (writes land in place), ``length`` is fresh."""
+    (and the scale pools of an int8 pool) ARE the live pools (writes
+    land in place), ``length`` is fresh."""
     rows = table_rows.shape[0]
-    return {"length": torch.zeros((rows,), dtype=torch.int32,
+    view = {"length": torch.zeros((rows,), dtype=torch.int32,
                                   device=pool_k.device),
             "k": pool_k, "v": pool_v, "kv_pos": kv_pos,
             "block_table": table_rows}
+    if k_scale is not None:
+        view["k_scale"], view["v_scale"] = k_scale, v_scale
+    return view
 
 
 def write_slots(positions: torch.Tensor, block_table: torch.Tensor,
@@ -119,6 +197,25 @@ def write_kv_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     fv.index_copy_(0, slots, v_new.reshape((-1,) + v_new.shape[2:]).to(pool_v.dtype))
 
 
+def write_kv_paged_quant(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                         k_scale: torch.Tensor, v_scale: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor,
+                         slots: torch.Tensor) -> None:
+    """Quantize-on-write into one layer's int8 pools ``[N + 1, bs, KV,
+    D]`` and scale pools ``[N + 1, bs, KV]``, in place.  Values and
+    scales go to the same :func:`write_slots`, so a dropped value write
+    drops its scale too."""
+    n, bs = pool_k.shape[:2]
+    # K and V quantized in one pass (fewer launches; every vector is
+    # quantized on its own, so the values are the same)
+    q, s = quantize_kv(torch.stack((k_new, v_new)))
+    for i, (pool, scales) in enumerate(((pool_k, k_scale), (pool_v, v_scale))):
+        pool.view((n * bs,) + pool.shape[2:]).index_copy_(
+            0, slots, q[i].reshape((-1,) + q.shape[3:]))
+        scales.view((n * bs,) + scales.shape[2:]).index_copy_(
+            0, slots, s[i].reshape((-1,) + s.shape[3:]))
+
+
 def write_pos_paged(kv_pos: torch.Tensor, positions: torch.Tensor,
                     slots: torch.Tensor,
                     valid: Optional[torch.Tensor] = None) -> None:
@@ -140,6 +237,22 @@ def gather_paged_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
     bs = pool_k.shape[1]
     return (pool_k[idx].reshape((b, maxb * bs) + pool_k.shape[2:]),
             pool_v[idx].reshape((b, maxb * bs) + pool_v.shape[2:]))
+
+
+def gather_paged_kv_quant(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                          k_scale: torch.Tensor, v_scale: torch.Tensor,
+                          block_table: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dequantized fp32 per-sequence views [B, max_blocks*bs, KV, D] of
+    an int8 pool (the plain attention version's input; the kernel
+    dequantizes tile by tile instead)."""
+    idx = block_table.clamp(min=0).long()
+    b, maxb = block_table.shape
+    bs = pool_k.shape[1]
+    k = dequantize_kv(pool_k[idx], k_scale[idx])
+    v = dequantize_kv(pool_v[idx], v_scale[idx])
+    return (k.reshape((b, maxb * bs) + k.shape[3:]),
+            v.reshape((b, maxb * bs) + v.shape[3:]))
 
 
 def gather_paged_pos(kv_pos: torch.Tensor,

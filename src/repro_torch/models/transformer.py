@@ -12,6 +12,11 @@ reference's three modes:
   off the pool through :func:`paged_ragged_attention` — the CUDA kernel
   when the pool is a CUDA tensor, its plain version on the CPU.
 
+An int8 pool (``k_scale`` in the cache) quantizes on every write; decode
+attends through :func:`paged_ragged_attention_quant`, and prefill
+attends over the fake-quantized fresh K/V, the values any later read of
+the stored pool reconstructs (the reference's order).
+
 The pool writes happen in place (see ``models/cache.py``); the returned
 cache dict shares the pool tensors with the one passed in.  ``commit``
 is length arithmetic on the verified cache.
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels.paged_attention_quant import paged_ragged_attention_quant
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.layers import (attend, attn_output, mlp_apply,
                                        qkv_project, rmsnorm, rope_angles)
@@ -44,20 +50,35 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
     q, k, v = qkv_project(p, x, rope)
     b, t = x.shape[:2]
     window = cfg.attention_window
+    quant = cache is not None and cache_lib.is_quantized(cache)
+    if quant:
+        scales = (cache["k_scale"][layer], cache["v_scale"][layer])
     if mode in ("train", "prefill"):
         valid = (input_mask if input_mask is not None
                  else torch.ones((b, t), dtype=torch.bool, device=x.device))
-        out = attend(q, k, v, q_pos=positions, kv_pos=positions,
+        ka, va = (cache_lib.fake_quantize_kv(torch.stack((k, v))).unbind(0)
+                  if quant else (k, v))
+        out = attend(q, ka, va, q_pos=positions, kv_pos=positions,
                      kv_valid=valid, window=window)
-        if cache is not None:
+        if quant:
+            cache_lib.write_kv_paged_quant(cache["k"][layer], cache["v"][layer],
+                                           *scales, k, v, slots)
+        elif cache is not None:
             cache_lib.write_kv_paged(cache["k"][layer], cache["v"][layer], k, v,
                                      slots)
         return attn_output(p, out)
     pool_k, pool_v = cache["k"][layer], cache["v"][layer]
-    cache_lib.write_kv_paged(pool_k, pool_v, k, v, slots)
-    out = paged_ragged_attention(q.contiguous(), pool_k, pool_v,
-                                 cache["block_table"], positions,
-                                 cache["kv_pos"], window=window)
+    if quant:
+        cache_lib.write_kv_paged_quant(pool_k, pool_v, *scales, k, v, slots)
+        out = paged_ragged_attention_quant(q.contiguous(), pool_k, pool_v,
+                                           *scales, cache["block_table"],
+                                           positions, cache["kv_pos"],
+                                           window=window)
+    else:
+        cache_lib.write_kv_paged(pool_k, pool_v, k, v, slots)
+        out = paged_ragged_attention(q.contiguous(), pool_k, pool_v,
+                                     cache["block_table"], positions,
+                                     cache["kv_pos"], window=window)
     return attn_output(p, out)
 
 

@@ -59,16 +59,28 @@ class ServingEngine:
                  seed: int = 0, device="cuda"):
         """``params_*`` are parameter trees (``models/weights.py``); they
         are moved to ``device`` if they live elsewhere.  The port serves
-        the block-paged fp32 pool with the synchronous schedule."""
+        the block-paged pool, fp32 or int8 (``serving.kv_quant``), with
+        the synchronous schedule."""
         self.device = resolve_device(device)
         drafter = build_drafter(spec, cfg_target, cfg_draft)
         if drafter.uses_draft_model() and (params_draft is None
                                            or cfg_draft is None):
             raise ValueError(f"drafter {spec.drafter!r} needs draft-model "
                              "params/config")
-        for cfg in (cfg_target, cfg_draft):
-            if cfg is not None and not cache_lib.supports_paged(cfg):
+        # only a drafter that mirrors the pool stores KV of its own
+        pooled = [cfg_target] + ([cfg_draft] if drafter.mirrors_kv() else [])
+        for cfg in pooled:
+            if not cache_lib.supports_paged(cfg):
                 raise ValueError(f"family {cfg.family!r} has no paged layout")
+        self.kv_quant = serving.kv_quant
+        if self.kv_quant not in cache_lib.KV_QUANT_MODES:
+            raise ValueError(f"unknown kv_quant mode {self.kv_quant!r}")
+        if self.kv_quant != "none" and not all(
+                cache_lib.supports_kv_quant(cfg) for cfg in pooled):
+            raise ValueError(f"kv_quant={self.kv_quant!r} but family pair "
+                             f"({cfg_target.family}, "
+                             f"{cfg_draft.family if cfg_draft else None}) "
+                             "has no quantized paged layout")
         to_dev = lambda t: t.to(self.device)   # noqa: E731
         self.pt = map_params(to_dev, params_target)
         self.pd = (map_params(to_dev, params_draft)
@@ -78,14 +90,18 @@ class ServingEngine:
         self.spec = spec
         self.policy = build_policy(spec)
         self.serving = serving
-        self.scheduler = LookaheadScheduler(serving, spec, policy=self.policy)
+        self.scheduler = LookaheadScheduler(
+            serving, spec, policy=self.policy, kv_mirror=drafter.mirrors_kv(),
+            block_bytes=cache_lib.kv_block_bytes(
+                cfg_target, serving.kv_block_size, self.kv_quant))
         self.latency_model = RoundLatencyModel()   # round-cost telemetry
         self.seed = seed
         b = serving.max_batch_size
         self.state = sd.init_round_state(
             cfg_target, cfg_draft, spec, b, serving.max_seq_len,
             paged=(self.scheduler.kv_blocks_total(), serving.kv_block_size),
-            base_seed=seed, drafter=drafter, device=self.device)
+            base_seed=seed, drafter=drafter, device=self.device,
+            kv_quant=self.kv_quant)
         # host mirror of state.sl_next, refreshed once per collect
         self._sl_next_host = np.full((b,), self.policy.initial_sl_value(),
                                      np.int32)
@@ -192,10 +208,15 @@ class ServingEngine:
         tc = st.target_cache
         view, last = prefill_lib.prefill_paged_rows(
             self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"], rows_t,
-            toks_t, plen_t)
+            toks_t, plen_t, tc.get("k_scale"), tc.get("v_scale"))
         tc = prefill_lib.scatter_paged_rows(tc, view, idx)
-        dc = self.drafter.prefill(self.pd, st.draft_cache, idx, toks_t,
-                                  plen_t, rows_t)
+        rows_mask = torch.zeros((self.serving.max_batch_size,),
+                                dtype=torch.bool, device=dev)
+        rows_mask[idx] = True
+        # a token-history drafter takes the full prefix (prompt + output
+        # on a readmit); a mirroring one prefills its own pool
+        dc = self.drafter.reset_rows(st.draft_cache, rows_mask)
+        dc = self.drafter.prefill(self.pd, dc, idx, toks_t, plen_t, rows_t)
         # first token of a fresh request: keyed by the request's identity
         # alone, so it does not depend on admission grouping
         ids = torch.as_tensor([req.request_id for req in reqs],
@@ -212,9 +233,6 @@ class ServingEngine:
         # a first token that is already EOS (or a 1-token budget) marks
         # the slot done device-side
         done0 = ((pend == eos_t) & (eos_t >= 0)) | (budgets_t <= 0)
-        rows_mask = torch.zeros((self.serving.max_batch_size,),
-                                dtype=torch.bool, device=dev)
-        rows_mask[idx] = True
         sl0 = self.policy.initial_sl_value()
         # the scheduler's mirror must see the fresh requests' initial SL
         # before this round's block planning
@@ -397,6 +415,7 @@ class ServingEngine:
             "kv_blocks_peak": float(max((r["kv_blocks_in_use"]
                                          for r in self.round_log), default=0.0)),
             "kv_pool_blocks": float(self.scheduler.kv_blocks_total()),
-            "kv_block_bytes": float(cache_lib.kv_block_bytes(
-                self.cfg_t, self.serving.kv_block_size)),
+            "kv_quant": self.kv_quant,
+            "kv_block_bytes": float(self.scheduler.kv_block_bytes()),
+            "kv_pool_bytes": float(self.scheduler.kv_bytes_total()),
         }

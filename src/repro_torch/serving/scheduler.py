@@ -64,17 +64,28 @@ class BlockAllocator:
 
 class LookaheadScheduler:
     def __init__(self, serving: ServingConfig, spec: SpecDecodeConfig,
-                 policy: Optional[SpecPolicy] = None):
+                 policy: Optional[SpecPolicy] = None, kv_mirror: bool = True,
+                 block_bytes: int = 0):
+        """``kv_mirror``: whether the drafter holds a paged KV pool that
+        mirrors the target's block ids (``Drafter.mirrors_kv``).
+        ``ServingConfig.num_kv_blocks`` budgets such a mirrored pair; a
+        drafter with no draft KV gives the mirror's budget back, so the
+        target pool doubles.  ``block_bytes``: bytes one pool block costs
+        in the serving storage mode (``cache.kv_block_bytes``), for the
+        byte telemetry only; admission counts blocks."""
         self.serving = serving
         self.spec = spec
         self.policy = policy if policy is not None else build_policy(spec)
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * serving.max_batch_size
-        self.allocator = BlockAllocator(serving.pool_blocks(),
-                                        serving.kv_block_size)
+        self.allocator = BlockAllocator(
+            serving.pool_blocks() * (1 if kv_mirror else 2),
+            serving.kv_block_size)
+        self.block_bytes = block_bytes
         # the pool must hold one max-length sequence outright, so LIFO
         # preemption always converges
-        if serving.pool_blocks() * serving.kv_block_size < serving.max_seq_len:
+        if (self.allocator.num_blocks * serving.kv_block_size
+                < serving.max_seq_len):
             raise ValueError("KV pool smaller than one max-length sequence: "
                              "preemption could never free enough blocks")
         # latest per-slot SL predictions (host mirror, engine-refreshed)
@@ -219,6 +230,16 @@ class LookaheadScheduler:
 
     def kv_blocks_total(self) -> int:
         return self.allocator.num_blocks
+
+    def kv_block_bytes(self) -> int:
+        return self.block_bytes
+
+    def kv_bytes_total(self) -> int:
+        """Pool footprint in bytes under the serving storage mode."""
+        return self.kv_blocks_total() * self.block_bytes
+
+    def kv_bytes_in_use(self) -> int:
+        return self.kv_blocks_in_use() * self.block_bytes
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.slots)

@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import kld_accept as kl
+from repro_torch.kernels import ngram_match as ng
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import paged_attention_quant as pq
+from repro_torch.models.cache import quantize_kv
 
 pytestmark = pytest.mark.gpu
 
@@ -67,6 +70,73 @@ def test_paged_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
     assert bool((got[0] == 0).all())          # the row with no valid slot
 
 
+@pytest.mark.parametrize("window", [None, 12])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 1e-4),
+                                             (torch.bfloat16, 2e-3, 1e-2)])
+@pytest.mark.parametrize("shape", [(4, 1, 9, 3, 64, 40, 16, 8),
+                                   (4, 11, 9, 3, 64, 40, 16, 8),
+                                   (3, 6, 8, 8, 32, 30, 8, 9)])
+def test_quant_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
+                                              window):
+    """B4 on the int8 pool: the same ragged tables (a -1 hole, a row with
+    no block at all, empty slots); q and the output in ``dtype``."""
+    q, pk, pv, table, q_pos, kv_pos = _paged(*shape, dtype=torch.float32,
+                                             device=cuda)
+    (pk, ks), (pv, vs) = quantize_kv(pk * 3), quantize_kv(pv)
+    args = [q.to(dtype), pk, pv, ks, vs, table, q_pos, kv_pos]
+    got = pq.paged_ragged_verify_attention_quant_cuda(*args, window=window)
+    want = pq.paged_ragged_verify_attention_quant_plain(*args, window=window)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())          # the row with no valid slot
+
+
+NGRAM_CASES = {
+    # buf, ctx, n, k: too short a context, no match, a continuation
+    # clipped at ctx, the most recent of several matches
+    "short_ctx": ([1, 2, 3, 4, 5, 6, 0, 0], 3, 3, 2),
+    "no_match": ([1, 2, 3, 4, 5, 6, 0, 0], 6, 3, 2),
+    "clipped": ([1, 2, 1, 2, 1, 2, 0, 0], 6, 2, 4),
+    "basic": ([1, 2, 3, 9, 1, 2, 3, 7, 5, 1, 2, 3, 0, 0], 12, 3, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NGRAM_CASES))
+def test_ngram_kernel_edge_cases_equal_plain(cuda, case):
+    buf, ctx, n, k = NGRAM_CASES[case]
+    tok = torch.tensor([buf], dtype=torch.int32, device=cuda)
+    c = torch.tensor([ctx], dtype=torch.int32, device=cuda)
+    got = ng.ngram_suffix_propose_cuda(tok, c, n=n, k=k)
+    want = ng.ngram_propose_plain(tok, c, n=n, k=k)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("l,n,k", [(256, 3, 10), (4096, 3, 10), (300, 1, 4),
+                                   (97, 5, 7)])
+def test_ngram_kernel_equals_plain(cuda, l, n, k):
+    g = torch.Generator().manual_seed(l + n)
+    b = 6
+    buf = torch.randint(0, 3, (b, l), generator=g, dtype=torch.int32)
+    ctx = torch.randint(0, l + 1, (b,), generator=g, dtype=torch.int32)
+    ctx[:3] = torch.tensor([n, n + 1, l])
+    buf[2, 10:10 + n] = buf[2, l - n:]        # the full row's suffix recurs
+    buf, ctx = buf.to(cuda), ctx.to(cuda)
+    got = ng.ngram_suffix_propose_cuda(buf, ctx, n=n, k=k)
+    want = ng.ngram_propose_plain(buf, ctx, n=n, k=k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].max()) > 0
+
+
+def test_ngram_kernel_k_zero_launches_nothing(cuda):
+    ng.LAUNCHES["ngram_suffix_propose"] = 0
+    buf = torch.ones((3, 10), dtype=torch.int32, device=cuda)
+    ctx = torch.tensor([10, 4, 0], dtype=torch.int32, device=cuda)
+    toks, cnt = ng.ngram_propose(buf, ctx, n=2, k=0)
+    assert tuple(toks.shape) == (3, 0) and not bool(cnt.any())
+    assert ng.LAUNCHES["ngram_suffix_propose"] == 0
+
+
 @pytest.mark.parametrize("b,t,v", [(4, 10, 49280), (2, 3, 1030), (1, 1, 77)])
 def test_kld_kernel_matches_plain(cuda, b, t, v):
     g = torch.Generator().manual_seed(v)
@@ -86,18 +156,34 @@ def test_kld_kernel_matches_plain(cuda, b, t, v):
 def test_dispatch_counts_launches_on_cuda(cuda):
     pa.LAUNCHES["paged_ragged_verify_attention"] = 0
     kl.LAUNCHES["fused_kld_accept"] = 0
+    pq.LAUNCHES["paged_ragged_verify_attention_quant"] = 0
+    ng.LAUNCHES["ngram_suffix_propose"] = 0
     args = _paged(2, 1, 9, 3, 64, 10, 16, 4, torch.float32, cuda)
     pa.paged_ragged_attention(*args)
     x = torch.randn(1, 2, 50, device=cuda)
     kl.kld_accept_signals(x, x, torch.zeros((1, 2), dtype=torch.int32,
                                             device=cuda))
+    (pk, ks), (pv, vs) = quantize_kv(args[1]), quantize_kv(args[2])
+    qargs = [args[0], pk, pv, ks, vs, *args[3:]]
+    pq.paged_ragged_attention_quant(*qargs)
+    ng.ngram_propose(args[3], args[3][:, 0].clone(), n=1, k=2)
     assert pa.LAUNCHES["paged_ragged_verify_attention"] == 1
     assert kl.LAUNCHES["fused_kld_accept"] == 1
+    assert pq.LAUNCHES["paged_ragged_verify_attention_quant"] == 1
+    assert ng.LAUNCHES["ngram_suffix_propose"] == 1
     with pytest.raises(TypeError):      # int64 tables: raise, no fallback
         pa.paged_ragged_attention(*args[:3], args[3].long(), *args[4:])
+    with pytest.raises(TypeError):      # fp pools are not the int8 kernel's
+        pq.paged_ragged_attention_quant(args[0], *args[1:3], ks, vs, *args[3:])
+    with pytest.raises(TypeError):
+        ng.ngram_propose(args[3].long(), args[3][:, 0].clone(), n=1, k=2)
 
 
-def test_engine_streams_match_cpu(cuda):
+@pytest.mark.parametrize("drafter,kv_quant", [("model", "none"),
+                                              ("model", "int8"),
+                                              ("ngram", "int8"),
+                                              ("ngram", "none")])
+def test_engine_streams_match_cpu(cuda, drafter, kv_quant):
     from repro_torch.configs import get_config
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
     from repro_torch.models.weights import init_params, map_params
@@ -107,13 +193,16 @@ def test_engine_streams_match_cpu(cuda):
     pt = init_params(cfg, seed=2, device="cpu")
     pd = map_params(lambda a, n: a + 0.03 * n, pt,
                     init_params(cfg, seed=3, device="cpu"))
+    model = drafter == "model"
     outs = []
     for device in ("cpu", cuda):
         reqs = [Request(i, prompt=list(range(5 + i, 14 + 3 * i)),
                         max_new_tokens=20) for i in range(3)]
-        ServingEngine(pt, cfg, pd, cfg, SpecDecodeConfig(),
+        ServingEngine(pt, cfg, pd if model else None, cfg if model else None,
+                      SpecDecodeConfig(drafter=drafter,
+                                       ngram_n=3 if model else 1),
                       ServingConfig(max_batch_size=2, max_seq_len=96,
-                                    kv_block_size=16),
+                                    kv_block_size=16, kv_quant=kv_quant),
                       device=device).run(reqs)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]

@@ -23,6 +23,9 @@ def test_import_port_leaves_jax_out():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(mods) > 20, mods\n"
+        "for m in ('kernels.paged_attention_quant', 'kernels.ngram_match',\n"
+        "          'core.drafters.ngram'):\n"
+        "    assert 'repro_torch.' + m in mods, m\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=SRC,
