@@ -18,29 +18,38 @@ Phases, each printing one JSON line:
              peak for their operand type, 989 TFLOP/s for bf16 and
              67 TFLOP/s for fp32, whichever is larger).
 4. serve   — the host cost of one full-width decode step and of one
-             KV write on each pool (forward phase), then
+             KV write on each cache (forward phase), then
              ``ServingEngine(...).run`` at smollm-135m full width (30
              layers, d 576, 9/3 heads, vocab 49152 padded to 49280) with
              seeded random weights and the dsde policy (``SERVES``): the
              model drafter (target + 0.03 x noise) on the fp32 pool and
-             on the int8 pool, and the n-gram drafter on the int8 pool
-             (undamped, printed only, and damped).  Each kernel of a
-             serve's path must launch during it.  Then each serve again
-             under ``torch.profiler`` for a few rounds (device busy
-             share, top kernels and host calls), and the same paths at
-             the reduced width on the card and on the CPU (plain
-             versions) must emit the same greedy streams.
+             on the int8 pool, the n-gram drafter on the int8 pool
+             (undamped, printed only, and damped), the model drafter on
+             the dense ring (synchronous and pipelined) and on the fp32
+             pool pipelined.  Each kernel of a serve's path must launch
+             during it; ``dispatch`` runs under
+             ``torch.cuda.set_sync_debug_mode("warn")`` and its
+             synchronising calls are counted; a pipelined serve must
+             emit its synchronous twin's greedy streams.  Then some
+             serves again under ``torch.profiler`` for a few rounds
+             (device busy share, top kernels and host calls), and the
+             paths at the reduced width on the card and on the CPU
+             (plain versions) must emit the same greedy streams.
 
 It ends with the kernels line, the ``nvidia-smi`` line and the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without CUDA, or without the port beside it, it prints no
 result.
 """
+import collections
 import json
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -303,17 +312,102 @@ def ngram_rows(flush):
     return rows[0]
 
 
+def ring_case(b, t, w, dtype, seed, wrap=False):
+    """A dense-ring attention call: every row's ring full (positions 0 ..
+    W-1, queries at the last ``t``), or with ``wrap`` rows that have run
+    past W (slot j holds the latest position p = j mod W)."""
+    import torch
+    h, kv, d = 9, 3, 64
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, t, h, d, generator=g).to(dtype)
+    kb = torch.randn(b, w, kv, d, generator=g).to(dtype)
+    vb = torch.randn(b, w, kv, d, generator=g).to(dtype)
+    end = torch.full((b,), w)
+    if wrap:
+        end = torch.randint(w + t, 3 * w, (b,), generator=g)
+    j = torch.arange(w)[None]
+    kv_pos = (j + w * torch.div(end[:, None] - 1 - j, w,
+                                rounding_mode="floor")).int()
+    q_pos = (end[:, None] - t + torch.arange(t)[None]).int()
+    args = [x.cuda().contiguous() for x in (q, kb, vb, q_pos, kv_pos)]
+    es = q.element_size()
+    nbytes = (2 * q.numel() * es + 2 * b * w * kv * d * es + b * w * 4
+              + q_pos.numel() * 4)
+    flops = 4 * b * h * t * w * d
+    return args, nbytes, flops
+
+
+def ring_rows(flush):
+    """B5 at B1's shapes: draft step (T 1) and verify (T 11) over full
+    rings of W 256 (the serves' max_seq_len) and 2048, fp32 and bf16 q
+    and rings, B1's tolerances; then a windowed ring that has wrapped
+    (window 64, W 80, positions up to 3W) for its error alone.  The
+    library yardstick is SDPA over the ring with the same mask.  Returns
+    the fp32 T 1 W 256 row with the largest error over all rows."""
+    import torch
+    from repro_torch.kernels import ragged_attention as ra
+    tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
+    peak = {torch.float32: FP32_FLOP_S, torch.bfloat16: BF16_FLOP_S}
+    name = "ragged_verify_attention"
+
+    def check(args, dtype, window, what):
+        got = ra.ragged_verify_attention_cuda(*args, window=window)
+        want = ra.ragged_verify_attention_plain(*args, window=window)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        atol, rtol = tol[dtype]
+        if not bool((diff <= atol + rtol * want.float().abs()).all()):
+            raise AssertionError(f"{name} {what}: max abs err "
+                                 f"{diff.max().item()}")
+        return diff.max().item()
+
+    rows, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for w in (256, 2048):
+            for t in (1, 11):
+                args, nbytes, flops = ring_case(4, t, w, dtype, seed=t + w)
+                err = check(args, dtype, None, f"{dtype} W={w} t={t}")
+                worst = max(worst, err)
+                bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
+                atol, rtol = tol[dtype]
+                row = {
+                    "phase": "kernel", "name": name,
+                    "dtype": str(dtype).replace("torch.", ""), "B": 4, "T": t,
+                    "H": 9, "KV": 3, "D": 64, "W": w, "max_abs_err": err,
+                    "atol": atol, "rtol": rtol,
+                    "ms": time_ms(lambda: ra.ragged_verify_attention_cuda(
+                        *args), flush=flush),
+                    "plain_ms": time_ms(lambda: ra.ragged_verify_attention_plain(
+                        *args), flush=flush),
+                    "library_ms": sdpa_ms(args[0], args[1], args[2], args[4],
+                                          args[3], flush),
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+                emit(row)
+                rows.append(row)
+    args, _, _ = ring_case(4, 11, 80, torch.float32, seed=80, wrap=True)
+    err = check(args, torch.float32, 64, "windowed wrapped ring")
+    worst = max(worst, err)
+    emit({"phase": "kernel", "name": name, "dtype": "float32", "B": 4,
+          "T": 11, "W": 80, "window": 64, "wrapped": True,
+          "max_abs_err": err})
+    first = next(r for r in rows if r["dtype"] == "float32"
+                 and r["T"] == 1 and r["W"] == 256)
+    return dict(first, max_abs_err=worst)
+
+
 def kernel_phase(flush):
     contract = attention_rows(flush)
     contract["fused_kld_accept"] = kld_row(flush)
     contract["ngram_suffix_propose"] = ngram_rows(flush)
+    contract["ragged_verify_attention"] = ring_rows(flush)
     return contract
 
 
 def _counter_modules():
     from repro_torch.kernels import (kld_accept, ngram_match, paged_attention,
-                                     paged_attention_quant)
-    return (paged_attention, kld_accept, paged_attention_quant, ngram_match)
+                                     paged_attention_quant, ragged_attention)
+    return (paged_attention, kld_accept, paged_attention_quant, ngram_match,
+            ragged_attention)
 
 
 def reset_launches() -> None:
@@ -326,23 +420,45 @@ def read_launches():
     return {k: v for mod in _counter_modules() for k, v in mod.LAUNCHES.items()}
 
 
-# name, drafter, kv_quant, num_kv_blocks, residual damping of the
-# target, the kernels on the serve's path.  32 blocks of 16 are half the
-# dense equivalent of batch 4 x 256 tokens; the n-gram drafter holds no
-# draft KV, so its 16 are doubled to 32.  "serve-ngram-undamped" shows
-# why the n-gram serve's target is damped: the seeded random target's
-# greedy streams repeat no n-gram, so prompt lookup never proposes
-# (its count is printed, not required).
+class Serve(NamedTuple):
+    """One full-width serve.  ``nblocks`` None serves from the dense ring
+    (``paged_kv=False``), else from a pool of that many blocks of 16.
+    ``twin``: the serve whose greedy streams this one must equal.
+    ``path``: the kernels that must launch during it."""
+    name: str
+    drafter: str
+    kv_quant: str
+    nblocks: Optional[int]
+    pipelined: bool
+    damp: float
+    path: Tuple[str, ...]
+    twin: Optional[str] = None
+
+
+# 32 blocks of 16 are half the dense equivalent of batch 4 x 256 tokens;
+# the n-gram drafter holds no draft KV, so its 16 are doubled to 32.
+# "serve-ngram-undamped" shows why the n-gram serve's target is damped:
+# the seeded random target's greedy streams repeat no n-gram, so prompt
+# lookup never proposes (its count is printed, not required).
 SERVES = (
-    ("serve", "model", "none", 32, 1.0,
-     ("paged_ragged_verify_attention", "fused_kld_accept")),
-    ("serve-int8", "model", "int8", 32, 1.0,
-     ("paged_ragged_verify_attention_quant", "fused_kld_accept")),
-    ("serve-ngram-undamped", "ngram", "int8", 16, 1.0,
-     ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
-    ("serve-ngram-int8", "ngram", "int8", 16, NGRAM_DAMP,
-     ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
+    Serve("serve", "model", "none", 32, False, 1.0,
+          ("paged_ragged_verify_attention", "fused_kld_accept")),
+    Serve("serve-int8", "model", "int8", 32, False, 1.0,
+          ("paged_ragged_verify_attention_quant", "fused_kld_accept")),
+    Serve("serve-ngram-undamped", "ngram", "int8", 16, False, 1.0,
+          ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
+    Serve("serve-ngram-int8", "ngram", "int8", 16, False, NGRAM_DAMP,
+          ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
+    Serve("serve-dense", "model", "none", None, False, 1.0,
+          ("ragged_verify_attention", "fused_kld_accept")),
+    Serve("serve-dense-pipe", "model", "none", None, True, 1.0,
+          ("ragged_verify_attention", "fused_kld_accept"), twin="serve-dense"),
+    Serve("serve-pipe", "model", "none", 32, True, 1.0,
+          ("paged_ragged_verify_attention", "fused_kld_accept"), twin="serve"),
 )
+# profiled after every untraced serve (each trace costs host time)
+PROFILED = ("serve", "serve-int8", "serve-ngram-int8", "serve-dense",
+            "serve-dense-pipe")
 
 
 def damped(params, alpha):
@@ -372,6 +488,39 @@ def serve_prompts(vocab, drafter):
             for _ in range(8)]
 
 
+def count_syncs(eng):
+    """Run ``eng.dispatch`` under ``torch.cuda.set_sync_debug_mode("warn")``
+    and count the synchronising calls it makes, by the innermost line of
+    this checkout on the call's stack."""
+    import torch
+    counts = collections.Counter()
+    dispatch = eng.dispatch
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(str(ROOT)) and f.name != "show"]
+        if ours:
+            filename, lineno = ours[-1].filename, ours[-1].lineno
+        counts[f"{filename.replace(str(ROOT) + '/', '')}:{lineno}"] += 1
+
+    def watched():
+        # the mode is switched outside the counted region: its first
+        # switch warns by itself, before any operation runs
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                return dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eng.dispatch = watched
+    return counts
+
+
 def serve_phase():
     import torch
     from repro_torch.configs import get_config
@@ -388,27 +537,31 @@ def serve_phase():
     # that none follows a torch.profiler session
     forward_phase(cfg, pt)
     total = {k: 0 for k in read_launches()}
-    profiled = []
-    for name, drafter, kv_quant, nblocks, damp, path in SERVES:
-        model = drafter == "model"
+    profiled, streams = [], {}
+    for sv in SERVES:
+        model = sv.drafter == "model"
         serving = ServingConfig(max_batch_size=4, max_seq_len=256,
-                                kv_block_size=16, num_kv_blocks=nblocks,
-                                kv_quant=kv_quant)
+                                pipelined=sv.pipelined,
+                                paged_kv=sv.nblocks is not None,
+                                kv_block_size=16, num_kv_blocks=sv.nblocks,
+                                kv_quant=sv.kv_quant)
 
-        def engine(target=damped(pt, damp), model=model, drafter=drafter,
+        def engine(target=damped(pt, sv.damp), model=model, sv=sv,
                    serving=serving):
             return ServingEngine(target, cfg, pd if model else None,
                                  cfg if model else None,
                                  SpecDecodeConfig(policy="dsde",
-                                                  drafter=drafter),
+                                                  drafter=sv.drafter),
                                  serving, seed=0, device="cuda")
 
         reqs = [Request(i, prompt=p, max_new_tokens=32)
-                for i, p in enumerate(serve_prompts(cfg.vocab_size, drafter))]
+                for i, p in enumerate(serve_prompts(cfg.vocab_size,
+                                                    sv.drafter))]
         # one-time set-up (library handles, allocator pools) outside the
         # measured run
         engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
         eng = engine()
+        syncs = count_syncs(eng)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -416,35 +569,54 @@ def serve_phase():
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = read_launches()
-        if min(launches[k] for k in path) <= 0:
-            raise AssertionError(f"{name}: a kernel of the path never ran: "
+        if min(launches[k] for k in sv.path) <= 0:
+            raise AssertionError(f"{sv.name}: a kernel of the path never ran: "
                                  f"{launches}")
         if m["requests_finished"] != 8 or any(len(r.output) != 32 for r in reqs):
-            raise AssertionError(f"{name} did not finish every request: {m}")
+            raise AssertionError(f"{sv.name} did not finish every request: {m}")
         if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
-            raise AssertionError(f"{name}: a token outside the vocabulary")
+            raise AssertionError(f"{sv.name}: a token outside the vocabulary")
         proposing = sum(1 for r in eng.round_log if r["proposed"] > 0)
-        if name == "serve-ngram-int8" and proposing == 0:
-            raise AssertionError(f"{name}: no round proposed a token")
-        emit({"phase": name, "arch": cfg.name, "layers": cfg.num_layers,
-              "drafter": drafter, "kv_quant": kv_quant,
-              "residual_scale": damp,
-              "requests": len(reqs), "rounds": m["rounds"],
-              "tokens": m["tokens_emitted"], "preemptions": m["preemptions"],
-              "proposed": sum(r["proposed"] for r in eng.round_log),
-              "proposing_rounds": proposing,
-              "mean_acceptance": m["mean_acceptance"],
-              "block_efficiency": m["block_efficiency"], "wall_s": wall,
-              "tokens_per_s": m["tokens_emitted"] / wall,
-              "draft_steps": m["draft_steps"],
-              "kv_pool_blocks": m["kv_pool_blocks"],
-              "kv_block_bytes": m["kv_block_bytes"],
-              "kv_pool_bytes": m["kv_pool_bytes"], "launches": launches,
-              "tf32": False})
-        if name != "serve-ngram-undamped":
+        if sv.name == "serve-ngram-int8" and proposing == 0:
+            raise AssertionError(f"{sv.name}: no round proposed a token")
+        streams[sv.name] = [r.output for r in reqs]
+        row = {"phase": sv.name, "arch": cfg.name, "layers": cfg.num_layers,
+               "drafter": sv.drafter, "kv_quant": sv.kv_quant,
+               "paged_kv": sv.nblocks is not None, "pipelined": sv.pipelined,
+               "residual_scale": sv.damp,
+               "requests": len(reqs), "rounds": m["rounds"],
+               "tokens": m["tokens_emitted"], "preemptions": m["preemptions"],
+               "proposed": sum(r["proposed"] for r in eng.round_log),
+               "proposing_rounds": proposing,
+               "mean_acceptance": m["mean_acceptance"],
+               "block_efficiency": m["block_efficiency"], "wall_s": wall,
+               "tokens_per_s": m["tokens_emitted"] / wall,
+               "host_blocked_s": m["host_blocked_s"],
+               "dispatch_syncs": sum(syncs.values()),
+               "dispatch_sync_sources": dict(syncs),
+               "draft_steps": m["draft_steps"],
+               "kv_pool_blocks": m["kv_pool_blocks"],
+               "kv_block_bytes": m["kv_block_bytes"],
+               "kv_pool_bytes": m["kv_pool_bytes"], "launches": launches,
+               "tf32": False}
+        if sv.twin is not None:
+            row["equal_to_" + sv.twin] = streams[sv.name] == streams[sv.twin]
+        emit(row)
+        if sv.twin is not None and streams[sv.name] != streams[sv.twin]:
+            raise AssertionError(f"{sv.name}: greedy streams differ from "
+                                 f"{sv.twin}'s")
+        if sv.name != "serve-ngram-undamped":
             for k in total:
                 total[k] += launches[k]
-            profiled.append((name, engine, reqs))
+        if sv.name in PROFILED:
+            profiled.append((sv.name, engine, reqs))
+    # dense and paged may sum attention in other orders, so random-weight
+    # argmax streams may part at a near tie: printed, not required
+    emit({"phase": "dense-vs-paged",
+          "what": "full-width greedy streams, serve-dense vs serve",
+          "equal": streams["serve-dense"] == streams["serve"],
+          "requests_equal": sum(a == b for a, b in zip(streams["serve-dense"],
+                                                       streams["serve"]))})
     for args in profiled:
         profile_phase(*args)
     check_phase(cfg)
@@ -453,34 +625,45 @@ def serve_phase():
 
 def forward_phase(cfg, params) -> None:
     """Host cost of one full-width decode step (B 4, T 1, 128 committed
-    tokens per row) on each pool, and of its per-layer KV write alone:
-    the serve is host-bound, so these set its pace.  Wall time per call
-    with a synchronise after the timed loop."""
+    tokens per row) on the fp32 and int8 pools and on the dense ring, and
+    of its per-layer KV write alone: the serve is host-bound, so these
+    set its pace.  Wall time per call with a synchronise after the timed
+    loop."""
     import torch
     from repro_torch.models import cache as cache_lib
     from repro_torch.models.transformer import forward
 
     b, ctx, bs = 4, 128, 16
     row = {"phase": "forward", "B": b, "T": 1, "ctx": ctx}
-    for mode in ("none", "int8"):
-        cache = cache_lib.paged_cache_struct(cfg, b, 256, b * ctx // bs + 8,
-                                             bs, device="cuda", kv_quant=mode)
-        cache["block_table"][:, :ctx // bs] = torch.arange(
-            b * ctx // bs, dtype=torch.int32, device="cuda").reshape(b, -1)
-        cache["kv_pos"][:b * ctx // bs] = torch.arange(
-            ctx, dtype=torch.int32, device="cuda").reshape(-1, bs).repeat(b, 1)
-        cache["length"] = torch.full((b,), ctx, dtype=torch.int32,
-                                     device="cuda")
+    for mode in ("none", "int8", "ring"):
+        length = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
+        if mode == "ring":
+            cache = cache_lib.cache_struct(cfg, b, 256, device="cuda")
+            cache["kv_pos"][:, :ctx] = torch.arange(ctx, dtype=torch.int32,
+                                                    device="cuda")
+            slots = cache_lib.ring_slots(length[:, None], 256)
+        else:
+            cache = cache_lib.paged_cache_struct(
+                cfg, b, 256, b * ctx // bs + 8, bs, device="cuda",
+                kv_quant=mode)
+            cache["block_table"][:, :ctx // bs] = torch.arange(
+                b * ctx // bs, dtype=torch.int32, device="cuda").reshape(b, -1)
+            cache["kv_pos"][:b * ctx // bs] = torch.arange(
+                ctx, dtype=torch.int32, device="cuda").reshape(-1, bs).repeat(b, 1)
+            slots = cache_lib.write_slots(length[:, None],
+                                          cache["block_table"], bs,
+                                          cache["kv_pos"].shape[0])
+        cache["length"] = length
         tok = torch.ones((b, 1), dtype=torch.int32, device="cuda")
-        slots = cache_lib.write_slots(cache["length"][:, None],
-                                      cache["block_table"], bs,
-                                      cache["kv_pos"].shape[0])
         kv = torch.randn(2, b, 1, cfg.num_kv_heads, cfg.resolved_head_dim,
                          device="cuda")
         if mode == "int8":
             layer = [cache[n][0] for n in ("k", "v", "k_scale", "v_scale")]
             write = lambda: cache_lib.write_kv_paged_quant(*layer, kv[0], kv[1],
                                                            slots)
+        elif mode == "ring":
+            layer = [cache[n][0] for n in ("k", "v")]
+            write = lambda: cache_lib.write_kv(*layer, kv[0], kv[1], slots)
         else:
             layer = [cache[n][0] for n in ("k", "v")]
             write = lambda: cache_lib.write_kv_paged(*layer, kv[0], kv[1], slots)
@@ -498,11 +681,26 @@ def forward_phase(cfg, params) -> None:
     emit(row)
 
 
+# drafter, kv_quant, dense ring?, pipelined, attention window
+CHECKS = (
+    ("model", "none", False, False, None),
+    ("model", "int8", False, False, None),
+    ("ngram", "int8", False, False, None),
+    ("model", "none", True, False, None),
+    ("model", "none", True, True, None),
+    ("ngram", "none", True, False, None),
+    ("model", "none", True, False, 24),
+)
+
+
 def check_phase(cfg) -> None:
     """The serves' paths at the reduced width: card (kernels) vs CPU
-    (plain versions), equal greedy streams.  The n-gram engine looks up
+    (plain versions), equal greedy streams, on the pool and on the dense
+    ring (synchronous, pipelined, and windowed: window 24 makes a ring of
+    40 slots that every request runs past).  The n-gram engine looks up
     1-grams here: with random weights the streams never repeat a trigram
     at this width, and the check needs proposals to be made."""
+    import dataclasses
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
     from repro_torch.models.weights import init_params, map_params
     from repro_torch.serving.engine import ServingEngine
@@ -512,34 +710,43 @@ def check_phase(cfg) -> None:
     p_small = init_params(small, seed=2, device="cpu")
     d_small = map_params(lambda a, n: a + 0.03 * n, p_small,
                          init_params(small, seed=3, device="cpu"))
-    for drafter, kv_quant in (("model", "none"), ("model", "int8"),
-                              ("ngram", "int8")):
+    for drafter, kv_quant, dense, pipelined, window in CHECKS:
         model = drafter == "model"
-        outs, proposed = {}, {}
+        arch = dataclasses.replace(small, attention_window=window)
+        outs, proposed, length = {}, {}, 0
         for device in ("cuda", "cpu"):
             rs = [Request(i, prompt=list(range(3 + i, 12 + 2 * i)) * 2,
                           max_new_tokens=24) for i in range(4)]
             eng = ServingEngine(
-                p_small, small, d_small if model else None,
-                small if model else None,
+                p_small, arch, d_small if model else None,
+                arch if model else None,
                 SpecDecodeConfig(policy="dsde", drafter=drafter,
                                  ngram_n=3 if model else 1),
                 ServingConfig(max_batch_size=2, max_seq_len=128,
+                              pipelined=pipelined, paged_kv=not dense,
                               kv_block_size=16, num_kv_blocks=8,
                               kv_quant=kv_quant),
                 device=device)
             eng.run(rs)
             outs[device] = [r.output for r in rs]
             proposed[device] = sum(r["proposed"] for r in eng.round_log)
+            length = min(r.cache_len for r in rs)
         same = outs["cuda"] == outs["cpu"] and proposed["cuda"] == proposed["cpu"]
         if proposed["cuda"] <= 0:
             raise AssertionError(f"check ({drafter}, {kv_quant}): no proposals")
+        ring = (window + 16) if window else None
+        if ring and length <= ring:
+            raise AssertionError(f"windowed check: rows of {length} tokens "
+                                 f"never wrap a {ring}-slot ring")
         emit({"phase": "check", "what": "reduced-width greedy streams, card vs CPU",
-              "drafter": drafter, "kv_quant": kv_quant, "requests": 4,
-              "proposed": proposed["cuda"], "equal": same})
+              "drafter": drafter, "kv_quant": kv_quant,
+              "layout": "dense" if dense else "paged", "pipelined": pipelined,
+              "window": window, "ring_slots": ring, "min_tokens": length,
+              "requests": 4, "proposed": proposed["cuda"], "equal": same})
         if not same:
             raise AssertionError(f"card and CPU streams differ ({drafter}, "
-                                 f"{kv_quant}): {outs}")
+                                 f"{kv_quant}, dense={dense}, pipelined="
+                                 f"{pipelined}, window={window}): {outs}")
 
 
 def profile_phase(serve, engine, reqs) -> None:
@@ -623,6 +830,9 @@ def main() -> int:
         "paged_ragged_verify_attention_quant": (
             "src/repro_torch/csrc/paged_attention_quant.cu",
             "src/repro/kernels/ragged_attention.py:309"),
+        "ragged_verify_attention": (
+            "src/repro_torch/csrc/ragged_attention.cu",
+            "src/repro/kernels/ragged_attention.py:88"),
     }
     kernels = []
     for kernel, (src, replaces) in sources.items():

@@ -93,13 +93,17 @@ class SpecDecodeConfig:
 
 @dataclass(frozen=True)
 class ServingConfig:
-    """Serving shape.  The block-paged pool is the port's only KV layout
-    and the schedule is synchronous; the reference's dense ring,
-    pipelined and prefix-caching options come with their slices.
-    ``kv_quant`` is the pool's storage mode: ``"none"`` (fp32) or
-    ``"int8"`` (int8 values plus one fp32 scale per stored vector)."""
+    """Serving shape.  ``paged_kv`` picks the KV layout: a dense ring of
+    ``max_seq_len`` (or window + slack) slots per batch slot (the
+    default, as in the reference) or the shared block-paged pool.
+    ``pipelined`` dispatches round N+1 before the host reconciles round
+    N.  ``kv_quant`` is the paged pool's storage mode: ``"none"`` (fp32)
+    or ``"int8"`` (int8 values plus one fp32 scale per stored vector).
+    Prefix caching comes with its slice."""
     max_batch_size: int = 64
     max_seq_len: int = 4096
+    pipelined: bool = False
+    paged_kv: bool = False
     kv_block_size: int = 16
     num_kv_blocks: Optional[int] = None     # None = dense-equivalent
     kv_quant: str = "none"

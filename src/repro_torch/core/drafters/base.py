@@ -54,19 +54,23 @@ class Drafter:
         return 0.0
 
     # ------------------------------------------------------- device-side
-    def init_cache(self, batch: int, max_len: int, paged: Tuple[int, int],
+    def init_cache(self, batch: int, max_len: int,
+                   paged: Optional[Tuple[int, int]] = None,
                    dtype=torch.float32, device="cpu",
                    kv_quant: str = "none") -> State:
-        """``kv_quant`` is the target pool's storage mode; a drafter that
-        mirrors the pool stores its own the same way."""
+        """``paged`` is the target's pool geometry ``(num_blocks,
+        block_size)``, None for a dense ring; ``kv_quant`` the pool's
+        storage mode.  A drafter that keeps KV uses the same layout."""
         return ()
 
     def prefill(self, params_d, cache: State, idx: torch.Tensor,
                 tokens: torch.Tensor, prompt_lens: torch.Tensor,
-                table_rows: torch.Tensor) -> State:
+                table_rows: Optional[torch.Tensor] = None,
+                max_len: Optional[int] = None) -> State:
         """Absorb an admission group: right-padded prompts ``tokens [R,
-        S]`` landing in batch slots ``idx [R]`` with block-table rows
-        ``table_rows [R, max_blocks]``."""
+        S]`` landing in batch slots ``idx [R]``, with block-table rows
+        ``table_rows [R, max_blocks]`` on the paged pool, or fresh ring
+        rows of a ``max_len`` cache when ``table_rows`` is None."""
         return cache
 
     def propose(self, params_d, draft_cache: State, pending: torch.Tensor,

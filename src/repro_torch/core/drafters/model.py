@@ -1,7 +1,7 @@
 """The draft-model proposer (``repro.core.drafters.model``): a separate
-small model proposes K tokens per round from its own paged KV cache,
-which mirrors the target's block ids so one allocator decision covers
-both pools."""
+small model proposes K tokens per round from its own KV cache, in the
+target's layout: a dense ring, or a pool that mirrors the target's block
+ids so one allocator decision covers both pools."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,7 +41,8 @@ def autoregressive_draft_loop(params, cfg: ModelConfig, cache: dict,
     cur = dict(cache)
     for j in range(k + 1):
         # step j writes position len+j, needed only up to the committed
-        # horizon (j <= SL_i); inactive rows never write
+        # horizon (j <= SL_i); inactive rows never write to a pool (a
+        # ring ignores the mask: its writes are masked by kv_pos <= q_pos)
         wm = ((j <= sl_i) & active)[:, None]
         lg, cur = forward(params, cfg, tok[:, None], cache=cur,
                           mode="decode", write_mask=wm)
@@ -69,7 +70,8 @@ def autoregressive_draft_loop(params, cfg: ModelConfig, cache: dict,
 @register_drafter("model")
 @dataclasses.dataclass(frozen=True)
 class ModelDrafter(Drafter):
-    """Separate small draft model with a mirrored paged KV cache."""
+    """Separate small draft model with a KV cache in the target's layout:
+    a dense ring, or a pool that mirrors the target's block ids."""
 
     def uses_draft_model(self) -> bool:
         return True
@@ -81,8 +83,11 @@ class ModelDrafter(Drafter):
         return (model_flops_per_token(self.cfg_d)
                 / max(model_flops_per_token(self.cfg_t), 1.0))
 
-    def init_cache(self, batch, max_len, paged, dtype=torch.float32,
+    def init_cache(self, batch, max_len, paged=None, dtype=torch.float32,
                    device="cpu", kv_quant="none"):
+        if paged is None:
+            return cache_lib.cache_struct(self.cfg_d, batch, max_len, dtype,
+                                          device)
         # the mirror inherits the target pool's storage mode, so a block
         # id means the same bytes on both sides
         n_blocks, bs = paged
@@ -90,7 +95,12 @@ class ModelDrafter(Drafter):
                                             n_blocks, bs, dtype, device,
                                             kv_quant=kv_quant)
 
-    def prefill(self, params_d, cache, idx, tokens, prompt_lens, table_rows):
+    def prefill(self, params_d, cache, idx, tokens, prompt_lens,
+                table_rows=None, max_len=None):
+        if table_rows is None:
+            rows, _ = prefill_lib.prefill_rows(params_d, self.cfg_d, tokens,
+                                               prompt_lens, max_len)
+            return prefill_lib.set_slots(cache, rows, idx)
         rows, _ = prefill_lib.prefill_paged_rows(
             params_d, self.cfg_d, cache["k"], cache["v"], cache["kv_pos"],
             table_rows, tokens, prompt_lens, cache.get("k_scale"),

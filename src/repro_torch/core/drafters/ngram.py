@@ -37,7 +37,7 @@ class NGramDrafter(Drafter):
     # uses_draft_model / mirrors_kv / step_cost: base defaults (False /
     # False / 0.0): a table lookup is free next to a verification
 
-    def init_cache(self, batch, max_len, paged, dtype=torch.float32,
+    def init_cache(self, batch, max_len, paged=None, dtype=torch.float32,
                    device="cpu", kv_quant="none"):
         # token history, NOT a KV cache: ``length`` counts committed
         # tokens, mirroring the target cache's commit arithmetic
@@ -45,7 +45,8 @@ class NGramDrafter(Drafter):
         return {"tokens": torch.zeros((batch, max_len), **i32),
                 "length": torch.zeros((batch,), **i32)}
 
-    def prefill(self, params_d, cache, idx, tokens, prompt_lens, table_rows):
+    def prefill(self, params_d, cache, idx, tokens, prompt_lens,
+                table_rows=None, max_len=None):
         # full-row writes: no stale text from a slot's previous occupant
         buf = cache["tokens"].clone()
         rows = torch.zeros((tokens.shape[0], buf.shape[1]), dtype=torch.int32,

@@ -98,6 +98,13 @@ class SpecPolicy:
         """Worst-case KV slots one round can consume (admission)."""
         return self.spec.sl_max + 1
 
+    def max_bucket(self) -> int:
+        """Largest bucket any round can run (``pick_bucket``'s upper
+        bound): the pipelined engine's bucket at temperature > 0."""
+        if not self.uses_draft():
+            return 0
+        return self.max_lookahead() - 1
+
     def pick_bucket(self, ctx: HostRoundContext) -> int:
         """K = max live SL prediction, floored at sl_min."""
         if not self.uses_draft():

@@ -1,4 +1,5 @@
-"""One speculative-decoding round on the paged pool (``repro.core.spec_decode``).
+"""One speculative-decoding round (``repro.core.spec_decode``), on the
+dense ring or the block-paged pool alike.
 
   1. propose      — the drafter (``ModelDrafter``: K+1 single-token draft
                     decode steps against its mirrored pool;
@@ -188,27 +189,34 @@ spec_decode_round = spec_decode_round_impl
 
 def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
                      spec: SpecDecodeConfig, batch: int, max_len: int,
-                     paged: Tuple[int, int], base_seed: int = 0,
-                     drafter: Optional[Drafter] = None,
+                     paged: Optional[Tuple[int, int]] = None,
+                     base_seed: int = 0, drafter: Optional[Drafter] = None,
                      dtype=torch.float32, device="cuda",
                      kv_quant: str = "none") -> RoundState:
-    """Fresh round state on ``device``: the target's block-paged cache
-    (``paged=(num_blocks, block_size)``, stored as ``kv_quant`` says)
-    plus the drafter's cache (a mirrored pool inherits the storage
+    """Fresh round state on ``device``: the target's cache — a dense ring
+    (``paged=None``) or the block-paged pool (``paged=(num_blocks,
+    block_size)``, stored as ``kv_quant`` says) — plus the drafter's
+    cache in the same layout (a mirrored pool inherits the storage
     mode).  The termination fields default to "never terminate" (the
     engine sets them per slot at prefill)."""
     if kv_quant not in cache_lib.KV_QUANT_MODES:
         raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
+    if kv_quant != "none" and paged is None:
+        raise ValueError("kv_quant requires the block-paged cache "
+                         "(pass paged=(num_blocks, block_size))")
     device = resolve_device(device)
     policy = build_policy(spec)
     if drafter is None:
         drafter = build_drafter(spec, cfg_t, cfg_d)
-    n_blocks, bs = paged
     i32 = dict(dtype=torch.int32, device=device)
+    if paged is None:
+        t_cache = cache_lib.cache_struct(cfg_t, batch, max_len, dtype, device)
+    else:
+        t_cache = cache_lib.paged_cache_struct(cfg_t, batch, max_len,
+                                               *paged, dtype, device,
+                                               kv_quant=kv_quant)
     return RoundState(
-        target_cache=cache_lib.paged_cache_struct(cfg_t, batch, max_len,
-                                                  n_blocks, bs, dtype, device,
-                                                  kv_quant=kv_quant),
+        target_cache=t_cache,
         draft_cache=drafter.init_cache(batch, max_len, paged, dtype, device,
                                        kv_quant=kv_quant),
         policy_state=policy.init_state(batch, device),

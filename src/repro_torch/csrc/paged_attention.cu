@@ -21,18 +21,19 @@ extern "C" int paged_attention(const void* q, const void* pool_k,
                                int bs, int maxb, int window, float scale,
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  paged::TableAddr table{block_table, maxb, bs};
   if (dtype == 0) {
     paged::FpPool<float> pool{static_cast<const float*>(pool_k),
                               static_cast<const float*>(pool_v)};
-    return paged::launch<float>(q, pool, block_table, q_pos, kv_pos, out, n_b,
-                                n_t, n_h, n_kv, d, bs, maxb, window, scale, s);
+    return paged::launch<float>(q, pool, table, q_pos, kv_pos, out, n_b,
+                                n_t, n_h, n_kv, d, bs, window, scale, s);
   }
   if (dtype == 1) {
     paged::FpPool<__nv_bfloat16> pool{static_cast<const __nv_bfloat16*>(pool_k),
                                       static_cast<const __nv_bfloat16*>(pool_v)};
-    return paged::launch<__nv_bfloat16>(q, pool, block_table, q_pos, kv_pos, out,
-                                        n_b, n_t, n_h, n_kv, d, bs, maxb,
-                                        window, scale, s);
+    return paged::launch<__nv_bfloat16>(q, pool, table, q_pos, kv_pos, out,
+                                        n_b, n_t, n_h, n_kv, d, bs, window,
+                                        scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,25 +1,32 @@
-// Paged decode / verify attention for Hopper (sm_90a), read straight off
-// the shared KV block pool through each sequence's block table: the kernel
-// body shared by paged_attention.cu (fp32 / bf16 pools) and
-// paged_attention_quant.cu (int8 pools with per-slot scales).  The two
-// differ only in how a K/V element is read (the `Pool` parameter).
+// Decode / verify attention for Hopper (sm_90a) read straight off the KV
+// cache: the kernel body shared by paged_attention.cu (fp32 / bf16 block
+// pools), paged_attention_quant.cu (int8 block pools with per-slot scales)
+// and ragged_attention.cu (the dense per-slot ring).  They differ only in
+// how a K/V element is read (the `Pool` parameter) and in where a tile of
+// a sequence's cache lies (the `Addr` parameter).
 //
-// Function: GQA attention of q [B,T,H,D] over the pool [N,BS,KV,D]; slot
-// (block p, offset s) is valid for query position qp iff
-// 0 <= kv_pos[p,s] <= qp (and qp - kv_pos < window when a window is set);
-// an unallocated table entry (-1) masks its whole logical block; scale
-// 1/sqrt(D); out = acc / max(l, 1e-30), so a row with no valid slot is 0.
+// Function: GQA attention of q [B,T,H,D] over the sequence's cache slots;
+// a slot is valid for query position qp iff 0 <= kv_pos[slot] <= qp (and
+// qp - kv_pos < window when a window is set); scale 1/sqrt(D);
+// out = acc / max(l, 1e-30), so a row with no valid slot is 0.
+//
+// Addressing.  A sequence's cache is a list of tiles of at most 32 slots.
+// Block pool [N,BS,KV,D] (`TableAddr`): tile p is logical block p, at
+// physical block table[b, p]; an unallocated entry (-1) skips the tile
+// (identical to masking every score: a fully masked tile leaves (m, l,
+// acc) unchanged).  Dense ring [B,W,KV,D] (`RingAddr`): tile p holds ring
+// slots p*32 ... of row b, at flat slot b*W + p*32; the last tile of a
+// ring whose W is no multiple of 32 is short, and its missing slots are
+// staged as empty (kv_pos -1, zero K/V), so the buffers are never padded.
+// Either way kv_pos sits beside K/V at the same flat slot.
 //
 // Layout: one thread block per (sequence b, KV head).  The block holds the
 // G*T query rows of its KV head (G = H/KV) in shared memory together with
 // their online-softmax state (m, l, acc) in fp32, and walks the sequence's
-// logical blocks in a loop -- the loop takes the place of the TPU grid's
-// sequential block axis.  Per logical block it reads its own table entry,
-// skips the block if it is unallocated (identical to masking every score:
-// a fully masked tile leaves (m, l, acc) unchanged), stages the K/V tile in
-// fp32 and its kv_pos row in shared memory, and each warp updates its query
-// rows: lane s < BS scores slot s, the warp reduces max and sum, and lane
-// d updates acc[d], acc[d+32], ...
+// tiles in a loop -- the loop takes the place of the TPU grid's sequential
+// kv axis.  Per tile it stages the K/V tile in fp32 and its kv_pos row in
+// shared memory, and each warp updates its query rows: lane s scores slot
+// s, the warp reduces max and sum, and lane d updates acc[d], acc[d+32], ...
 //
 // This first version keeps one block per (b, kv) and plain loads;
 // splitting the sweep over blocks (flash-decoding), cp.async or TMA
@@ -82,13 +89,41 @@ struct Int8Pool {
   }
 };
 
-template <typename Q, typename Pool>
+// Tiles of the block pool: logical block p of sequence b through its table.
+struct TableAddr {
+  static constexpr bool kRagged = false;   // every tile is a full block
+  const int* table;
+  int maxb;
+  int bs;
+  __device__ __forceinline__ int n_tiles() const { return maxb; }
+  // flat slot of the tile's first entry (-1: unallocated), *len its slots
+  __device__ __forceinline__ int tile(int b, int p, int* len) const {
+    const int phys = table[b * maxb + p];
+    *len = bs;
+    return phys < 0 ? -1 : phys * bs;
+  }
+};
+
+// Tiles of the dense ring [B,W,...]: 32 ring slots each, the last one
+// ragged when W is no multiple of 32.
+struct RingAddr {
+  static constexpr bool kRagged = true;    // the last tile may be short
+  static constexpr int kTile = 32;
+  int w;
+  __device__ __forceinline__ int n_tiles() const { return (w + kTile - 1) / kTile; }
+  __device__ __forceinline__ int tile(int b, int p, int* len) const {
+    *len = min(kTile, w - p * kTile);
+    return b * w + p * kTile;
+  }
+};
+
+// `tw` is the widest tile (<= 32, one lane per slot).
+template <typename Q, typename Pool, typename Addr>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const Q* __restrict__ q, Pool pool,
-                       const int* __restrict__ block_table,
+paged_attention_kernel(const Q* __restrict__ q, Pool pool, Addr addr,
                        const int* __restrict__ q_pos,
                        const int* __restrict__ kv_pos, Q* __restrict__ out,
-                       int n_t, int n_h, int n_kv, int d, int bs, int maxb,
+                       int n_t, int n_h, int n_kv, int d, int tw,
                        int window, float scale) {
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -104,11 +139,11 @@ paged_attention_kernel(const Q* __restrict__ q, Pool pool,
   float* acc = q_s + rows * d;           // [rows, d]
   float* m_s = acc + rows * d;           // [rows]
   float* l_s = m_s + rows;               // [rows]
-  float* k_s = l_s + rows;               // [bs, d + 1] (padded: no bank conflicts)
-  float* v_s = k_s + bs * (d + 1);       // [bs, d]
-  float* p_w = v_s + bs * d;             // [nwarps, bs] probabilities
-  int* pos_s = reinterpret_cast<int*>(p_w + nwarps * bs);   // [bs]
-  int* qp_s = pos_s + bs;                // [n_t]
+  float* k_s = l_s + rows;               // [tw, d + 1] (padded: no bank conflicts)
+  float* v_s = k_s + tw * (d + 1);       // [tw, d]
+  float* p_w = v_s + tw * d;             // [nwarps, tw] probabilities
+  int* pos_s = reinterpret_cast<int*>(p_w + nwarps * tw);   // [tw]
+  int* qp_s = pos_s + tw;                // [n_t]
 
   // row r <-> (t = r / g, head h = kvh * g + r % g): the reference's
   // q.reshape(b, t, kv, g, d) grouping
@@ -125,23 +160,39 @@ paged_attention_kernel(const Q* __restrict__ q, Pool pool,
   for (int t = tid; t < n_t; t += kThreads) qp_s[t] = q_pos[b * n_t + t];
   __syncthreads();
 
-  for (int lb = 0; lb < maxb; ++lb) {
-    const int phys = block_table[b * maxb + lb];
-    if (phys < 0) continue;              // uniform across the block
-    for (int i = tid; i < bs * d; i += kThreads) {
-      const int s = i / d, c = i % d;
-      const size_t slot = ((size_t)phys * bs + s) * n_kv + kvh;
-      k_s[s * (d + 1) + c] = pool.key(slot, c, d);
-      v_s[s * d + c] = pool.value(slot, c, d);
+  const int n_tiles = addr.n_tiles();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    int len;
+    const int base = addr.tile(b, tile, &len);
+    if (base < 0) continue;              // uniform across the block
+    // stage the K/V tile in fp32.  A full tile copies without a bound
+    // check per element; only a short ring tail (compiled only where a
+    // tile can be short; uniform across the block) stages its missing
+    // slots empty, zero K/V, so their zero probabilities never meet
+    // garbage in the acc update.
+    if (!Addr::kRagged || len == tw) {
+      for (int i = tid; i < tw * d; i += kThreads) {
+        const int s = i / d, c = i % d;
+        const size_t slot = ((size_t)base + s) * n_kv + kvh;
+        k_s[s * (d + 1) + c] = pool.key(slot, c, d);
+        v_s[s * d + c] = pool.value(slot, c, d);
+      }
+    } else {
+      for (int i = tid; i < tw * d; i += kThreads) {
+        const int s = i / d, c = i % d;
+        const size_t slot = ((size_t)base + s) * n_kv + kvh;
+        k_s[s * (d + 1) + c] = s < len ? pool.key(slot, c, d) : 0.f;
+        v_s[s * d + c] = s < len ? pool.value(slot, c, d) : 0.f;
+      }
     }
-    for (int s = tid; s < bs; s += kThreads) pos_s[s] = kv_pos[phys * bs + s];
+    for (int s = tid; s < tw; s += kThreads) pos_s[s] = s < len ? kv_pos[base + s] : -1;
     __syncthreads();
 
     for (int r = warp; r < rows; r += nwarps) {
       const int qp = qp_s[r / g];
       float sc = kNegInf;
       bool valid = false;
-      if (lane < bs) {
+      if (lane < tw) {
         const int kp = pos_s[lane];
         valid = kp >= 0 && kp <= qp && (window <= 0 || qp - kp < window);
         if (valid) {
@@ -157,11 +208,11 @@ paged_attention_kernel(const Q* __restrict__ q, Pool pool,
       const float alpha = expf(m_prev - m_new);
       const float p = valid ? expf(sc - m_new) : 0.f;
       const float psum = warp_sum(p);
-      if (lane < bs) p_w[warp * bs + lane] = p;
+      if (lane < tw) p_w[warp * tw + lane] = p;
       __syncwarp();
       for (int c = lane; c < d; c += 32) {
         float a = acc[r * d + c] * alpha;
-        for (int s = 0; s < bs; ++s) a = fmaf(p_w[warp * bs + s], v_s[s * d + c], a);
+        for (int s = 0; s < tw; ++s) a = fmaf(p_w[warp * tw + s], v_s[s * d + c], a);
         acc[r * d + c] = a;
       }
       __syncwarp();                      // m_prev and p_w read by every lane
@@ -182,30 +233,29 @@ paged_attention_kernel(const Q* __restrict__ q, Pool pool,
   }
 }
 
-inline size_t smem_bytes(int rows, int d, int bs, int n_t) {
+inline size_t smem_bytes(int rows, int d, int tw, int n_t) {
   const int nwarps = kThreads / 32;
-  return sizeof(float) * (2 * (size_t)rows * d + 2 * rows + (size_t)bs * (d + 1)
-                          + (size_t)bs * d + nwarps * bs)
-         + sizeof(int) * (bs + n_t);
+  return sizeof(float) * (2 * (size_t)rows * d + 2 * rows + (size_t)tw * (d + 1)
+                          + (size_t)tw * d + nwarps * tw)
+         + sizeof(int) * (tw + n_t);
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
-template <typename Q, typename Pool>
-int launch(const void* q, Pool pool, const int* block_table, const int* q_pos,
+template <typename Q, typename Pool, typename Addr>
+int launch(const void* q, Pool pool, Addr addr, const int* q_pos,
            const int* kv_pos, void* out, int n_b, int n_t, int n_h, int n_kv,
-           int d, int bs, int maxb, int window, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes((n_h / n_kv) * n_t, d, bs, n_t);
+           int d, int tw, int window, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes((n_h / n_kv) * n_t, d, tw, n_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<Q, Pool>,
+        paged_attention_kernel<Q, Pool, Addr>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(n_b, n_kv);
-  paged_attention_kernel<Q, Pool><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Q*>(q), pool, block_table, q_pos, kv_pos,
-      static_cast<Q*>(out), n_t, n_h, n_kv, d, bs, maxb, window, scale);
+  paged_attention_kernel<Q, Pool, Addr><<<grid, kThreads, smem, stream>>>(
+      static_cast<const Q*>(q), pool, addr, q_pos, kv_pos,
+      static_cast<Q*>(out), n_t, n_h, n_kv, d, tw, window, scale);
   return (int)cudaGetLastError();
 }
 

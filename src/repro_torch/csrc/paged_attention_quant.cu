@@ -31,16 +31,17 @@ extern "C" int paged_attention_quant(const void* q, const void* pool_k,
                                      int maxb, int window, float scale,
                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  paged::TableAddr table{block_table, maxb, bs};
   paged::Int8Pool pool{static_cast<const int8_t*>(pool_k),
                        static_cast<const int8_t*>(pool_v),
                        static_cast<const float*>(k_scale),
                        static_cast<const float*>(v_scale)};
   if (dtype == 0)
-    return paged::launch<float>(q, pool, block_table, q_pos, kv_pos, out, n_b,
-                                n_t, n_h, n_kv, d, bs, maxb, window, scale, s);
+    return paged::launch<float>(q, pool, table, q_pos, kv_pos, out, n_b,
+                                n_t, n_h, n_kv, d, bs, window, scale, s);
   if (dtype == 1)
-    return paged::launch<__nv_bfloat16>(q, pool, block_table, q_pos, kv_pos,
-                                        out, n_b, n_t, n_h, n_kv, d, bs, maxb,
-                                        window, scale, s);
+    return paged::launch<__nv_bfloat16>(q, pool, table, q_pos, kv_pos,
+                                        out, n_b, n_t, n_h, n_kv, d, bs, window,
+                                        scale, s);
   return (int)cudaErrorInvalidValue;
 }

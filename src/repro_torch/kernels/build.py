@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("paged_attention", "kld_accept", "paged_attention_quant",
-           "ngram_match")
+           "ngram_match", "ragged_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

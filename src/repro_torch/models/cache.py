@@ -1,7 +1,18 @@
-"""The block-paged KV cache of the port (the paged plane of
-``repro.models.cache``).
+"""The KV caches of the port (``repro.models.cache``): the dense ring
+and the block-paged pool.
 
-A cache is a dict of tensors:
+A **dense ring** cache (``paged_kv=False``, the reference's default) is a
+dict of tensors:
+
+* ``k``/``v`` — rings ``[L, B, W, KV, D]``, one W-wide row per batch
+  slot; position ``p`` of row ``b`` lives at slot ``p % W``.  W is
+  ``max_len``, or ``window + RING_SLACK`` for a windowed model, so a
+  windowed ring wraps;
+* ``kv_pos [B, W]`` int32 — absolute position stored in each slot (-1 =
+  empty), with the validity rule below;
+* ``length [B]`` int32 — committed tokens per sequence.
+
+A **block-paged** cache is a dict of tensors:
 
 * ``k``/``v`` — pools ``[L, n_blocks + 1, block_size, KV, D]`` shared by
   every sequence (the extra block is the drop target, below);
@@ -17,13 +28,14 @@ A cache is a dict of tensors:
   each stored vector has its own amax scale (``x ≈ int8 * scale``).
 
 Where the reference is functional (``.at[].set`` returns a new pool),
-the port writes the pools and ``kv_pos`` IN PLACE: every caller drops
-the old pool the moment a write returns, and rollback never needs the
-pre-write values — stale speculative slots are overwritten by the next
-write at the same position or masked by ``kv_pos > q`` (the reference's
-overwrite-or-mask argument, DESIGN.md §4).  ``length`` is never bumped
-in place: it is replaced by a new tensor, because a round keeps the
-pre-round cache dict as its commit snapshot.
+the port writes the rings, the pools and ``kv_pos`` IN PLACE: every
+caller drops the old buffers the moment a write returns, and rollback
+never needs the pre-write values — stale speculative slots are
+overwritten by the next write at the same position or masked by
+``kv_pos > q`` (the reference's overwrite-or-mask argument, DESIGN.md
+§4).  ``length`` is never bumped in place: it is replaced by a new
+tensor, because a round keeps the pre-round cache dict as its commit
+snapshot.
 
 The pools and ``kv_pos`` hold ONE block more than the allocator hands
 out: block ``num_blocks`` is the drop target.  The reference drops a
@@ -43,6 +55,95 @@ from repro_torch.core.config import ModelConfig
 
 CacheT = Dict[str, Any]
 
+
+# ---------------------------------------------------------------------------
+# dense ring (paged_kv=False)
+# ---------------------------------------------------------------------------
+
+# ring slots beyond the attention window: a T-token decode/verify call
+# writes T entries before its first query reads, so without slack it
+# would overwrite the oldest keys still in the window (SL_max + 1 = 11)
+RING_SLACK = 16
+
+
+def _kv_window(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.attention_window is not None:
+        return min(max_len, cfg.attention_window + RING_SLACK)
+    return max_len
+
+
+def kv_buf_shape(cfg: ModelConfig, batch: int, window: int,
+                 layers: int) -> Tuple[int, ...]:
+    return (layers, batch, window, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.float32, device="cpu") -> CacheT:
+    """Fresh dense-ring cache: zero rings, every slot empty, every length
+    0 (the dense family's leaves of the reference's ``cache_struct``)."""
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} has no dense ring in the port")
+    w = _kv_window(cfg, max_len)
+    shape = kv_buf_shape(cfg, batch, w, cfg.num_layers)
+    return {"length": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "kv_pos": torch.full((batch, w), -1, dtype=torch.int32,
+                                 device=device)}
+
+
+def cache_window(cache: CacheT) -> int:
+    return cache["kv_pos"].shape[-1]
+
+
+def is_paged(cache: CacheT) -> bool:
+    return "block_table" in cache
+
+
+def _last_columns(x: torch.Tensor, window: int) -> torch.Tensor:
+    return x[:, -window:] if x.shape[1] >= window else x
+
+
+def ring_slots(positions: torch.Tensor, window: int) -> torch.Tensor:
+    """Flat ring slot ``b * W + p % W`` [B*T'] int64 of each [B,T]
+    position, shared by one model call's K/V and kv_pos writes.  When
+    ``T >= W`` only the last W columns are written (T' = W), as the
+    reference's ``write_kv`` keeps the last W tokens of a long prefill;
+    the kept columns then fall on distinct slots."""
+    positions = _last_columns(positions, window)
+    rows = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    return (rows * window + positions.long() % window).reshape(-1)
+
+
+def write_kv(k_buf: torch.Tensor, v_buf: torch.Tensor, k_new: torch.Tensor,
+             v_new: torch.Tensor, slots: torch.Tensor) -> None:
+    """Scatter [B,T,KV,D] new KV into one layer's rings ``[B, W, KV, D]``
+    at :func:`ring_slots`, in place (``T >= W``: the last W tokens).  No
+    write mask: a write past a row's horizon lands in the ring and is
+    masked later by ``kv_pos <= q_pos``, as in the reference."""
+    b, w = k_buf.shape[:2]
+    for buf, new in ((k_buf, k_new), (v_buf, v_new)):
+        new = _last_columns(new, w)
+        buf.view((b * w,) + buf.shape[2:]).index_copy_(
+            0, slots, new.reshape((-1,) + new.shape[2:]).to(buf.dtype))
+
+
+def write_pos(kv_pos: torch.Tensor, positions: torch.Tensor,
+              slots: torch.Tensor,
+              valid: Optional[torch.Tensor] = None) -> None:
+    """Update the ring's slot-position map ``[B, W]`` in place (once per
+    model call) at :func:`ring_slots`; ``valid`` marks entries written
+    as -1 (ragged prefill padding)."""
+    w = kv_pos.shape[1]
+    newpos = positions if valid is None else torch.where(valid, positions, -1)
+    kv_pos.view(-1).index_copy_(0, slots,
+                                _last_columns(newpos, w).reshape(-1)
+                                .to(kv_pos.dtype))
+
+
+# ---------------------------------------------------------------------------
+# block-paged pool (paged_kv=True)
+# ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """The port's paged plane carries the dense family."""
@@ -268,10 +369,12 @@ def reset_blocks(kv_pos: torch.Tensor, block_ids) -> None:
     """Mark freshly (re)allocated blocks empty, in place.  Mandatory on
     allocation: a block recycled from another sequence still holds
     kv_pos values that could satisfy ``0 <= kv_pos <= q`` for its new
-    owner."""
-    ids = torch.as_tensor(list(block_ids), dtype=torch.long,
-                          device=kv_pos.device)
-    kv_pos[ids] = -1
+    owner.  ``block_ids``: ids, or an int64 tensor of them on kv_pos's
+    device."""
+    if not isinstance(block_ids, torch.Tensor):
+        block_ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+                                    device=kv_pos.device)
+    kv_pos[block_ids] = -1
 
 
 def commit_length(cache: CacheT, new_length: torch.Tensor) -> CacheT:

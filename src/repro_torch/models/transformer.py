@@ -5,12 +5,18 @@ reference's three modes:
 
 * ``"train"``   — full causal pass, no cache;
 * ``"prefill"`` — right-padded prompts (``input_mask``) written into the
-  paged pool, attention over the fresh K/V;
-* ``"decode"``  — T tokens against the paged pool (T = 1 for a draft
-  step, K+1 for verification), K/V written first through the block
-  table (``write_mask`` drops per-token writes), then attention straight
-  off the pool through :func:`paged_ragged_attention` — the CUDA kernel
-  when the pool is a CUDA tensor, its plain version on the CPU.
+  cache, attention over the fresh K/V;
+* ``"decode"``  — T tokens against the cache (T = 1 for a draft step,
+  K+1 for verification), K/V written first, then attention straight off
+  the cache — the CUDA kernel when the cache is a CUDA tensor, its plain
+  version on the CPU.
+
+The cache is a dense ring or a block-paged pool (``models/cache.py``).
+A ring write lands at ``p % W`` and takes no write mask (a write past a
+row's horizon is masked later by ``kv_pos <= q_pos``, as in the
+reference); decode attends through :func:`ragged_attention`.  A pool
+write goes through the block table (``write_mask`` drops per-token
+writes); decode attends through :func:`paged_ragged_attention`.
 
 An int8 pool (``k_scale`` in the cache) quantizes on every write; decode
 attends through :func:`paged_ragged_attention_quant`, and prefill
@@ -30,6 +36,7 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.paged_attention import paged_ragged_attention
 from repro_torch.kernels.paged_attention_quant import paged_ragged_attention_quant
+from repro_torch.kernels.ragged_attention import ragged_attention
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.layers import (attend, attn_output, mlp_apply,
                                        qkv_project, rmsnorm, rope_angles)
@@ -51,6 +58,7 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
     b, t = x.shape[:2]
     window = cfg.attention_window
     quant = cache is not None and cache_lib.is_quantized(cache)
+    ring = cache is not None and not cache_lib.is_paged(cache)
     if quant:
         scales = (cache["k_scale"][layer], cache["v_scale"][layer])
     if mode in ("train", "prefill"):
@@ -63,12 +71,18 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
         if quant:
             cache_lib.write_kv_paged_quant(cache["k"][layer], cache["v"][layer],
                                            *scales, k, v, slots)
+        elif ring:
+            cache_lib.write_kv(cache["k"][layer], cache["v"][layer], k, v, slots)
         elif cache is not None:
             cache_lib.write_kv_paged(cache["k"][layer], cache["v"][layer], k, v,
                                      slots)
         return attn_output(p, out)
     pool_k, pool_v = cache["k"][layer], cache["v"][layer]
-    if quant:
+    if ring:
+        cache_lib.write_kv(pool_k, pool_v, k, v, slots)
+        out = ragged_attention(q.contiguous(), pool_k, pool_v, positions,
+                               cache["kv_pos"], window=window)
+    elif quant:
         cache_lib.write_kv_paged_quant(pool_k, pool_v, *scales, k, v, slots)
         out = paged_ragged_attention_quant(q.contiguous(), pool_k, pool_v,
                                            *scales, cache["block_table"],
@@ -88,8 +102,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             write_mask: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[cache_lib.CacheT]]:
     """Returns (logits [B, T, Vp] float32, cache).  ``write_mask [B, T]``
-    (decode) drops the KV writes of masked positions, so a short-SL
-    sequence never writes outside its allocated blocks."""
+    (decode, paged pool) drops the KV writes of masked positions, so a
+    short-SL sequence never writes outside its allocated blocks; a ring
+    ignores it, as in the reference."""
     assert mode in ("train", "prefill", "decode")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
@@ -103,14 +118,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     # per-call quantities every layer shares: RoPE angles, write slots
     rope = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
     slots = None
-    if cache is not None:
+    valid = input_mask if mode == "prefill" else None
+    if cache is not None and not cache_lib.is_paged(cache):
+        slots = cache_lib.ring_slots(positions, cache_lib.cache_window(cache))
+        cache_lib.write_pos(cache["kv_pos"], positions, slots, valid=valid)
+    elif cache is not None:
         slots = cache_lib.write_slots(
             positions, cache["block_table"], cache["kv_pos"].shape[1],
             cache["kv_pos"].shape[0],
             keep=write_mask if mode == "decode" else None)
-        cache_lib.write_pos_paged(
-            cache["kv_pos"], positions, slots,
-            valid=input_mask if mode == "prefill" else None)
+        cache_lib.write_pos_paged(cache["kv_pos"], positions, slots,
+                                  valid=valid)
     for i in range(cfg.num_layers):
         p = _layer(params, i)
         x = x + _attn_sublayer(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
@@ -124,8 +142,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def commit(snapshot: cache_lib.CacheT, verified: cache_lib.CacheT,
            n_committed: torch.Tensor) -> cache_lib.CacheT:
-    """Commit ``n_committed[b]`` of the tokens just verified: the pool
-    already holds their K/V, so this is ``length`` arithmetic (stale
-    speculative slots are overwritten or masked, DESIGN.md §4)."""
+    """Commit ``n_committed[b]`` of the tokens just verified: the ring
+    or pool already holds their K/V, so this is ``length`` arithmetic
+    (stale speculative slots are overwritten or masked, DESIGN.md §4)."""
     return cache_lib.commit_length(verified,
                                    snapshot["length"] + n_committed.to(torch.int32))

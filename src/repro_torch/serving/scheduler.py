@@ -1,17 +1,21 @@
-"""Look-ahead scheduler over the block pool (paper §3.2;
-``repro.serving.scheduler`` without the prefix cache and the SLO gate).
+"""Look-ahead scheduler (paper §3.2; ``repro.serving.scheduler``
+without the prefix cache and the SLO gate).  Two KV layouts:
 
-* :class:`BlockAllocator` — free list over the shared KV block pool.  A
-  block id names the same slot of the target AND the draft pool (the
-  tables mirror), so one decision covers the speculative pair.
-* :class:`LookaheadScheduler` — waiting queue, slot table and both
-  admission decisions.  Admission charges the prefill's blocks; each
-  round the engine grows every sequence to ``committed +
-  policy.lookahead(SL_i)`` (:meth:`ensure_capacity`), preempting the
-  youngest running request (evict + requeue at the front, recompute on
-  readmit) when the pool runs dry; after the round the speculative
-  tail returns to the pool (:meth:`shrink_to`).  A request whose worst
-  case cannot fit ``max_seq_len`` is ``REJECTED``.
+* **dense** (``paged_kv=False``) — one ring row per slot: admission is
+  by free slot and the worst-case fit alone; there is no allocator, no
+  growth and no preemption;
+* **paged** (``paged_kv=True``) — :class:`BlockAllocator` keeps a free
+  list over the shared KV block pool.  A block id names the same slot
+  of the target AND the draft pool (the tables mirror), so one decision
+  covers the speculative pair.  Admission charges the prefill's blocks;
+  each round the engine grows every sequence to its next write extent
+  (:meth:`ensure_capacity`), preempting the youngest running request
+  (evict + requeue at the front, recompute on readmit) when the pool
+  runs dry; after the round the speculative tail returns to the pool
+  (:meth:`shrink_to`).
+
+:class:`LookaheadScheduler` holds the waiting queue and the slot table.
+A request whose worst case cannot fit ``max_seq_len`` is ``REJECTED``.
 """
 from __future__ import annotations
 
@@ -78,16 +82,19 @@ class LookaheadScheduler:
         self.policy = policy if policy is not None else build_policy(spec)
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * serving.max_batch_size
-        self.allocator = BlockAllocator(
-            serving.pool_blocks() * (1 if kv_mirror else 2),
-            serving.kv_block_size)
+        self.allocator: Optional[BlockAllocator] = None
+        if serving.paged_kv:
+            self.allocator = BlockAllocator(
+                serving.pool_blocks() * (1 if kv_mirror else 2),
+                serving.kv_block_size)
+            # the pool must hold one max-length sequence outright, so
+            # LIFO preemption always converges
+            if (self.allocator.num_blocks * serving.kv_block_size
+                    < serving.max_seq_len):
+                raise ValueError("KV pool smaller than one max-length "
+                                 "sequence: preemption could never free "
+                                 "enough blocks")
         self.block_bytes = block_bytes
-        # the pool must hold one max-length sequence outright, so LIFO
-        # preemption always converges
-        if (self.allocator.num_blocks * serving.kv_block_size
-                < serving.max_seq_len):
-            raise ValueError("KV pool smaller than one max-length sequence: "
-                             "preemption could never free enough blocks")
         # latest per-slot SL predictions (host mirror, engine-refreshed)
         self.sl_pred = np.full((serving.max_batch_size,),
                                self.policy.initial_sl_value(), np.int32)
@@ -124,9 +131,9 @@ class LookaheadScheduler:
         return [i for i, r in enumerate(self.slots) if r is None]
 
     def admit(self) -> List[Request]:
-        """Move queued requests into free slots in strict queue order,
-        charging each ``ceil(prefill_len / block_size)`` blocks; a
-        request the pool cannot cover stays queued (round-time
+        """Move queued requests into free slots in strict queue order.
+        Paged: each is charged ``ceil(prefill_len / block_size)`` blocks,
+        and a request the pool cannot cover stays queued (round-time
         preemption resolves sustained pressure).  Oversize requests
         become ``REJECTED`` (drained by :meth:`pop_rejected`)."""
         admitted = []
@@ -139,11 +146,12 @@ class LookaheadScheduler:
                 req.finish_time = time.monotonic()
                 self._rejected.append(req)
                 continue
-            blocks = self.allocator.alloc(
-                self.allocator.blocks_for(len(req.prefill_tokens())))
-            if blocks is None:
-                break               # pool dry: keep queued, stop here
-            req.block_ids = blocks
+            if self.allocator is not None:
+                blocks = self.allocator.alloc(
+                    self.allocator.blocks_for(len(req.prefill_tokens())))
+                if blocks is None:
+                    break           # pool dry: keep queued, stop here
+                req.block_ids = blocks
             self.queue.popleft()
             i = free.popleft()
             req.slot = i
@@ -157,6 +165,16 @@ class LookaheadScheduler:
     def pop_rejected(self) -> List[Request]:
         out, self._rejected = self._rejected, []
         return out
+
+    def drop_from_queue(self, req: Request) -> None:
+        """Remove a queued request that reached a terminal state while
+        waiting: under the pipelined schedule a request preempted at
+        plan time can FINISH when the round it was still part of is
+        collected, and must not be readmitted."""
+        try:
+            self.queue.remove(req)
+        except ValueError:
+            pass
 
     # ---------------------------------------------------------- block budget
     def ensure_capacity(self, req: Request, n_tokens: int
@@ -212,7 +230,7 @@ class LookaheadScheduler:
         if req.slot is not None:
             self.slots[req.slot] = None
             req.slot = None
-        if req.block_ids:
+        if self.allocator is not None and req.block_ids:
             self.allocator.free(req.block_ids)
             req.block_ids = []
 
@@ -226,10 +244,17 @@ class LookaheadScheduler:
         return [r for r in self.slots if r is not None]
 
     def kv_blocks_in_use(self) -> int:
-        return self.allocator.n_used
+        """Blocks charged against the pool (paged), or the dense-row
+        equivalent (occupied slots x blocks per row), as the reference
+        reports it."""
+        if self.allocator is not None:
+            return self.allocator.n_used
+        return int(self.active_mask.sum()) * self.serving.blocks_per_seq()
 
     def kv_blocks_total(self) -> int:
-        return self.allocator.num_blocks
+        if self.allocator is not None:
+            return self.allocator.num_blocks
+        return self.serving.max_batch_size * self.serving.blocks_per_seq()
 
     def kv_block_bytes(self) -> int:
         return self.block_bytes

@@ -12,6 +12,7 @@ from repro_torch.kernels import kld_accept as kl
 from repro_torch.kernels import ngram_match as ng
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_attention_quant as pq
+from repro_torch.kernels import ragged_attention as ra
 from repro_torch.models.cache import quantize_kv
 
 pytestmark = pytest.mark.gpu
@@ -89,6 +90,73 @@ def test_quant_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     assert bool((got[0] == 0).all())          # the row with no valid slot
+
+
+def _ring(b, t, h, kv, d, w, dtype, device, seed=0, wrap=False):
+    """Dense-ring inputs: row b holds positions [0, len + t) at p % W
+    (with ``wrap`` it has run past W, up to 3W); row 0 holds nothing, so
+    its queries have no valid slot."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, t, h, d, generator=g)
+    kb = torch.randn(b, w, kv, d, generator=g)
+    vb = torch.randn(b, w, kv, d, generator=g)
+    hi = 3 * w if wrap else max(w - t, t + 1)
+    lens = torch.randint(w if wrap else t, hi, (b,), generator=g)
+    q_pos = (lens[:, None] + torch.arange(t)[None]).int()
+    j = torch.arange(w)[None]
+    latest = j + w * torch.div(lens[:, None] + t - 1 - j, w,
+                               rounding_mode="floor")
+    kv_pos = torch.where(latest >= 0, latest, -1).int()
+    kv_pos[0] = -1
+    out = [q.to(dtype), kb.to(dtype), vb.to(dtype), q_pos, kv_pos]
+    return [x.to(device).contiguous() for x in out]
+
+
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 1e-4),
+                                             (torch.bfloat16, 2e-3, 1e-2)])
+# the serving shapes (smollm: 9/3 heads, D 64, W 256), then the
+# reference's kernel sweep, whose W = 96 and 160 leave a ragged last tile
+@pytest.mark.parametrize("shape", [(4, 1, 9, 3, 64, 256),
+                                   (4, 11, 9, 3, 64, 256),
+                                   (2, 1, 8, 2, 64, 128),
+                                   (3, 6, 8, 8, 64, 256),
+                                   (2, 11, 12, 4, 128, 96),
+                                   (1, 4, 4, 1, 32, 512),
+                                   (2, 3, 16, 16, 64, 160)])
+def test_ragged_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
+                                               window):
+    args = _ring(*shape, dtype=dtype, device=cuda)
+    got = ra.ragged_verify_attention_cuda(*args, window=window)
+    want = ra.ragged_verify_attention_plain(*args, window=window)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())          # the row with no valid slot
+
+
+@pytest.mark.parametrize("w", [80, 96, 160])
+def test_ragged_attention_kernel_on_a_wrapped_ring(cuda, w):
+    """Window 64 over rings of window + 16 (and wider) slots whose rows
+    have run past W: slots hold the latest positions, some outside the
+    window."""
+    args = _ring(4, 11, 9, 3, 64, w, torch.float32, cuda, seed=w, wrap=True)
+    got = ra.ragged_verify_attention_cuda(*args, window=64)
+    want = ra.ragged_verify_attention_plain(*args, window=64)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_ragged_dispatch_counts_one_launch_per_call(cuda):
+    ra.LAUNCHES["ragged_verify_attention"] = 0
+    args = _ring(2, 1, 9, 3, 64, 96, torch.float32, cuda)
+    ra.ragged_attention(*args)
+    ra.ragged_attention(*args, window=64)
+    assert ra.LAUNCHES["ragged_verify_attention"] == 2
+    with pytest.raises(TypeError):      # int64 positions: raise, no fallback
+        ra.ragged_attention(*args[:3], args[3].long(), args[4])
+    with pytest.raises(ValueError):     # a strided ring is refused
+        ra.ragged_attention(args[0], args[1][:, ::2], args[2][:, ::2],
+                            args[3], args[4][:, ::2])
+    assert ra.LAUNCHES["ragged_verify_attention"] == 2
 
 
 NGRAM_CASES = {
@@ -202,7 +270,38 @@ def test_engine_streams_match_cpu(cuda, drafter, kv_quant):
                       SpecDecodeConfig(drafter=drafter,
                                        ngram_n=3 if model else 1),
                       ServingConfig(max_batch_size=2, max_seq_len=96,
-                                    kv_block_size=16, kv_quant=kv_quant),
+                                    kv_block_size=16, paged_kv=True,
+                                    kv_quant=kv_quant),
                       device=device).run(reqs)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("window", [None, 24], ids=["full", "windowed"])
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "pipe"])
+def test_dense_engine_streams_match_cpu(cuda, pipelined, window):
+    """The dense ring (B5 on the card) at the reduced width; window 24
+    makes a 40-slot ring that the requests run past."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params, map_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              attention_window=window)
+    pt = init_params(cfg, seed=2, device="cpu")
+    pd = map_params(lambda a, n: a + 0.03 * n, pt,
+                    init_params(cfg, seed=3, device="cpu"))
+    outs = []
+    for device in ("cpu", cuda):
+        ra.LAUNCHES["ragged_verify_attention"] = 0
+        reqs = [Request(i, prompt=list(range(5 + i, 14 + 3 * i)),
+                        max_new_tokens=40) for i in range(3)]
+        ServingEngine(pt, cfg, pd, cfg, SpecDecodeConfig(),
+                      ServingConfig(max_batch_size=2, max_seq_len=96,
+                                    pipelined=pipelined),
+                      device=device).run(reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert ra.LAUNCHES["ragged_verify_attention"] > 0

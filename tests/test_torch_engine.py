@@ -47,7 +47,7 @@ def _record_sl(eng):
 def _serve(small_pair, policy, prompts, *, max_new=16, bs=16, nblocks=None,
            temperature=0.0, port_only=False, seed=0):
     cfg, pt, pd, tcfg, tpt, tpd = small_pair
-    kw = dict(max_batch_size=2, max_seq_len=128,
+    kw = dict(max_batch_size=2, max_seq_len=128, paged_kv=True,
               kv_block_size=bs, num_kv_blocks=nblocks)
     teng = TEngine(tpt, tcfg, tpd, tcfg,
                    TSpec(policy=policy, temperature=temperature),
@@ -60,7 +60,7 @@ def _serve(small_pair, policy, prompts, *, max_new=16, bs=16, nblocks=None,
     if port_only:
         return port
     eng = ServingEngine(pt, cfg, pd, cfg, SpecDecodeConfig(policy=policy),
-                        ServingConfig(**kw, paged_kv=True), seed=seed)
+                        ServingConfig(**kw), seed=seed)
     sl = _record_sl(eng)
     reqs = [Request(i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]

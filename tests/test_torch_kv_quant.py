@@ -255,7 +255,7 @@ def serve_both(pair, drafter, policy, prompts, *, kv_quant, max_new=16,
     # lookup still finds earlier occurrences of the pending token
     sk = dict(policy=policy, drafter=drafter, ngram_n=1 if not model else 3)
     kw = dict(max_batch_size=2, max_seq_len=128, kv_block_size=bs,
-              num_kv_blocks=nblocks, kv_quant=kv_quant)
+              num_kv_blocks=nblocks, kv_quant=kv_quant, paged_kv=True)
     teng = TEngine(tpt, tcfg, tpd if model else None, tcfg if model else None,
                    TSpec(**sk), TServing(**kw),
                    device="cpu")
@@ -267,7 +267,7 @@ def serve_both(pair, drafter, policy, prompts, *, kv_quant, max_new=16,
         return port, None
     eng = ServingEngine(pt, cfg, pd if model else None, cfg if model else None,
                         SpecDecodeConfig(**sk),
-                        ServingConfig(**kw, paged_kv=True))
+                        ServingConfig(**kw))
     reqs = [Request(i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     m = eng.run(reqs)
@@ -332,7 +332,7 @@ def test_invalid_kv_quant_raises(small_pair, where):
         if where == "engine":
             TEngine(tpt, tcfg, tpt, tcfg, TSpec(),
                     TServing(max_batch_size=2, max_seq_len=64,
-                             kv_quant="int4"), device="cpu")
+                             paged_kv=True, kv_quant="int4"), device="cpu")
         elif where == "round_state":
             t_sd.init_round_state(tcfg, tcfg, TSpec(), 2, 64, paged=(8, 16),
                                   device="cpu", kv_quant="fp8")
@@ -345,4 +345,4 @@ def test_invalid_kv_quant_raises(small_pair, where):
             hybrid = dataclasses.replace(tcfg, family="hybrid")
             TEngine(tpt, tcfg, tpt, hybrid, TSpec(),
                     TServing(max_batch_size=2, max_seq_len=64,
-                             kv_quant="int8"), device="cpu")
+                             paged_kv=True, kv_quant="int8"), device="cpu")

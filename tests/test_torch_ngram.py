@@ -197,7 +197,8 @@ def test_fp32_ngram_greedy_streams_match_reference(targets, policy, target):
     rng = np.random.RandomState(11)
     prompts = [rng.randint(0, cfg.vocab_size, size=m).tolist()
                for m in (7, 12, 5)]
-    kw = dict(max_batch_size=2, max_seq_len=128, kv_block_size=16)
+    kw = dict(max_batch_size=2, max_seq_len=128, kv_block_size=16,
+              paged_kv=True)
     teng = TEngine(tpt, tcfg, None, None,
                    TSpec(policy=policy, drafter="ngram", ngram_n=n),
                    TServing(**kw), device="cpu")
@@ -207,7 +208,7 @@ def test_fp32_ngram_greedy_streams_match_reference(targets, policy, target):
     eng = ServingEngine(pt, cfg, None, None,
                         SpecDecodeConfig(policy=policy, drafter="ngram",
                                          ngram_n=n),
-                        ServingConfig(**kw, paged_kv=True))
+                        ServingConfig(**kw))
     reqs = [Request(i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
     m = eng.run(reqs)
@@ -232,14 +233,14 @@ def test_model_free_drafter_doubles_the_pool(drafter):
     spec = TSpec(drafter=drafter)
     mirror = drafter == "model"
     kw = dict(max_batch_size=2, max_seq_len=128, kv_block_size=16,
-              num_kv_blocks=8)
+              num_kv_blocks=8, paged_kv=True)
     sched = LookaheadScheduler(TServing(**kw), spec,
                                kv_mirror=t_build_drafter(spec, tcfg).mirrors_kv(),
                                block_bytes=100)
     assert sched.kv_blocks_total() == (8 if mirror else 16)
     assert sched.kv_bytes_total() == 100 * sched.kv_blocks_total()
     assert sched.kv_bytes_in_use() == 0
-    ref_sched = RefScheduler(ServingConfig(**kw, paged_kv=True),
+    ref_sched = RefScheduler(ServingConfig(**kw),
                              SpecDecodeConfig(drafter=drafter),
                              kv_mirror=mirror, block_bytes=100)
     assert sched.kv_blocks_total() == ref_sched.kv_blocks_total()

@@ -48,9 +48,9 @@ def test_allocator_refuses_double_free():
 
 
 def _schedulers(policy, slots=2, max_seq=64, bs=8, nblocks=8):
-    kw = dict(max_batch_size=slots, max_seq_len=max_seq,
+    kw = dict(max_batch_size=slots, max_seq_len=max_seq, paged_kv=True,
               kv_block_size=bs, num_kv_blocks=nblocks)
-    return (LookaheadScheduler(ServingConfig(**kw, paged_kv=True),
+    return (LookaheadScheduler(ServingConfig(**kw),
                                SpecDecodeConfig(policy=policy)),
             TScheduler(TServing(**kw), TSpec(policy=policy)))
 
@@ -100,7 +100,7 @@ def test_admission_grow_preempt_match_reference(policy):
 
 def test_pool_smaller_than_one_sequence_is_refused():
     with pytest.raises(ValueError, match="max-length"):
-        TScheduler(TServing(max_batch_size=2, max_seq_len=256,
+        TScheduler(TServing(max_batch_size=2, max_seq_len=256, paged_kv=True,
                             kv_block_size=16, num_kv_blocks=8), TSpec())
 
 
