@@ -9,14 +9,18 @@ Phases, each printing one JSON line:
 1. device  — card name, ``nvidia-smi`` name and power limit, versions;
              TF32 is switched off for matmuls and convolutions.
 2. build   — every CUDA source under ``src/repro_torch/csrc`` compiled
-             (one ``nvcc`` each, in parallel) into ``build/kernels/``.
+             (one ``nvcc`` each, in parallel) into ``build/kernels/``;
+             then ptxas's registers, static shared memory and spills of
+             every kernel of the three attention sources (B1, B4, B5).
 3. kernels — each kernel against its plain PyTorch version on the card
-             at the serving path's shapes, with its tolerance, its time,
-             the plain version's time, a library call's time where one
-             computes the same function, and the least time the card
-             could take (bytes over 3.35 TB/s or operations over the
-             peak for their operand type, 989 TFLOP/s for bf16 and
-             67 TFLOP/s for fp32, whichever is larger).
+             at the serving path's shapes (B1 and B4 also launched twice,
+             which must give the same bits, and their wrappers' host
+             time a call), with its tolerance, its time, the plain
+             version's time, a library call's time where one computes
+             the same function, and the least time the card could take
+             (bytes over 3.35 TB/s or operations over the peak for their
+             operand type, 989 TFLOP/s for bf16 and 67 TFLOP/s for
+             fp32, whichever is larger).
 4. serve   — the host cost of one full-width decode step and of one
              KV write on each cache (forward phase), then
              ``ServingEngine(...).run`` at smollm-135m full width (30
@@ -32,14 +36,24 @@ Phases, each printing one JSON line:
              synchronising calls are counted; a pipelined serve must
              emit its synchronous twin's greedy streams.  Then some
              serves again under ``torch.profiler`` for a few rounds
-             (device busy share, top kernels and host calls), and the
-             paths at the reduced width on the card and on the CPU
-             (plain versions) must emit the same greedy streams.
+             (device busy share, top kernels, the port's own kernels
+             and host calls), and the paths at the reduced width on the
+             card and on the CPU (plain versions) must emit the same
+             greedy streams.
 
 It ends with the kernels line, the ``nvidia-smi`` line and the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without CUDA, or without the port beside it, it prints no
 result.
+
+    python3 chip_smoke.py --ab PARENT
+
+runs a kernel A/B instead: the device and build phases, then this
+file's kernel phase on the kernels of PARENT (another checkout, e.g.
+unpacked with ``git archive``) and on this tree's in turns, parent,
+change, change, parent, each in its own process on this card (rows
+tagged ``ab_run`` and ``tree``; one timing harness for both trees), and
+ptxas's report of both trees' B5 source.  It prints no result line.
 """
 import collections
 import json
@@ -68,7 +82,11 @@ def emit(obj) -> None:
 def time_ms(fn, iters: int = 30, flush=None) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each bracketed
     by CUDA events; ``flush`` (a large buffer) is rewritten before each
-    launch so the kernel meets a cold L2, as between layers."""
+    launch so the kernel meets a cold L2, as between layers.  It is
+    rewritten twice (about 0.2 ms of device time), so the card is still
+    busy with it while the host enqueues the timed call: a wrapper's own
+    host time (tens of us) never shows as device time between the
+    events."""
     import torch
     for _ in range(3):
         fn()
@@ -76,6 +94,7 @@ def time_ms(fn, iters: int = 30, flush=None) -> float:
     total = 0.0
     for _ in range(iters):
         if flush is not None:
+            flush.zero_()
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -85,6 +104,20 @@ def time_ms(fn, iters: int = 30, flush=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host microseconds of one call of ``fn``: what the caller's
+    thread spends on it (checks, allocation, launch), the card running
+    behind without a synchronise in between."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * elapsed / iters
 
 
 def paged_case(b, t, ctx, dtype, seed):
@@ -155,9 +188,11 @@ def sdpa_ms(q, k, v, pos, q_pos, flush) -> float:
 
 def attention_rows(flush):
     """B1 and B4 at draft-step (T 1) and verify (T 11) shapes, ctx 256
-    and 2048, fp32 and bf16 q.  Returns each kernel's contract row: the
-    draft-step shape of the serves (fp32, T 1, ctx 256) with the largest
-    error over all its rows."""
+    and 2048, fp32 and bf16 q, then fp32 at ctx 64 (about what the
+    serves' rows hold).  Each call is launched twice and must give the
+    same bits (the splits merge in a fixed order).  Returns each kernel's
+    contract row: the draft-step shape of the serves (fp32, T 1, ctx 256)
+    with the largest error over all its rows."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_quant as pq
@@ -172,52 +207,58 @@ def attention_rows(flush):
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
     peak = {torch.float32: FP32_FLOP_S, torch.bfloat16: BF16_FLOP_S}
     kernels = (
-        # B1 computes in the operand type; B4 dequantizes to fp32 before
-        # its dots (the reference's order), so its operations count at
-        # the fp32 peak whatever q's type.  The SDPA yardstick of B4
-        # reads the view dequantized beforehand (not timed).
+        # Both compute in q's type: int8 K/V are exact in bf16, so B4's
+        # operations with bf16 q count at the bf16 peak, as B1's do.  The
+        # SDPA yardstick of B4 reads the view dequantized beforehand (not
+        # timed).
         ("paged_ragged_verify_attention", paged_case,
          pa.paged_ragged_verify_attention_cuda,
          pa.paged_ragged_verify_attention_plain,
-         lambda a: gather_paged_kv(a[1], a[2], a[3]), lambda dt: peak[dt]),
+         lambda a: gather_paged_kv(a[1], a[2], a[3])),
         ("paged_ragged_verify_attention_quant", quant_case,
          pq.paged_ragged_verify_attention_quant_cuda,
          pq.paged_ragged_verify_attention_quant_plain,
-         lambda a: gather_paged_kv_quant(*a[1:6]), lambda dt: FP32_FLOP_S),
+         lambda a: gather_paged_kv_quant(*a[1:6])),
     )
+    shapes = [(dtype, ctx, t) for dtype in (torch.float32, torch.bfloat16)
+              for ctx in (256, 2048) for t in (1, 11)]
+    shapes += [(torch.float32, 64, 1), (torch.float32, 64, 11)]
     contract = {}
-    for name, case, kernel, plain, gather, flop_s in kernels:
+    for name, case, kernel, plain, gather in kernels:
         rows, worst = [], 0.0
-        for dtype in (torch.float32, torch.bfloat16):
-            for ctx in (256, 2048):
-                for t in (1, 11):
-                    args, nbytes, flops = case(4, t, ctx, dtype, seed=t + ctx)
-                    got = kernel(*args)
-                    want = plain(*args)
-                    torch.cuda.synchronize()
-                    diff = (got.float() - want.float()).abs()
-                    err = diff.max().item()
-                    atol, rtol = tol[dtype]
-                    if not bool((diff <= atol + rtol * want.float().abs()).all()):
-                        raise AssertionError(f"{name} {dtype} ctx={ctx} t={t}: "
-                                             f"max abs err {err}")
-                    worst = max(worst, err)
-                    bound_ms, bound_by = bound(nbytes, flops, flop_s(dtype))
-                    k, v = gather(args)
-                    pos = gather_paged_pos(args[-1], args[-3])
-                    row = {
-                        "phase": "kernel", "name": name,
-                        "dtype": str(dtype).replace("torch.", ""), "B": 4,
-                        "T": t, "H": 9, "KV": 3, "D": 64, "BS": 16, "ctx": ctx,
-                        "max_abs_err": err, "atol": atol, "rtol": rtol,
-                        "ms": time_ms(lambda: kernel(*args), flush=flush),
-                        "plain_ms": time_ms(lambda: plain(*args), flush=flush),
-                        "library_ms": sdpa_ms(args[0], k, v, pos, args[-2],
-                                              flush),
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                    }
-                    emit(row)
-                    rows.append(row)
+        for dtype, ctx, t in shapes:
+            args, nbytes, flops = case(4, t, ctx, dtype, seed=t + ctx)
+            got = kernel(*args)
+            want = plain(*args)
+            again = kernel(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} {dtype} ctx={ctx} t={t}: "
+                                     "two launches differ")
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            atol, rtol = tol[dtype]
+            if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                raise AssertionError(f"{name} {dtype} ctx={ctx} t={t}: "
+                                     f"max abs err {err}")
+            worst = max(worst, err)
+            bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
+            k, v = gather(args)
+            pos = gather_paged_pos(args[-1], args[-3])
+            row = {
+                "phase": "kernel", "name": name,
+                "dtype": str(dtype).replace("torch.", ""), "B": 4,
+                "T": t, "H": 9, "KV": 3, "D": 64, "BS": 16, "ctx": ctx,
+                "max_abs_err": err, "atol": atol, "rtol": rtol,
+                "ms": time_ms(lambda: kernel(*args), flush=flush),
+                "plain_ms": time_ms(lambda: plain(*args), flush=flush),
+                "library_ms": sdpa_ms(args[0], k, v, pos, args[-2],
+                                      flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "host_us": host_us(lambda: kernel(*args)),
+            }
+            emit(row)
+            rows.append(row)
         first = next(r for r in rows if r["dtype"] == "float32"
                      and r["T"] == 1 and r["ctx"] == 256)
         contract[name] = dict(first, max_abs_err=worst)
@@ -396,6 +437,12 @@ def ring_rows(flush):
 
 
 def kernel_phase(flush):
+    """Every kernel's rows; first about 0.1 s of L2 flushes, so the
+    card's clocks have left idle before the first timed call."""
+    import torch
+    for _ in range(1000):
+        flush.zero_()
+    torch.cuda.synchronize()
     contract = attention_rows(flush)
     contract["fused_kld_accept"] = kld_row(flush)
     contract["ngram_suffix_propose"] = ngram_rows(flush)
@@ -749,6 +796,11 @@ def check_phase(cfg) -> None:
                                  f"{pipelined}, window={window}): {outs}")
 
 
+# the device kernels of the port's CUDA sources, by name
+PORT_KERNELS = ("pv::verify_kernel", "pv::merge_kernel", "paged_attention_kernel",
+                "kld_accept_kernel", "ngram_match_kernel")
+
+
 def profile_phase(serve, engine, reqs) -> None:
     """The first four requests of ``serve`` again, for their prefill and
     first six rounds, under ``torch.profiler``: device kernel time
@@ -786,9 +838,67 @@ def profile_phase(serve, engine, reqs) -> None:
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "device_ms": e.self_device_time_total / 1e3}
                           for e in top],
+          "port_kernels": [{"name": e.key[:80], "calls": e.count,
+                            "device_ms": e.self_device_time_total / 1e3}
+                           for e in kernels
+                           if any(n in e.key for n in PORT_KERNELS)],
           "top_host": [{"name": e.key[:60], "calls": e.count,
                         "self_cpu_ms": e.self_cpu_time_total / 1e3}
                        for e in host]})
+
+
+# the attention sources whose kernels' registers, shared memory and
+# spills the build phase reports (B1, B4, B5)
+PTXAS_SOURCES = ("paged_attention", "paged_attention_quant", "ragged_attention")
+
+# one A/B run: this file's kernel phase (one harness for both trees) on
+# the kernels of the tree whose ``src`` is argv[2]
+_AB_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.path.insert(0, sys.argv[2])
+import repro_torch
+assert repro_torch.__file__.startswith(sys.argv[2]), repro_torch.__file__
+from repro_torch.kernels.build import build_all
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build_all()
+chip_smoke.kernel_phase(torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                                    device="cuda"))
+"""
+
+
+def ab_phase(parent: Path) -> None:
+    """This file's kernel phase on ``parent``'s kernels and on this
+    tree's in turns (parent, change, change, parent), each in a process
+    of its own that builds and imports its tree's ``repro_torch``; then
+    ptxas's report of each tree's B5 source, compiled with this tree's
+    flags."""
+    import tempfile
+    from repro_torch.kernels.build import NVCC_FLAGS, _nvcc, parse_ptxas
+    trees = (("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent))
+    for i, (tag, tree) in enumerate(trees):
+        proc = subprocess.run([sys.executable, "-c", _AB_CHILD, str(ROOT),
+                               str(tree / "src")], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"A/B run {i} ({tag}) failed:\n"
+                               + proc.stdout[-4000:] + proc.stderr[-4000:])
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                emit(dict(json.loads(line), ab_run=i, tree=tag))
+    for tag, tree in (("parent", parent), ("change", ROOT)):
+        with tempfile.TemporaryDirectory() as tmp:
+            src = tree / "src" / "repro_torch" / "csrc" / "ragged_attention.cu"
+            log = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o",
+                                  str(Path(tmp) / "lib.so"), str(src)],
+                                 capture_output=True, text=True, timeout=600,
+                                 check=True)
+        emit({"phase": "ptxas", "tree": tag, "source": "ragged_attention",
+              "kernels": parse_ptxas(log.stdout + log.stderr)})
 
 
 def main() -> int:
@@ -796,7 +906,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.build import build_all, ptxas_report
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -813,6 +923,12 @@ def main() -> int:
     per_source = build_all()
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "per_source_s": per_source})
+    for source in PTXAS_SOURCES:
+        emit({"phase": "ptxas", "source": source,
+              "kernels": ptxas_report(source)})
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        ab_phase(Path(sys.argv[2]).resolve())
+        return 0
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     contract = kernel_phase(flush)

@@ -1,24 +1,22 @@
-// Decode / verify attention for Hopper (sm_90a) read straight off the KV
-// cache: the kernel body shared by paged_attention.cu (fp32 / bf16 block
-// pools), paged_attention_quant.cu (int8 block pools with per-slot scales)
-// and ragged_attention.cu (the dense per-slot ring).  They differ only in
-// how a K/V element is read (the `Pool` parameter) and in where a tile of
-// a sequence's cache lies (the `Addr` parameter).
+// Decode / verify attention for Hopper (sm_90a) read straight off the
+// dense per-slot KV ring: the kernel body of ragged_attention.cu (B5).  The
+// block-pool kernels B1 and B4 moved to paged_verify.cuh (split-KV grid,
+// cp.async staging, tensor cores); B5 moves to that body in the next
+// kernel PR, and this header goes then.  The body still takes a `Pool`
+// (how a K/V element is read) and an `Addr` (where a tile of a sequence's
+// cache lies) parameter; the ring is the one addressing left.
 //
 // Function: GQA attention of q [B,T,H,D] over the sequence's cache slots;
 // a slot is valid for query position qp iff 0 <= kv_pos[slot] <= qp (and
 // qp - kv_pos < window when a window is set); scale 1/sqrt(D);
 // out = acc / max(l, 1e-30), so a row with no valid slot is 0.
 //
-// Addressing.  A sequence's cache is a list of tiles of at most 32 slots.
-// Block pool [N,BS,KV,D] (`TableAddr`): tile p is logical block p, at
-// physical block table[b, p]; an unallocated entry (-1) skips the tile
-// (identical to masking every score: a fully masked tile leaves (m, l,
-// acc) unchanged).  Dense ring [B,W,KV,D] (`RingAddr`): tile p holds ring
-// slots p*32 ... of row b, at flat slot b*W + p*32; the last tile of a
-// ring whose W is no multiple of 32 is short, and its missing slots are
-// staged as empty (kv_pos -1, zero K/V), so the buffers are never padded.
-// Either way kv_pos sits beside K/V at the same flat slot.
+// Addressing (`RingAddr`): a sequence's cache is a list of tiles of 32
+// slots; tile p holds ring slots p*32 ... of row b, at flat slot
+// b*W + p*32; the last tile of a ring whose W is no multiple of 32 is
+// short, and its missing slots are staged as empty (kv_pos -1, zero K/V),
+// so the buffers are never padded.  kv_pos sits beside K/V at the same
+// flat slot.
 //
 // Layout: one thread block per (sequence b, KV head).  The block holds the
 // G*T query rows of its KV head (G = H/KV) in shared memory together with
@@ -28,9 +26,7 @@
 // shared memory, and each warp updates its query rows: lane s scores slot
 // s, the warp reduces max and sum, and lane d updates acc[d], acc[d+32], ...
 //
-// This first version keeps one block per (b, kv) and plain loads;
-// splitting the sweep over blocks (flash-decoding), cp.async or TMA
-// staging and tensor cores are later work.
+// This first version keeps one block per (b, kv) and plain loads.
 
 #pragma once
 
@@ -70,37 +66,6 @@ struct FpPool {
   }
   __device__ __forceinline__ float value(size_t slot, int c, int d) const {
     return to_f(v[slot * d + c]);
-  }
-};
-
-// int8 pools with one fp32 scale per stored vector: every element is
-// dequantized as float(int8) * scale, one fp32 product, BEFORE it enters a
-// dot -- the reference's order (scaling the finished dot rounds otherwise).
-struct Int8Pool {
-  const int8_t* k;
-  const int8_t* v;
-  const float* k_scale;
-  const float* v_scale;
-  __device__ __forceinline__ float key(size_t slot, int c, int d) const {
-    return (float)k[slot * d + c] * k_scale[slot];
-  }
-  __device__ __forceinline__ float value(size_t slot, int c, int d) const {
-    return (float)v[slot * d + c] * v_scale[slot];
-  }
-};
-
-// Tiles of the block pool: logical block p of sequence b through its table.
-struct TableAddr {
-  static constexpr bool kRagged = false;   // every tile is a full block
-  const int* table;
-  int maxb;
-  int bs;
-  __device__ __forceinline__ int n_tiles() const { return maxb; }
-  // flat slot of the tile's first entry (-1: unallocated), *len its slots
-  __device__ __forceinline__ int tile(int b, int p, int* len) const {
-    const int phys = table[b * maxb + p];
-    *len = bs;
-    return phys < 0 ? -1 : phys * bs;
   }
 };
 

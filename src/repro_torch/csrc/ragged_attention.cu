@@ -1,10 +1,10 @@
 // Decode / verify attention over the dense per-slot KV ring, for Hopper
-// (sm_90a).  The kernel body is in paged_attention.cuh (shared with the
-// block-pool kernels); this file binds it to fp32 / bf16 rings read in
-// 32-slot tiles (`paged::RingAddr`): tile p of row b starts at ring slot
-// b*W + p*32, its positions at kv_pos[b, p*32 ...], and the short last
-// tile of a W that is no multiple of 32 is masked in the kernel, so the
-// ring is never padded or copied.
+// (sm_90a).  The kernel body is in paged_attention.cuh (the block-pool
+// kernels' body until they moved to paged_verify.cuh); this file binds it
+// to fp32 / bf16 rings read in 32-slot tiles (`paged::RingAddr`): tile p
+// of row b starts at ring slot b*W + p*32, its positions at
+// kv_pos[b, p*32 ...], and the short last tile of a W that is no multiple
+// of 32 is masked in the kernel, so the ring is never padded or copied.
 //
 // Replaces the TPU kernel `ragged_verify_attention`
 // (src/repro/kernels/ragged_attention.py, body `_kernel`): q [B,T,H,D],

@@ -10,7 +10,10 @@ compiled on its own with
 into ``build/kernels/`` at the root of the checkout, then loaded with
 ``ctypes``.  A library is rebuilt when its source changes (the source
 hash is part of the file name).  :func:`build_all` starts one ``nvcc``
-per source, all at once, and waits for them together.
+per source, all at once, and waits for them together.  ``-Xptxas -v``
+makes ptxas report each kernel's registers, static shared memory and
+spills; the report is kept beside the library (``.log``) and read back
+by :func:`ptxas_report`.
 
 Nothing here runs at import: the CPU test machines have no ``nvcc``.
 """
@@ -19,17 +22,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <checkout>/build/kernels: src/repro_torch/kernels/build.py -> parents[3]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_attention", "kld_accept", "paged_attention_quant",
            "ngram_match", "ragged_attention")
 
@@ -78,9 +82,49 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n"
                                + log.decode(errors="replace"))
+        out.with_suffix(".log").write_bytes(log)
         os.replace(tmp, out)
         seconds[name] = time.monotonic() - t0
     return seconds
+
+
+def parse_ptxas(log: str) -> List[dict]:
+    """Per kernel in an ``-Xptxas -v`` log: its name (demangled where
+    ``c++filt`` exists), registers, static shared memory bytes and spill
+    store / load bytes."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "smem": 0,
+                   "spill_stores": None, "spill_loads": None}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = n
+    return rows
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """:func:`parse_ptxas` of the build log of ``csrc/<name>.cu``."""
+    return parse_ptxas(_target(name).with_suffix(".log").read_text(
+        errors="replace"))
 
 
 def load_library(name: str) -> ctypes.CDLL:

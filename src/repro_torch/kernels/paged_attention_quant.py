@@ -3,8 +3,9 @@ kernel, its plain PyTorch version, and the dispatcher the model calls.
 
 Replaces the TPU kernel ``paged_ragged_verify_attention_quant``
 (``repro/kernels/ragged_attention.py``).  The kernel source is
-``csrc/paged_attention_quant.cu``; see its header for the design and
-bound.
+``csrc/paged_attention_quant.cu`` with its body in
+``csrc/paged_verify.cuh`` (shared with the fp pool's kernel); see their
+headers for the design and bound.
 
 * :func:`paged_ragged_verify_attention_quant_plain` — gather each
   sequence's int8 view and its scales through the table, dequantize in
@@ -16,6 +17,9 @@ bound.
 * :func:`paged_ragged_attention_quant` — the dispatcher: the plain
   version for tensors on the CPU, the kernel for CUDA tensors, nothing
   else.
+* :func:`paged_ragged_verify_attention_quant_split_plain` — the kernel's
+  split-and-merge algorithm in plain PyTorch, for the CPU tests (no main
+  path calls it).
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.paged_attention import (plan_splits,
+                                                 split_attention_plain,
+                                                 split_ranges, split_scratch)
 from repro_torch.models.cache import gather_paged_kv_quant, gather_paged_pos
 from repro_torch.models.layers import attend
 
@@ -51,12 +58,27 @@ def paged_ragged_verify_attention_quant_plain(
                   window=window)
 
 
+def paged_ragged_verify_attention_quant_split_plain(
+        q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+        k_scale: torch.Tensor, v_scale: torch.Tensor,
+        block_table: torch.Tensor, q_pos: torch.Tensor, kv_pos: torch.Tensor,
+        window: Optional[int] = None, splits: int = 1) -> torch.Tensor:
+    """:func:`paged_ragged_verify_attention_quant_plain` computed as the
+    kernel does: the table cut into ``splits`` ranges, partials merged in
+    split order."""
+    views = ((*gather_paged_kv_quant(pool_k, pool_v, k_scale, v_scale,
+                                     block_table[:, lo:hi]),
+              gather_paged_pos(kv_pos, block_table[:, lo:hi]))
+             for lo, hi in split_ranges(block_table.shape[1], splits))
+    return split_attention_plain(q, q_pos, views, window)
+
+
 def _lib():
     fn = load_library("paged_attention_quant").paged_attention_quant
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                       ctypes.c_float, I, P]
+                       ctypes.c_float, I, I, P, P]
         fn.restype = I
     return fn
 
@@ -65,10 +87,12 @@ def paged_ragged_verify_attention_quant_cuda(
         q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
         k_scale: torch.Tensor, v_scale: torch.Tensor,
         block_table: torch.Tensor, q_pos: torch.Tensor, kv_pos: torch.Tensor,
-        window: Optional[int] = None) -> torch.Tensor:
+        window: Optional[int] = None, splits: Optional[int] = None
+        ) -> torch.Tensor:
     """The CUDA kernel on CUDA tensors (same arguments as the plain
     version).  q is float32 or bfloat16, the pools int8, the scales
-    float32, indices int32; everything contiguous on one device."""
+    float32, indices int32; everything contiguous on one device.
+    ``splits`` forces S (tests); by default ``split_plan`` picks it."""
     b, t, h, d = q.shape
     n, bs, kv, d2 = pool_k.shape
     maxb = block_table.shape[1]
@@ -89,13 +113,12 @@ def paged_ragged_verify_attention_quant_cuda(
             or tuple(k_scale.shape) != (n, bs, kv)
             or tuple(v_scale.shape) != (n, bs, kv)
             or tuple(block_table.shape) != (b, maxb)
-            or tuple(q_pos.shape) != (b, t) or tuple(kv_pos.shape) != (n, bs)
-            or bs > 32):
+            or tuple(q_pos.shape) != (b, t) or tuple(kv_pos.shape) != (n, bs)):
         raise ValueError(
             f"shapes q{tuple(q.shape)} pool{tuple(pool_k.shape)} "
             f"scale{tuple(k_scale.shape)} table{tuple(block_table.shape)} "
-            f"q_pos{tuple(q_pos.shape)} kv_pos{tuple(kv_pos.shape)} "
-            "(block size must be <= 32)")
+            f"q_pos{tuple(q_pos.shape)} kv_pos{tuple(kv_pos.shape)}")
+    s = plan_splits(b, t, h, kv, d, bs, maxb, splits, dev)
     tensors = (q, pool_k, pool_v, k_scale, v_scale, block_table, q_pos, kv_pos)
     if any(x.device != dev for x in tensors):
         raise ValueError("all inputs must be on one device")
@@ -104,12 +127,14 @@ def paged_ragged_verify_attention_quant_cuda(
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(),
                  block_table.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
                  out.data_ptr(), b, t, h, kv, d, bs, maxb,
                  -1 if window is None else int(window), 1.0 / math.sqrt(d),
-                 _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+                 _DTYPES[q.dtype], s,
+                 split_scratch(b, t, h, kv, d, s, dev, stream), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_quant launch failed: cudaError {err}")
     LAUNCHES["paged_ragged_verify_attention_quant"] += 1

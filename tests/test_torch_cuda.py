@@ -92,6 +92,109 @@ def test_quant_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
     assert bool((got[0] == 0).all())          # the row with no valid slot
 
 
+PAGED_SHAPES = [(4, 1, 9, 3, 64, 40, 16, 8), (4, 11, 9, 3, 64, 40, 16, 8),
+                (3, 6, 8, 8, 32, 30, 8, 9), (2, 3, 4, 1, 128, 20, 32, 6)]
+TOLS = [(torch.float32, 2e-5, 1e-4), (torch.bfloat16, 2e-3, 1e-2)]
+
+
+def _quant(args, dtype):
+    """B4's inputs from :func:`_paged`'s fp32 ones: int8 pools (K x 3, a
+    wider range of scales), q in ``dtype``."""
+    q, pk, pv, table, q_pos, kv_pos = args
+    (pk, ks), (pv, vs) = quantize_kv(pk * 3), quantize_kv(pv)
+    return [q.to(dtype), pk, pv, ks, vs, table, q_pos, kv_pos]
+
+
+def _full(b, t, ctx, dtype, device, seed=0):
+    """Every row holds ``ctx`` positions in scattered blocks of 16 and
+    queries at its last ``t`` (smollm's heads: 9 / 3, D 64)."""
+    h, kv, d, bs = 9, 3, 64, 16
+    g = torch.Generator().manual_seed(seed)
+    maxb = ctx // bs
+    n = b * maxb + 8
+    q = torch.randn(b, t, h, d, generator=g)
+    pk = torch.randn(n, bs, kv, d, generator=g)
+    pv = torch.randn(n, bs, kv, d, generator=g)
+    table = torch.randperm(n, generator=g)[:b * maxb].reshape(b, maxb).int()
+    kv_pos = torch.full((n, bs), -1, dtype=torch.int32)
+    kv_pos[table.reshape(-1).long()] = torch.arange(
+        ctx, dtype=torch.int32).reshape(maxb, bs).repeat(b, 1)
+    q_pos = (ctx - t + torch.arange(t, dtype=torch.int32))[None].repeat(b, 1)
+    out = [q.to(dtype), pk.to(dtype), pv.to(dtype), table, q_pos, kv_pos]
+    return [x.to(device).contiguous() for x in out]
+
+
+@pytest.mark.parametrize("window", [None, 12])
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("splits", [1, 2, 7, "maxb+3"])
+def test_paged_attention_kernel_forced_splits(cuda, splits, shape, dtype,
+                                              atol, rtol, window):
+    """B1 with S forced: one split, a few, and more splits than table
+    entries (some empty), against the plain version."""
+    args = _paged(*shape, dtype=dtype, device=cuda)
+    s = shape[-1] + 3 if splits == "maxb+3" else splits
+    got = pa.paged_ragged_verify_attention_cuda(*args, window=window, splits=s)
+    want = pa.paged_ragged_verify_attention_plain(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())          # the row with no valid slot
+
+
+@pytest.mark.parametrize("window", [None, 12])
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("shape", PAGED_SHAPES[:3])
+@pytest.mark.parametrize("splits", [1, 2, 7, "maxb+3"])
+def test_quant_attention_kernel_forced_splits(cuda, splits, shape, dtype,
+                                              atol, rtol, window):
+    args = _quant(_paged(*shape, dtype=torch.float32, device=cuda), dtype)
+    s = shape[-1] + 3 if splits == "maxb+3" else splits
+    got = pq.paged_ragged_verify_attention_quant_cuda(*args, window=window,
+                                                      splits=s)
+    want = pq.paged_ragged_verify_attention_quant_plain(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("kernel", ["fp", "int8"])
+def test_paged_kernels_full_context_2048(cuda, kernel, dtype, atol, rtol):
+    """B1 and B4 at ctx 2048, T 11 (the split plan's many-split case),
+    and bit-identical output on a second launch: the splits merge in a
+    fixed order, with no atomics."""
+    args = _full(4, 11, 2048, dtype if kernel == "fp" else torch.float32,
+                 cuda, seed=11)
+    if kernel == "fp":
+        run = lambda **kw: pa.paged_ragged_verify_attention_cuda(*args, **kw)
+        want = pa.paged_ragged_verify_attention_plain(*args)
+    else:
+        args = _quant(args, dtype)
+        run = lambda **kw: pq.paged_ragged_verify_attention_quant_cuda(*args,
+                                                                       **kw)
+        want = pq.paged_ragged_verify_attention_quant_plain(*args)
+    got = run()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert torch.equal(got, run())
+    for s in (1, 7):
+        again = run(splits=s)
+        torch.testing.assert_close(again.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        assert torch.equal(again, run(splits=s))
+
+
+@pytest.mark.parametrize("kernel", ["fp", "int8"])
+def test_paged_kernels_bit_identical_launches(cuda, kernel):
+    """Two launches on the same ragged inputs give the same bits, for the
+    planned split and for S past the table's width."""
+    args = _paged(*PAGED_SHAPES[1], dtype=torch.float32, device=cuda)
+    fn = pa.paged_ragged_verify_attention_cuda
+    if kernel == "int8":
+        args = _quant(args, torch.float32)
+        fn = pq.paged_ragged_verify_attention_quant_cuda
+    for s in (None, 3, 11):
+        assert torch.equal(fn(*args, window=12, splits=s),
+                           fn(*args, window=12, splits=s))
+
+
 def _ring(b, t, h, kv, d, w, dtype, device, seed=0, wrap=False):
     """Dense-ring inputs: row b holds positions [0, len + t) at p % W
     (with ``wrap`` it has run past W, up to 3W); row 0 holds nothing, so

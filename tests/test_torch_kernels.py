@@ -17,6 +17,7 @@ from repro.kernels.kld_accept import fused_kld_accept
 from repro.kernels.ragged_attention import paged_ragged_verify_attention
 from repro_torch.kernels import kld_accept as t_kld
 from repro_torch.kernels import paged_attention as t_attn
+from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -27,6 +27,7 @@ from repro_torch.kernels import ragged_attention as t_ra
 from repro_torch.models import cache as t_cache
 from repro_torch.models.transformer import forward
 from repro_torch.models.weights import from_reference
+from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
 
 jax.config.update("jax_platform_name", "cpu")
 ATOL = 1e-4
