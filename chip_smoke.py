@@ -11,11 +11,14 @@ Phases, each printing one JSON line:
 2. build   — every CUDA source under ``src/repro_torch/csrc`` compiled
              (one ``nvcc`` each, in parallel) into ``build/kernels/``;
              then ptxas's registers, static shared memory and spills of
-             every kernel of the three attention sources (B1, B4, B5).
+             every kernel of the three attention sources (B1, B4, B5)
+             and of the fused KLD source (B2).
 3. kernels — each kernel against its plain PyTorch version on the card
-             at the serving path's shapes (B1 and B4 also launched twice,
-             which must give the same bits, and their wrappers' host
-             time a call), with its tolerance, its time, the plain
+             at the serving path's shapes (B1, B2, B4 and B5 also
+             launched twice, which must give the same bits; B1 and B4
+             also their wrappers' host time a call; B5 also over
+             partial rings, as a serve's rows hold them), with its
+             tolerance, its time, the plain
              version's time, a library call's time where one computes
              the same function, and the least time the card could take
              (bytes over 3.35 TB/s or operations over the peak for their
@@ -53,7 +56,8 @@ file's kernel phase on the kernels of PARENT (another checkout, e.g.
 unpacked with ``git archive``) and on this tree's in turns, parent,
 change, change, parent, each in its own process on this card (rows
 tagged ``ab_run`` and ``tree``; one timing harness for both trees), and
-ptxas's report of both trees' B5 source.  It prints no result line.
+ptxas's report of both trees' B5 and B2 sources.  It prints no result
+line.
 """
 import collections
 import json
@@ -276,7 +280,10 @@ def kld_row(flush):
     tok = torch.randint(0, 49152, (b, k), generator=g, dtype=torch.int32).cuda()
     got = kl.fused_kld_accept_cuda(tl[:, :k], dl, tok)
     want = kl.kld_accept_plain(tl[:, :k], dl, tok)
+    again = kl.fused_kld_accept_cuda(tl[:, :k], dl, tok)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("fused kld: two launches differ")
     b2_err = max((x - y).abs().max().item() for x, y in zip(got, want))
     # KL and H (nats) absolute; p(tok) and q(tok) average 1/V here, far
     # below any useful absolute tolerance, so they are held relative
@@ -353,10 +360,14 @@ def ngram_rows(flush):
     return rows[0]
 
 
-def ring_case(b, t, w, dtype, seed, wrap=False):
+def ring_case(b, t, w, dtype, seed, wrap=False, fill=None):
     """A dense-ring attention call: every row's ring full (positions 0 ..
     W-1, queries at the last ``t``), or with ``wrap`` rows that have run
-    past W (slot j holds the latest position p = j mod W)."""
+    past W (slot j holds the latest position p = j mod W), or with
+    ``fill`` (one count a row) rows holding positions 0 .. fill-1 in slots
+    0 .. fill-1, the rest empty (-1), queries at the last ``t``.  Bytes:
+    the K/V of the slots that hold a position, all W positions of
+    kv_pos, q_pos, q and out; operations over the slots that hold one."""
     import torch
     h, kv, d = 9, 3, 64
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -366,25 +377,33 @@ def ring_case(b, t, w, dtype, seed, wrap=False):
     end = torch.full((b,), w)
     if wrap:
         end = torch.randint(w + t, 3 * w, (b,), generator=g)
+    if fill is not None:
+        end = torch.tensor(fill)
     j = torch.arange(w)[None]
     kv_pos = (j + w * torch.div(end[:, None] - 1 - j, w,
                                 rounding_mode="floor")).int()
+    kv_pos = torch.where(kv_pos >= 0, kv_pos, -1)
     q_pos = (end[:, None] - t + torch.arange(t)[None]).int()
     args = [x.cuda().contiguous() for x in (q, kb, vb, q_pos, kv_pos)]
+    held = int(end.clamp(max=w).sum())
     es = q.element_size()
-    nbytes = (2 * q.numel() * es + 2 * b * w * kv * d * es + b * w * 4
+    nbytes = (2 * q.numel() * es + 2 * held * kv * d * es + b * w * 4
               + q_pos.numel() * 4)
-    flops = 4 * b * h * t * w * d
+    flops = 4 * h * t * held * d
     return args, nbytes, flops
 
 
 def ring_rows(flush):
     """B5 at B1's shapes: draft step (T 1) and verify (T 11) over full
     rings of W 256 (the serves' max_seq_len) and 2048, fp32 and bf16 q
-    and rings, B1's tolerances; then a windowed ring that has wrapped
-    (window 64, W 80, positions up to 3W) for its error alone.  The
-    library yardstick is SDPA over the ring with the same mask.  Returns
-    the fp32 T 1 W 256 row with the largest error over all rows."""
+    and rings, B1's tolerances; then partial rings as a serve's rows hold
+    them (W 256 with 40-64 positions a row, W 2048 with 300), whose bound
+    counts the K/V of the slots that hold a position plus W x 4 bytes of
+    kv_pos a row; then a windowed ring that has wrapped (window 64, W 80,
+    positions up to 3W) for its error alone.  Each call is launched twice
+    and must give the same bits.  The library yardstick is SDPA over the
+    ring with the same mask.  Returns the fp32 T 1 W 256 full row with the
+    largest error over all rows."""
     import torch
     from repro_torch.kernels import ragged_attention as ra
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
@@ -394,7 +413,10 @@ def ring_rows(flush):
     def check(args, dtype, window, what):
         got = ra.ragged_verify_attention_cuda(*args, window=window)
         want = ra.ragged_verify_attention_plain(*args, window=window)
+        again = ra.ragged_verify_attention_cuda(*args, window=window)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {what}: two launches differ")
         diff = (got.float() - want.float()).abs()
         atol, rtol = tol[dtype]
         if not bool((diff <= atol + rtol * want.float().abs()).all()):
@@ -403,19 +425,28 @@ def ring_rows(flush):
         return diff.max().item()
 
     rows, worst = [], 0.0
+    # positions a row: None = a full ring
+    fills = [(256, None), (2048, None), (256, [40, 48, 56, 64]),
+             (2048, [300] * 4)]
     for dtype in (torch.float32, torch.bfloat16):
-        for w in (256, 2048):
+        for w, fill in fills:
             for t in (1, 11):
-                args, nbytes, flops = ring_case(4, t, w, dtype, seed=t + w)
-                err = check(args, dtype, None, f"{dtype} W={w} t={t}")
+                args, nbytes, flops = ring_case(4, t, w, dtype, seed=t + w,
+                                                fill=fill)
+                err = check(args, dtype, None,
+                            f"{dtype} W={w} t={t} fill={fill}")
                 worst = max(worst, err)
                 bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
                 atol, rtol = tol[dtype]
                 row = {
                     "phase": "kernel", "name": name,
                     "dtype": str(dtype).replace("torch.", ""), "B": 4, "T": t,
-                    "H": 9, "KV": 3, "D": 64, "W": w, "max_abs_err": err,
-                    "atol": atol, "rtol": rtol,
+                    "H": 9, "KV": 3, "D": 64, "W": w,
+                    "positions": fill or [w] * 4,
+                    "bound_counts": ("all W slots" if fill is None else
+                                     "K/V of the slots holding a position "
+                                     "+ W x 4 B of kv_pos a row"),
+                    "max_abs_err": err, "atol": atol, "rtol": rtol,
                     "ms": time_ms(lambda: ra.ragged_verify_attention_cuda(
                         *args), flush=flush),
                     "plain_ms": time_ms(lambda: ra.ragged_verify_attention_plain(
@@ -432,7 +463,8 @@ def ring_rows(flush):
           "T": 11, "W": 80, "window": 64, "wrapped": True,
           "max_abs_err": err})
     first = next(r for r in rows if r["dtype"] == "float32"
-                 and r["T"] == 1 and r["W"] == 256)
+                 and r["T"] == 1 and r["W"] == 256
+                 and r["positions"] == [256] * 4)
     return dict(first, max_abs_err=worst)
 
 
@@ -796,9 +828,11 @@ def check_phase(cfg) -> None:
                                  f"{pipelined}, window={window}): {outs}")
 
 
-# the device kernels of the port's CUDA sources, by name
-PORT_KERNELS = ("pv::verify_kernel", "pv::merge_kernel", "paged_attention_kernel",
-                "kld_accept_kernel", "ngram_match_kernel")
+# the device kernels of the port's CUDA sources, by name; the attention
+# kernels' names carry their addressing policy (pv::TableAddr for B1 and
+# B4, pv::RingAddr for B5) as the first template argument
+PORT_KERNELS = ("pv::verify_kernel", "pv::merge_kernel", "kld_accept_kernel",
+                "ngram_match_kernel")
 
 
 def profile_phase(serve, engine, reqs) -> None:
@@ -847,9 +881,10 @@ def profile_phase(serve, engine, reqs) -> None:
                        for e in host]})
 
 
-# the attention sources whose kernels' registers, shared memory and
-# spills the build phase reports (B1, B4, B5)
-PTXAS_SOURCES = ("paged_attention", "paged_attention_quant", "ragged_attention")
+# the sources whose kernels' registers, shared memory and spills the
+# build phase reports (B1, B4, B5, B2)
+PTXAS_SOURCES = ("paged_attention", "paged_attention_quant", "ragged_attention",
+                 "kld_accept")
 
 # one A/B run: this file's kernel phase (one harness for both trees) on
 # the kernels of the tree whose ``src`` is argv[2]
@@ -874,8 +909,8 @@ def ab_phase(parent: Path) -> None:
     """This file's kernel phase on ``parent``'s kernels and on this
     tree's in turns (parent, change, change, parent), each in a process
     of its own that builds and imports its tree's ``repro_torch``; then
-    ptxas's report of each tree's B5 source, compiled with this tree's
-    flags."""
+    ptxas's report of each tree's B5 and B2 sources, compiled with this
+    tree's flags."""
     import tempfile
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc, parse_ptxas
     trees = (("parent", parent), ("change", ROOT), ("change", ROOT),
@@ -891,14 +926,15 @@ def ab_phase(parent: Path) -> None:
             if line.startswith("{"):
                 emit(dict(json.loads(line), ab_run=i, tree=tag))
     for tag, tree in (("parent", parent), ("change", ROOT)):
-        with tempfile.TemporaryDirectory() as tmp:
-            src = tree / "src" / "repro_torch" / "csrc" / "ragged_attention.cu"
-            log = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o",
-                                  str(Path(tmp) / "lib.so"), str(src)],
-                                 capture_output=True, text=True, timeout=600,
-                                 check=True)
-        emit({"phase": "ptxas", "tree": tag, "source": "ragged_attention",
-              "kernels": parse_ptxas(log.stdout + log.stderr)})
+        for source in ("ragged_attention", "kld_accept"):
+            with tempfile.TemporaryDirectory() as tmp:
+                src = tree / "src" / "repro_torch" / "csrc" / f"{source}.cu"
+                log = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o",
+                                      str(Path(tmp) / "lib.so"), str(src)],
+                                     capture_output=True, text=True,
+                                     timeout=600, check=True)
+            emit({"phase": "ptxas", "tree": tag, "source": source,
+                  "kernels": parse_ptxas(log.stdout + log.stderr)})
 
 
 def main() -> int:

@@ -39,7 +39,8 @@ extern "C" int paged_attention(const void* q, const void* pool_k,
   pv::Args a{q, pool_k, pool_v, nullptr, nullptr, block_table, q_pos, kv_pos,
              out, static_cast<float*>(scratch), n_b, n_t, n_h, n_kv, bs_log2,
              maxb, window, splits, scale};
-  if (dtype == 0) return pv::launch<float, float>(a, d, s);
-  if (dtype == 1) return pv::launch<__nv_bfloat16, __nv_bfloat16>(a, d, s);
+  if (dtype == 0) return pv::launch<pv::TableAddr, float, float>(a, d, s);
+  if (dtype == 1)
+    return pv::launch<pv::TableAddr, __nv_bfloat16, __nv_bfloat16>(a, d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,7 +48,7 @@ extern "C" int paged_attention_quant(const void* q, const void* pool_k,
              static_cast<const float*>(v_scale), block_table, q_pos, kv_pos,
              out, static_cast<float*>(scratch), n_b, n_t, n_h, n_kv, bs_log2,
              maxb, window, splits, scale};
-  if (dtype == 0) return pv::launch<float, int8_t>(a, d, s);
-  if (dtype == 1) return pv::launch<__nv_bfloat16, int8_t>(a, d, s);
+  if (dtype == 0) return pv::launch<pv::TableAddr, float, int8_t>(a, d, s);
+  if (dtype == 1) return pv::launch<pv::TableAddr, __nv_bfloat16, int8_t>(a, d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,11 +17,11 @@ see their headers for the design and bound.
   the launch.
 * :func:`paged_ragged_attention` — the dispatcher: the plain version for
   tensors on the CPU, the kernel for CUDA tensors, nothing else.
-* :func:`split_plan` / :func:`split_ranges` — the kernel's split of each
-  sequence's table over S thread blocks, chosen from the shapes and the
-  card's SM count alone (never from a device tensor, so a launch makes
-  no host sync), shared with the int8 kernel through
-  :func:`plan_splits`.
+* :func:`split_plan` / :func:`split_ranges` — the kernels' split of each
+  sequence's units (table entries; the dense ring's 16-slot chunks) over
+  S thread blocks, chosen from the shapes and the card's SM count alone
+  (never from a device tensor, so a launch makes no host sync), shared
+  with the int8 and ring kernels through :func:`plan_splits`.
 * :func:`split_attention_plain` and
   :func:`paged_ragged_verify_attention_split_plain` — the kernel's
   split-and-merge algorithm in plain PyTorch, for the CPU tests (no main
@@ -54,15 +54,16 @@ STAGE_SLOTS = 64         # slots a thread block stages at a time
 @functools.lru_cache(maxsize=256)
 def split_plan(b: int, t: int, h: int, kv: int, bs: int, maxb: int,
                sms: int = SMS) -> int:
-    """S, the number of splits of each sequence's MAXB table entries in
-    the kernels' grid (B, KV, S), from the shapes and the card's SM count
-    ``sms`` alone: enough that B * KV * S is about twice ``sms``, but at
-    most one 64-slot stage of table entries per split (below that a
+    """S, the number of splits of each sequence's MAXB units of BS slots
+    (a pool's table entries; the dense ring's ceil(W / 16) chunks of 16)
+    in the kernels' grid (B, KV, S), from the shapes and the card's SM
+    count ``sms`` alone: enough that B * KV * S is about twice ``sms``,
+    but at most one 64-slot stage of units per split (below that a
     split's fixed cost, its prologue and its partial, outweighs the
     parallelism it adds), and at
     most MAXB * BS / (G * T) splits, so that the fp32 partials the splits
     write (G * T rows of D each) never outgrow the K they read.  Then cut
-    to the splits that hold an entry."""
+    to the splits that hold a unit."""
     if maxb <= 0:
         return 1
     want = -(-2 * sms // max(1, b * kv))
@@ -74,9 +75,9 @@ def split_plan(b: int, t: int, h: int, kv: int, bs: int, maxb: int,
 
 
 def split_ranges(maxb: int, splits: int):
-    """The table entries [begin, end) of each split, as the kernel takes
-    them: per = ceil(MAXB / S) entries each, the last ones possibly
-    short or empty."""
+    """The units [begin, end) of each split, as the kernels take them:
+    per = ceil(MAXB / S) units each, the last ones possibly short or
+    empty."""
     per = -(-maxb // splits) if maxb > 0 else 0
     return [(min(s * per, maxb), min(s * per + per, maxb))
             for s in range(splits)]

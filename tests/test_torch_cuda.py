@@ -237,7 +237,7 @@ def test_ragged_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
     assert bool((got[0] == 0).all())          # the row with no valid slot
 
 
-@pytest.mark.parametrize("w", [80, 96, 160])
+@pytest.mark.parametrize("w", [80, 96, 160, 272])
 def test_ragged_attention_kernel_on_a_wrapped_ring(cuda, w):
     """Window 64 over rings of window + 16 (and wider) slots whose rows
     have run past W: slots hold the latest positions, some outside the
@@ -246,6 +246,89 @@ def test_ragged_attention_kernel_on_a_wrapped_ring(cuda, w):
     got = ra.ragged_verify_attention_cuda(*args, window=64)
     want = ra.ragged_verify_attention_plain(*args, window=64)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+RING_SHAPES = [(4, 1, 9, 3, 64, 256), (4, 11, 9, 3, 64, 256),
+               (3, 6, 8, 8, 64, 80), (2, 11, 12, 4, 128, 96),
+               (2, 3, 16, 16, 64, 272)]
+
+
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("shape", RING_SHAPES)
+@pytest.mark.parametrize("splits", [1, 2, 7, "stages+3"])
+def test_ragged_attention_kernel_forced_splits(cuda, splits, shape, dtype,
+                                               atol, rtol, window):
+    """B5 with S forced over the ring's 16-slot chunks: one split, a few,
+    and three more than the ring's 64-slot stages, against the plain
+    version and its split-and-merge version."""
+    args = _ring(*shape, dtype=dtype, device=cuda)
+    w = shape[-1]
+    s = -(-w // 64) + 3 if splits == "stages+3" else splits
+    got = ra.ragged_verify_attention_cuda(*args, window=window, splits=s)
+    want = ra.ragged_verify_attention_plain(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    split = ra.ragged_verify_attention_split_plain(
+        *[x.cpu() for x in args], window=window, splits=s)
+    torch.testing.assert_close(got.float().cpu(), split.float(), atol=atol,
+                               rtol=rtol)
+    assert bool((got[0] == 0).all())          # the row with no valid slot
+
+
+def _partial(t, w, fills, dtype, device, seed=0):
+    """Ring rows holding positions 0 .. n-1 in slots 0 .. n-1 (n from
+    ``fills``, one a row), the rest empty, queries at positions
+    max(n - t, 0) ...; smollm's heads.  K/V in the slots 15 or more past
+    a row's last position are NaN: those lie only in chunks without a
+    live slot, which the kernel must neither copy nor multiply."""
+    h, kv, d = 9, 3, 64
+    b = len(fills)
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, t, h, d, generator=g)
+    kb = torch.randn(b, w, kv, d, generator=g)
+    vb = torch.randn(b, w, kv, d, generator=g)
+    n = torch.tensor(fills)
+    j = torch.arange(w)[None]
+    kv_pos = torch.where(j < n[:, None], j, -1).int()
+    q_pos = ((n - t).clamp(min=0)[:, None] + torch.arange(t)[None]).int()
+    dead = j >= n[:, None] + 15
+    out = [q.to(dtype), kb.to(dtype), vb.to(dtype), q_pos, kv_pos]
+    return [x.to(device).contiguous() for x in out], dead.to(device)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("t", [1, 11])
+@pytest.mark.parametrize("splits", [None, 1, 3, 35])
+def test_ragged_attention_kernel_on_partial_rings(cuda, splits, t, dtype,
+                                                  atol, rtol):
+    """Rows of 0, 1, 40 and 300 positions in one call at W 512: against
+    the plain version, the row of 0 exactly 0, two launches the same
+    bits, and the same bits again with NaN K/V in the dead chunks (the
+    kv_pos-first skip reads none of their bytes)."""
+    args, dead = _partial(t, 512, [0, 1, 40, 300], dtype, cuda, seed=t)
+    got = ra.ragged_verify_attention_cuda(*args, splits=splits)
+    want = ra.ragged_verify_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())
+    assert torch.equal(got, ra.ragged_verify_attention_cuda(*args,
+                                                            splits=splits))
+    poisoned = list(args)
+    for i in (1, 2):
+        poisoned[i] = args[i].masked_fill(dead[:, :, None, None], float("nan"))
+    assert torch.equal(got, ra.ragged_verify_attention_cuda(*poisoned,
+                                                            splits=splits))
+
+
+def test_ragged_attention_kernel_wrapped_window_bits(cuda):
+    """The wrapped windowed ring (window 64, W 80): two launches give the
+    same bits at the planned S and at S past the ring's chunks."""
+    args = _ring(4, 11, 9, 3, 64, 80, torch.float32, cuda, seed=5, wrap=True)
+    want = ra.ragged_verify_attention_plain(*args, window=64)
+    for s in (None, 2, 8):
+        got = ra.ragged_verify_attention_cuda(*args, window=64, splits=s)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+        assert torch.equal(got, ra.ragged_verify_attention_cuda(
+            *args, window=64, splits=s))
 
 
 def test_ragged_dispatch_counts_one_launch_per_call(cuda):
@@ -322,6 +405,49 @@ def test_kld_kernel_matches_plain(cuda, b, t, v):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-5)
     for x, y in zip(got[2:], want[2:]):
         torch.testing.assert_close(x, y, atol=1e-9, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,t,v", [(4, 10, 49280), (2, 3, 1030), (1, 1, 77)])
+@pytest.mark.parametrize("chunks", [None, 1, 3, 8])
+def test_kld_kernel_chunks_and_bits(cuda, chunks, b, t, v):
+    """B2 with C forced (one block a row, a few, the full cluster of 8)
+    through the strided ``[:, :t]`` view, tokens inside and outside
+    [0, V): against the plain version, and two launches the same bits."""
+    g = torch.Generator().manual_seed(v + t)
+    tl = (torch.randn(b, t + 1, v, generator=g) * 3).to(cuda)
+    dl = (torch.randn(b, t, v, generator=g) * 3).to(cuda)
+    tok = torch.randint(-2, v + 2, (b, t), generator=g, dtype=torch.int32)
+    tok[0, 0], tok[-1, -1] = -1, v                 # outside [0, V)
+    tok = tok.to(cuda)
+    got = kl.fused_kld_accept_cuda(tl[:, :t], dl, tok, chunks=chunks)
+    want = kl.kld_accept_plain(tl[:, :t], dl, tok)
+    for x, y in zip(got[:2], want[:2]):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-5)
+    for x, y in zip(got[2:], want[2:]):
+        torch.testing.assert_close(x, y, atol=1e-9, rtol=1e-4)
+    assert float(got[2][0, 0]) == 0.0 and float(got[3][-1, -1]) == 0.0
+    again = kl.fused_kld_accept_cuda(tl[:, :t], dl, tok, chunks=chunks)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_kld_kernel_unaligned_rows(cuda):
+    """Rows whose target and draft starts differ modulo 16 bytes (a
+    scalar-read row) and rows that start mid-vector (a head and a tail)."""
+    g = torch.Generator().manual_seed(9)
+    n = 3 * 4 * 1030
+    base = (torch.randn(2, n + 8, generator=g) * 3).to(cuda)
+    tl = base[0, 1:1 + n].view(3, 4, 1030)       # rows at 1 + 1030 k floats
+    dl = base[1, 6:6 + n].view(3, 4, 1030)       # at 6 + 1030 k: unlike tl
+    dl_alike = base[1, 1:1 + n].view(3, 4, 1030)  # alike: head and tail
+    tok = torch.randint(0, 1030, (3, 4), generator=g, dtype=torch.int32).to(cuda)
+    for x_, y_ in ((tl, dl), (tl, dl_alike), (dl, tl)):
+        want = kl.kld_accept_plain(x_, y_, tok)
+        for c in (None, 2, 8):
+            got = kl.fused_kld_accept_cuda(x_, y_, tok, chunks=c)
+            for x, y in zip(got[:2], want[:2]):
+                torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-5)
+            for x, y in zip(got[2:], want[2:]):
+                torch.testing.assert_close(x, y, atol=1e-9, rtol=1e-4)
 
 
 def test_dispatch_counts_launches_on_cuda(cuda):

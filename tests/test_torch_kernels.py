@@ -14,9 +14,11 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.kld_accept import fused_kld_accept
-from repro.kernels.ragged_attention import paged_ragged_verify_attention
+from repro.kernels.ragged_attention import (paged_ragged_verify_attention,
+                                           ragged_verify_attention)
 from repro_torch.kernels import kld_accept as t_kld
 from repro_torch.kernels import paged_attention as t_attn
+from repro_torch.kernels import ragged_attention as t_ring
 from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
 
 jax.config.update("jax_platform_name", "cpu")
@@ -96,6 +98,93 @@ def test_plain_kld_matches_pallas_and_oracle(b, t, v, bv):
                                    err_msg=name)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_ring_split_plain_matches_pallas(window):
+    """B5's algorithm (live-chunk skip, splits merged in order) against
+    the reference Pallas kernel in interpret mode: a partial ring (one
+    empty row, rows of 1, 20 and 61 positions), W 80 (no multiple of 64),
+    G 3, T 4, forced S 1, 3 and 8 (past the ring's 5 chunks)."""
+    rng = np.random.RandomState(15)
+    b, t, h, kv, d, w = 4, 4, 9, 3, 64, 80
+    q = rng.randn(b, t, h, d).astype(np.float32)
+    kb = rng.randn(b, w, kv, d).astype(np.float32)
+    vb = rng.randn(b, w, kv, d).astype(np.float32)
+    n = np.array([0, 1, 20, 61])
+    j = np.arange(w)[None]
+    kvp = np.where(j < n[:, None], j, -1).astype(np.int32)
+    qp = (np.maximum(n - t, 0)[:, None] + np.arange(t)[None]).astype(np.int32)
+    kern = np.asarray(ragged_verify_attention(
+        *(jnp.asarray(x) for x in (q, kb, vb, qp, kvp)), window=window,
+        interpret=True))
+    for splits in (1, 3, 8):
+        got = t_ring.ragged_verify_attention_split_plain(
+            *_torch(q, kb, vb, qp, kvp), window=window, splits=splits).numpy()
+        np.testing.assert_allclose(got, kern, atol=2e-5, rtol=1e-4)
+        assert np.all(got[0] == 0.0)
+
+
+def _kld_exact(tl, dl):
+    """KL and H of each row in float64, from the log_softmax sums."""
+    lp = torch.log_softmax(torch.from_numpy(tl).double(), -1)
+    lq = torch.log_softmax(torch.from_numpy(dl).double(), -1)
+    return (lp.exp() * (lp - lq)).sum(-1), -(lq.exp() * lq).sum(-1)
+
+
+@pytest.mark.parametrize("b,t,v", [(2, 3, 49280), (4, 10, 1030),
+                                   (1, 3, 77)])
+def test_kld_split_plain_matches_plain_and_pallas(b, t, v):
+    """B2's chunked algorithm (chunk states merged in chunk order) at the
+    planned C and forced C 1, 3 and 8, tokens inside and outside [0, V):
+    against the Pallas kernel in interpret mode and a float64 evaluation
+    at atol 1e-5; against ``kld_accept_plain`` at atol 1e-5 for V 1030
+    and 77, and at V 49280 within the plain version's own float32 error
+    there (up to 1.5e-5 from float64 for KL near 9 nats) plus 1e-5."""
+    rng = np.random.RandomState(b * 100 + v)
+    tl = (rng.randn(b, t, v) * 3).astype(np.float32)
+    dl = (rng.randn(b, t, v) * 3).astype(np.float32)
+    tok = rng.randint(0, v, size=(b, t)).astype(np.int32)
+    tok[0, 0], tok[-1, -1] = -1, v
+    kern = [np.asarray(x) for x in fused_kld_accept(
+        jnp.asarray(tl), jnp.asarray(dl), jnp.asarray(tok), interpret=True)]
+    plain = [x.numpy() for x in t_kld.kld_accept_plain(*_torch(tl, dl, tok))]
+    exact = [x.numpy() for x in _kld_exact(tl, dl)]
+    assert plain[2][0, 0] == 0.0 and plain[3][-1, -1] == 0.0
+    plain_err = max(np.abs(plain[i] - exact[i]).max() for i in (0, 1))
+    for chunks in (None, 1, 3, 8):
+        got = [x.numpy() for x in t_kld.kld_accept_split_plain(
+            *_torch(tl, dl, tok), chunks=chunks)]
+        for i, name in enumerate(("kld", "ent", "ptok", "qtok")):
+            np.testing.assert_allclose(got[i], kern[i], atol=1e-5,
+                                       err_msg=name)
+            atol = 1e-5 if v < 49280 or i > 1 else 1e-5 + plain_err
+            np.testing.assert_allclose(got[i], plain[i], atol=atol,
+                                       err_msg=name)
+        for i in (0, 1):
+            np.testing.assert_allclose(got[i], exact[i], atol=1e-5)
+
+
+def test_kld_split_ranges_cover_each_row_once():
+    """The kernel's chunks of a row: every logit once, in order, the head
+    in chunk 0 and the tail in the last chunk, for vector and scalar
+    rows, and C = kld_chunks picks 8 at the round's 40 rows."""
+    assert t_kld.kld_chunks(40, 49280) == 8
+    assert t_kld.kld_chunks(1, 77) == 1
+    assert t_kld.kld_chunks(396, 49280) == 1
+    for v in (1, 5, 77, 1030, 49280):
+        for head, width in ((0, 4), (3, 4), (1, 4), (0, 1)):
+            head = min(head, v)
+            for c in (1, 2, 3, 8):
+                ranges = t_kld.kld_split_ranges(v, c, head, width)
+                assert len(ranges) == c
+                assert [i for lo, hi in ranges for i in range(lo, hi)] == \
+                    list(range(v))
+                for lo, hi in ranges[1:-1]:
+                    assert (lo - head) % width == 0 and (hi - head) % width == 0
+    assert t_kld.row_units(0, 4, 10) == (0, 1)       # unlike modulo 16 bytes
+    assert t_kld.row_units(4, 20, 10) == (3, 4)      # alike, 3 before 16
+    assert t_kld.row_units(32, 64, 10) == (0, 4)
 
 
 def test_cpu_dispatch_uses_plain_and_counts_no_launch():

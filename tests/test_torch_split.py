@@ -1,15 +1,18 @@
-"""The split-KV algorithm of the paged verify kernels (B1, B4) on the CPU.
+"""The split-KV algorithm of the verify kernels (B1, B4, B5) on the CPU.
 
-The kernels cut each sequence's block table into S contiguous ranges, one
-thread block each, and merge the ranges' partial (m, l, acc) in split
-order.  Here the plan that picks S (from shapes alone) is checked to
-cover every table entry exactly once, and the plain PyTorch version of
-the split-and-merge algorithm is held against the unsplit plain version
-(itself held against the Pallas kernels in ``test_torch_kernels.py`` and
-``test_torch_kv_quant.py``) within 1e-6 (absolute, and relative for
-outputs above 1): forced S up to MAXB + 3 (so some splits are empty),
-windows, -1 holes in the tables, and a row with no valid slot, which
-must give exactly 0.
+The kernels cut each sequence's units (a pool's block table entries, the
+dense ring's 16-slot chunks) into S contiguous ranges, one thread block
+each, and merge the ranges' partial (m, l, acc) in split order; the ring
+kernel (B5) first drops the chunks without a slot valid for the call.
+Here the plan that picks S (from shapes alone) is checked to cover every
+table entry and every ring slot exactly once, and the plain PyTorch
+versions of the split-and-merge algorithm are held against the unsplit
+plain versions (themselves held against the Pallas kernels in
+``test_torch_kernels.py``, ``test_torch_kv_quant.py`` and
+``test_torch_ragged.py``) within 1e-6 (absolute, and relative for
+outputs above 1): forced S past the units (so some splits are empty),
+windows, -1 holes in the tables, partial and wrapped rings, and a row
+with no valid slot, which must give exactly 0.
 """
 import inspect
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_attention_quant as pq
+from repro_torch.kernels import ragged_attention as ra
 from repro_torch.models.cache import quantize_kv
 
 PLAN_SHAPES = [
@@ -154,3 +158,129 @@ def test_split_plain_rounds_bf16_once():
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
                                rtol=2 ** -7)
+
+
+RING_WIDTHS = [80, 256, 272, 2048]
+
+
+@pytest.mark.parametrize("w", RING_WIDTHS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES[:6])
+def test_ring_split_plan_covers_every_slot_once(shape, w):
+    """B5's plan: ``split_plan`` over the ring's ceil(W/16) chunks; every
+    slot of W lies in exactly one split, in order, for the planned S and
+    for forced S up to three past the chunks (empty splits)."""
+    b, t, h, kv = shape[:4]
+    chunks = ra.ring_chunks(w)
+    s = pa.split_plan(b, t, h, kv, ra.CHUNK_SLOTS, chunks)
+    assert 1 <= s <= chunks
+    assert all(hi > lo for lo, hi in ra.ring_split_ranges(w, s))
+    for splits in sorted({s, 1, 2, -(-w // 64) + 3, chunks + 3}):
+        ranges = ra.ring_split_ranges(w, splits)
+        assert len(ranges) == splits
+        assert [j for lo, hi in ranges for j in range(lo, hi)] == list(range(w))
+        # splits begin on chunk boundaries, so chunks never straddle two
+        assert all(lo % ra.CHUNK_SLOTS == 0 or lo == w for lo, _ in ranges)
+
+
+@pytest.mark.parametrize("h,kv,t,d", [(9, 3, 11, 64), (12, 4, 11, 128),
+                                      (8, 8, 6, 64), (4, 1, 64, 32),
+                                      (16, 16, 3, 128)])
+def test_ring_query_groups_cover_t(h, kv, t, d):
+    """The ring wrapper's launches over T: consecutive, covering T once,
+    each within the body's 64 query rows a KV head (32 at D 128)."""
+    groups = ra.query_groups(h, kv, t, d)
+    assert [i for lo, hi in groups for i in range(lo, hi)] == list(range(t))
+    for lo, hi in groups:
+        pa.check_verify_shape(h, kv, hi - lo, d, ra.CHUNK_SLOTS)
+    assert len(groups) == 1 or (h // kv) * t > (32 if d == 128 else 64)
+
+
+def _ring(b, t, h, kv, d, w, seed, fills=None, wrap=False):
+    """Ring rows (fp32): with ``fills`` row i holds positions 0 .. n_i - 1
+    in slots 0 .. n_i - 1 and queries at max(n_i - t, 0) ...; with
+    ``wrap`` rows that ran past W (slot j holds the latest p = j mod W);
+    else rows of random length below W.  Row 0 holds nothing."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, t, h, d).astype(np.float32)
+    kb = rng.randn(b, w, kv, d).astype(np.float32)
+    vb = rng.randn(b, w, kv, d).astype(np.float32)
+    j = np.arange(w)[None]
+    if fills is not None:
+        n = np.asarray(fills)
+        kvp = np.where(j < n[:, None], j, -1)
+        qp = np.maximum(n - t, 0)[:, None] + np.arange(t)[None]
+    else:
+        lens = (rng.randint(w, 3 * w, size=b) if wrap
+                else rng.randint(t, max(w - t, t + 1), size=b))
+        end = lens + t
+        latest = j + w * ((end[:, None] - 1 - j) // w)
+        kvp = np.where(latest >= 0, latest, -1)
+        qp = lens[:, None] + np.arange(t)[None]
+    kvp[0] = -1
+    return [torch.from_numpy(x) for x in
+            (q, kb, vb, qp.astype(np.int32), kvp.astype(np.int32))]
+
+
+RING_CASES = {
+    # name: (b, t, h, kv, d, w, fills, wrap, window)
+    "partial_256": (4, 1, 9, 3, 64, 256, [0, 40, 52, 64], False, None),
+    "partial_verify_256": (4, 11, 9, 3, 64, 256, [0, 41, 57, 64], False,
+                           None),
+    "partial_2048": (3, 11, 9, 3, 64, 2048, [0, 300, 1], False, None),
+    "wrapped_window": (4, 11, 9, 3, 64, 80, None, True, 64),
+    "w272_window": (3, 6, 8, 8, 32, 272, None, False, 40),
+    "w96_mha": (2, 3, 4, 4, 32, 96, [0, 95], False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_ring_split_plain_equals_plain(case):
+    """B5's algorithm (live-chunk skip, split, merge in split order) at
+    forced S from 1 to past the ring's chunks against the unsplit plain
+    version; the row with no valid slot gives exactly 0."""
+    b, t, h, kv, d, w, fills, wrap, window = RING_CASES[case]
+    args = _ring(b, t, h, kv, d, w, seed=w + t, fills=fills, wrap=wrap)
+    want = ra.ragged_verify_attention_plain(*args, window=window)
+    assert bool((want[0] == 0).all())
+    stages = -(-w // 64)
+    for splits in sorted({1, 2, 3, stages, stages + 3,
+                          ra.ring_chunks(w) + 3}):
+        got = ra.ragged_verify_attention_split_plain(*args, window=window,
+                                                     splits=splits)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+        assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["partial_2048", "wrapped_window"])
+def test_ring_split_plain_skips_dead_chunks(case):
+    """The chunks without a live slot are never read: NaN K/V there
+    leaves the split version's output unchanged, bit for bit."""
+    b, t, h, kv, d, w, fills, wrap, window = RING_CASES[case]
+    q, kb, vb, q_pos, kv_pos = _ring(b, t, h, kv, d, w, seed=3, fills=fills,
+                                     wrap=wrap)
+    live = ra.live_slots(q_pos, kv_pos, window)
+    assert bool((~live).any()) and bool(live.any())
+    want = ra.ragged_verify_attention_split_plain(q, kb, vb, q_pos, kv_pos,
+                                                  window=window, splits=3)
+    dead = ~live[:, :, None, None]
+    got = ra.ragged_verify_attention_split_plain(
+        q, kb.masked_fill(dead, float("nan")), vb.masked_fill(dead, float("nan")),
+        q_pos, kv_pos, window=window, splits=3)
+    assert torch.equal(got, want)
+
+
+def test_ring_live_slots_criterion():
+    """A chunk is live iff it holds a slot with 0 <= kv_pos <= max q_pos
+    and, with a window, kv_pos > min q_pos - window; live slots come in
+    whole chunks, the last one cut at W."""
+    kv_pos = torch.full((2, 40), -1, dtype=torch.int32)
+    kv_pos[0, 3] = 5                     # chunk 0: valid for q_pos 9
+    kv_pos[0, 20] = 30                   # chunk 1: beyond every query
+    kv_pos[0, 33] = 0                    # chunk 2 (8 slots): outside window 6
+    kv_pos[1, 17] = 4                    # row 1, chunk 1: inside window 6
+    q_pos = torch.tensor([[8, 9], [8, 9]], dtype=torch.int32)
+    live = ra.live_slots(q_pos, kv_pos)
+    assert live[0].tolist() == [True] * 16 + [False] * 16 + [True] * 8
+    live = ra.live_slots(q_pos, kv_pos, window=6)
+    assert live[0].tolist() == [True] * 16 + [False] * 24
+    assert live[1].tolist() == [False] * 16 + [True] * 16 + [False] * 8
