@@ -11,19 +11,23 @@ Phases, each printing one JSON line:
 2. build   — every CUDA source under ``src/repro_torch/csrc`` compiled
              (one ``nvcc`` each, in parallel) into ``build/kernels/``;
              then ptxas's registers, static shared memory and spills of
-             every kernel of the three attention sources (B1, B4, B5)
-             and of the fused KLD source (B2).
+             every kernel of the three attention sources (B1, B4, B5),
+             the fused KLD source (B2) and the n-gram source (B3).
 3. kernels — each kernel against its plain PyTorch version on the card
              at the serving path's shapes (B1, B2, B4 and B5 also
              launched twice, which must give the same bits; B1 and B4
-             also their wrappers' host time a call; B5 also over
-             partial rings, as a serve's rows hold them), with its
-             tolerance, its time, the plain
-             version's time, a library call's time where one computes
-             the same function, and the least time the card could take
-             (bytes over 3.35 TB/s or operations over the peak for their
-             operand type, 989 TFLOP/s for bf16 and 67 TFLOP/s for
-             fp32, whichever is larger).
+             also their wrappers' host time a call, and G * T 66 query
+             rows a KV head, two launches a call; B5 also over partial
+             rings, as a serve's rows hold them; B3 also at L 65536, on
+             rows at a 4-byte offset and through the drafter's entry),
+             with its tolerance, its time (the mean ``ms`` and the
+             median ``ms_median`` of 30 event-bracketed launches), the
+             plain version's time, a library call's time where one
+             computes the same function, and the least time the card
+             could take (bytes over 3.35 TB/s or operations over the
+             peak for their operand type, 989 TFLOP/s for bf16 and 67
+             TFLOP/s for fp32, whichever is larger); then an empty
+             kernel timed the same way, the launch floor.
 4. serve   — the host cost of one full-width decode step and of one
              KV write on each cache (forward phase), then
              ``ServingEngine(...).run`` at smollm-135m full width (30
@@ -42,7 +46,8 @@ Phases, each printing one JSON line:
              (device busy share, top kernels, the port's own kernels
              and host calls), and the paths at the reduced width on the
              card and on the CPU (plain versions) must emit the same
-             greedy streams.
+             greedy streams (the fp32 and int8 pools also at SL 16,
+             verify passes past one launch of B1 and B4).
 
 It ends with the kernels line, the ``nvidia-smi`` line and the result
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -55,12 +60,13 @@ runs a kernel A/B instead: the device and build phases, then this
 file's kernel phase on the kernels of PARENT (another checkout, e.g.
 unpacked with ``git archive``) and on this tree's in turns, parent,
 change, change, parent, each in its own process on this card (rows
-tagged ``ab_run`` and ``tree``; one timing harness for both trees), and
-ptxas's report of both trees' B5 and B2 sources.  It prints no result
-line.
+tagged ``ab_run`` and ``tree``; one timing harness for both trees; rows
+of features the parent lacks are left out of its runs), and ptxas's
+report of both trees' B3 source.  It prints no result line.
 """
 import collections
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -83,19 +89,20 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int = 30, flush=None) -> float:
-    """Mean device ms of ``fn`` over ``iters`` launches, each bracketed
+def timings(fn, iters: int = 30, flush=None):
+    """Device ms of each of ``iters`` launches of ``fn``, each bracketed
     by CUDA events; ``flush`` (a large buffer) is rewritten before each
     launch so the kernel meets a cold L2, as between layers.  It is
     rewritten twice (about 0.2 ms of device time), so the card is still
     busy with it while the host enqueues the timed call: a wrapper's own
     host time (tens of us) never shows as device time between the
-    events."""
+    events, unless the host stalls for longer (the median reads past
+    such a stall, the mean does not)."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
+    out = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
@@ -106,8 +113,20 @@ def time_ms(fn, iters: int = 30, flush=None) -> float:
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def time_ms(fn, iters: int = 30, flush=None) -> float:
+    """Mean device ms of ``fn`` (:func:`timings`)."""
+    return statistics.fmean(timings(fn, iters, flush))
+
+
+def kernel_ms(fn, flush) -> dict:
+    """A kernel row's times: ``ms`` the mean (as every earlier row was
+    read), ``ms_median`` the median of the same launches."""
+    t = timings(fn, flush=flush)
+    return {"ms": statistics.fmean(t), "ms_median": statistics.median(t)}
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -193,7 +212,8 @@ def sdpa_ms(q, k, v, pos, q_pos, flush) -> float:
 def attention_rows(flush):
     """B1 and B4 at draft-step (T 1) and verify (T 11) shapes, ctx 256
     and 2048, fp32 and bf16 q, then fp32 at ctx 64 (about what the
-    serves' rows hold).  Each call is launched twice and must give the
+    serves' rows hold), then T 22 at ctx 256 (G * T 66: the wrapper cuts
+    T into two launches).  Each call is launched twice and must give the
     same bits (the splits merge in a fixed order).  Returns each kernel's
     contract row: the draft-step shape of the serves (fp32, T 1, ctx 256)
     with the largest error over all its rows."""
@@ -227,9 +247,15 @@ def attention_rows(flush):
     shapes = [(dtype, ctx, t) for dtype in (torch.float32, torch.bfloat16)
               for ctx in (256, 2048) for t in (1, 11)]
     shapes += [(torch.float32, 64, 1), (torch.float32, 64, 11)]
-    contract = {}
-    for name, case, kernel, plain, gather in kernels:
-        rows, worst = [], 0.0
+    passes = [shapes]
+    if hasattr(pa, "query_groups"):
+        # G * T 66, past one launch's 64 rows (SL 21): two launches a call;
+        # after both kernels' other rows, so that an A/B parent without
+        # them meets the same allocations up to there
+        passes.append([(torch.float32, 256, 22), (torch.bfloat16, 256, 22)])
+    contract, rows, worst = {}, collections.defaultdict(list), {}
+    for (name, case, kernel, plain, gather), shapes in (
+            (kn, sh) for sh in passes for kn in kernels):
         for dtype, ctx, t in shapes:
             args, nbytes, flops = case(4, t, ctx, dtype, seed=t + ctx)
             got = kernel(*args)
@@ -245,7 +271,7 @@ def attention_rows(flush):
             if not bool((diff <= atol + rtol * want.float().abs()).all()):
                 raise AssertionError(f"{name} {dtype} ctx={ctx} t={t}: "
                                      f"max abs err {err}")
-            worst = max(worst, err)
+            worst[name] = max(worst.get(name, 0.0), err)
             bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
             k, v = gather(args)
             pos = gather_paged_pos(args[-1], args[-3])
@@ -253,8 +279,9 @@ def attention_rows(flush):
                 "phase": "kernel", "name": name,
                 "dtype": str(dtype).replace("torch.", ""), "B": 4,
                 "T": t, "H": 9, "KV": 3, "D": 64, "BS": 16, "ctx": ctx,
+                "GT": 3 * t,
                 "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "ms": time_ms(lambda: kernel(*args), flush=flush),
+                **kernel_ms(lambda: kernel(*args), flush),
                 "plain_ms": time_ms(lambda: plain(*args), flush=flush),
                 "library_ms": sdpa_ms(args[0], k, v, pos, args[-2],
                                       flush),
@@ -262,10 +289,11 @@ def attention_rows(flush):
                 "host_us": host_us(lambda: kernel(*args)),
             }
             emit(row)
-            rows.append(row)
-        first = next(r for r in rows if r["dtype"] == "float32"
+            rows[name].append(row)
+    for name, _, _, _, _ in kernels:
+        first = next(r for r in rows[name] if r["dtype"] == "float32"
                      and r["T"] == 1 and r["ctx"] == 256)
-        contract[name] = dict(first, max_abs_err=worst)
+        contract[name] = dict(first, max_abs_err=worst[name])
     return contract
 
 
@@ -306,8 +334,8 @@ def kld_row(flush):
     row = {"phase": "kernel", "name": "fused_kld_accept", "dtype": "float32",
            "rows": b * k, "V": v, "max_abs_err": b2_err,
            "p_q_max_rel_err": b2_rel, **b2_tol,
-           "ms": time_ms(lambda: kl.fused_kld_accept_cuda(tl[:, :k], dl, tok),
-                         flush=flush),
+           **kernel_ms(lambda: kl.fused_kld_accept_cuda(tl[:, :k], dl, tok),
+                       flush),
            "plain_ms": time_ms(lambda: kl.kld_accept_plain(tl[:, :k], dl, tok),
                                flush=flush),
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -317,47 +345,88 @@ def kld_row(flush):
 
 def ngram_rows(flush):
     """B3 at the drafter's shape (B 4, n 3, k 10) over history buffers
-    of L 256 (the serves' max_seq_len) and 4096, tokens from a 4-symbol
-    alphabet so that matches exist; per row ctx is n (too short to
-    match), L/3, L-1 and L.  Integer-exact against the plain version.
-    Bound: the bytes of the tokens the function needs (each matchable
-    row's first ctx entries), ctx, the proposals and the counts; no
-    single PyTorch call computes this function.  Returns the L 256 row."""
+    of L 256 (the serves' max_seq_len), 4096 and 65536 (the cluster's
+    staged capacity), tokens from a 4-symbol alphabet so that matches
+    exist; per row ctx is n (too short to match), L/3, L-1 and L.  Then
+    L 4096 with its rows at a 4-byte offset from 16 bytes (the vector-load
+    path), and the drafter's entry (pending token at the committed length,
+    stale text past it) at L 256.  Integer-exact against the plain
+    version.  Bound: the bytes of the tokens the function needs (each
+    matchable row's first ctx entries), ctx, the proposals and the counts;
+    no single PyTorch call computes this function.  Returns the L 256
+    row."""
     import torch
     from repro_torch.kernels import ngram_match as ng
     b, n, k = 4, 3, 10
+    cases = [(256, 0, False), (4096, 0, False), (65536, 0, False),
+             (4096, 1, False)]
+    if hasattr(ng, "ngram_propose_history_cuda"):
+        cases.append((256, 0, True))
     rows = []
-    for l in (256, 4096):
-        g = torch.Generator(device="cpu").manual_seed(l)
-        buf = torch.randint(0, 4, (b, l), generator=g,
-                            dtype=torch.int32).cuda()
+    for l, off, history in cases:
+        g = torch.Generator(device="cpu").manual_seed(l + off)
+        host = torch.randint(0, 4, (b, l), generator=g, dtype=torch.int32)
+        flat = torch.zeros(off + b * l, dtype=torch.int32, device="cuda")
+        buf = flat[off:].view(b, l)
+        buf.copy_(host.cuda())
         ctx_host = [n, l // 3, l - 1, l]
         ctx = torch.tensor(ctx_host, dtype=torch.int32).cuda()
-        got = ng.ngram_suffix_propose_cuda(buf, ctx, n=n, k=k)
-        want = ng.ngram_propose_plain(buf, ctx, n=n, k=k)
+        args = (buf, ctx)
+        kernel, plain = ng.ngram_suffix_propose_cuda, ng.ngram_propose_plain
+        if history:
+            # committed lengths ctx - 1 (the last one L: the write dropped)
+            length = torch.tensor([n - 1, l // 3 - 1, l - 2, l],
+                                  dtype=torch.int32).cuda()
+            pending = torch.randint(0, 4, (b,), generator=g,
+                                    dtype=torch.int32).cuda()
+            args = (buf, length, pending)
+            kernel = ng.ngram_propose_history_cuda
+            plain = ng.ngram_propose_history_plain
+        got = kernel(*args, n=n, k=k)
+        want = plain(*args, n=n, k=k)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"ngram match L={l}: kernel {got} "
-                                 f"!= plain {want}")
+            raise AssertionError(f"ngram match L={l} offset={off} "
+                                 f"history={history}: kernel {got} != "
+                                 f"plain {want}")
         counts = want[1].tolist()
         if counts[0] != 0 or max(counts) <= 0:
             raise AssertionError(f"ngram match L={l}: counts {counts}")
         needed = sum(min(c, l) for c in ctx_host if c >= n + 1)
-        nbytes = 4 * needed + 4 * b + 4 * b * k + 4 * b
+        # the tokens, ctx (length and pending), the proposals, the counts
+        nbytes = 4 * needed + 4 * b * (2 if history else 1) + 4 * b * k + 4 * b
         bound_ms, bound_by = bound(nbytes, n * needed, FP32_FLOP_S)
         row = {"phase": "kernel", "name": "ngram_suffix_propose",
+               "entry": "history" if history else "tokens",
                "dtype": "int32", "B": b, "L": l, "n": n, "k": k,
-               "ctx": ctx_host, "counts": counts,
+               "row_offset_bytes": 4 * off, "ctx": ctx_host, "counts": counts,
                "max_abs_err": max((x - y).abs().max().item()
                                   for x, y in zip(got, want)),
-               "ms": time_ms(lambda: ng.ngram_suffix_propose_cuda(
-                   buf, ctx, n=n, k=k), flush=flush),
-               "plain_ms": time_ms(lambda: ng.ngram_propose_plain(
-                   buf, ctx, n=n, k=k), flush=flush),
+               **kernel_ms(lambda: kernel(*args, n=n, k=k), flush),
+               "plain_ms": time_ms(lambda: plain(*args, n=n, k=k),
+                                   flush=flush),
                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
         rows.append(row)
     return rows[0]
+
+
+def floor_row(flush):
+    """The launch floor: an empty kernel (one warp), timed as the kernels
+    are.  No kernel here can take less."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.build import SOURCES, load_library
+    if "launch_floor" not in SOURCES:
+        return
+    fn = load_library("launch_floor").launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("empty kernel launch failed")
+    emit({"phase": "kernel", "name": "launch_floor", "what": "empty kernel, "
+          "one warp, event-bracketed", **kernel_ms(launch, flush)})
 
 
 def ring_case(b, t, w, dtype, seed, wrap=False, fill=None):
@@ -447,8 +516,8 @@ def ring_rows(flush):
                                      "K/V of the slots holding a position "
                                      "+ W x 4 B of kv_pos a row"),
                     "max_abs_err": err, "atol": atol, "rtol": rtol,
-                    "ms": time_ms(lambda: ra.ragged_verify_attention_cuda(
-                        *args), flush=flush),
+                    **kernel_ms(lambda: ra.ragged_verify_attention_cuda(
+                        *args), flush),
                     "plain_ms": time_ms(lambda: ra.ragged_verify_attention_plain(
                         *args), flush=flush),
                     "library_ms": sdpa_ms(args[0], args[1], args[2], args[4],
@@ -479,6 +548,7 @@ def kernel_phase(flush):
     contract["fused_kld_accept"] = kld_row(flush)
     contract["ngram_suffix_propose"] = ngram_rows(flush)
     contract["ragged_verify_attention"] = ring_rows(flush)
+    floor_row(flush)
     return contract
 
 
@@ -760,15 +830,17 @@ def forward_phase(cfg, params) -> None:
     emit(row)
 
 
-# drafter, kv_quant, dense ring?, pipelined, attention window
+# drafter, kv_quant, dense ring?, pipelined, attention window, static SL
 CHECKS = (
-    ("model", "none", False, False, None),
-    ("model", "int8", False, False, None),
-    ("ngram", "int8", False, False, None),
-    ("model", "none", True, False, None),
-    ("model", "none", True, True, None),
-    ("ngram", "none", True, False, None),
-    ("model", "none", True, False, 24),
+    ("model", "none", False, False, None, None),
+    ("model", "int8", False, False, None, None),
+    ("ngram", "int8", False, False, None, None),
+    ("model", "none", True, False, None, None),
+    ("model", "none", True, True, None, None),
+    ("ngram", "none", True, False, None, None),
+    ("model", "none", True, False, 24, None),
+    ("model", "none", False, False, None, 16),
+    ("model", "int8", False, False, None, 16),
 )
 
 
@@ -778,7 +850,11 @@ def check_phase(cfg) -> None:
     ring (synchronous, pipelined, and windowed: window 24 makes a ring of
     40 slots that every request runs past).  The n-gram engine looks up
     1-grams here: with random weights the streams never repeat a trigram
-    at this width, and the check needs proposals to be made."""
+    at this width, and the check needs proposals to be made.  The last two
+    run the static policy at SL 16 (sl_max 16) on the fp32 and int8
+    pools: verify passes of T 17, G * T 68 query rows a KV head (G 4),
+    past one launch of B1 and B4, which their wrappers cut in two (with
+    random weights the dsde policy would keep SL near sl_min)."""
     import dataclasses
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
     from repro_torch.models.weights import init_params, map_params
@@ -789,18 +865,21 @@ def check_phase(cfg) -> None:
     p_small = init_params(small, seed=2, device="cpu")
     d_small = map_params(lambda a, n: a + 0.03 * n, p_small,
                          init_params(small, seed=3, device="cpu"))
-    for drafter, kv_quant, dense, pipelined, window in CHECKS:
+    for drafter, kv_quant, dense, pipelined, window, sl in CHECKS:
         model = drafter == "model"
         arch = dataclasses.replace(small, attention_window=window)
-        outs, proposed, length = {}, {}, 0
+        spec = SpecDecodeConfig(policy="dsde", drafter=drafter,
+                                ngram_n=3 if model else 1)
+        if sl is not None:
+            spec = dataclasses.replace(spec, policy="static", sl_max=sl,
+                                       static_sl=sl)
+        outs, proposed, length, max_k = {}, {}, 0, 0
         for device in ("cuda", "cpu"):
             rs = [Request(i, prompt=list(range(3 + i, 12 + 2 * i)) * 2,
                           max_new_tokens=24) for i in range(4)]
             eng = ServingEngine(
                 p_small, arch, d_small if model else None,
-                arch if model else None,
-                SpecDecodeConfig(policy="dsde", drafter=drafter,
-                                 ngram_n=3 if model else 1),
+                arch if model else None, spec,
                 ServingConfig(max_batch_size=2, max_seq_len=128,
                               pipelined=pipelined, paged_kv=not dense,
                               kv_block_size=16, num_kv_blocks=8,
@@ -810,6 +889,7 @@ def check_phase(cfg) -> None:
             outs[device] = [r.output for r in rs]
             proposed[device] = sum(r["proposed"] for r in eng.round_log)
             length = min(r.cache_len for r in rs)
+            max_k = max(r["k"] for r in eng.round_log)
         same = outs["cuda"] == outs["cpu"] and proposed["cuda"] == proposed["cpu"]
         if proposed["cuda"] <= 0:
             raise AssertionError(f"check ({drafter}, {kv_quant}): no proposals")
@@ -817,15 +897,23 @@ def check_phase(cfg) -> None:
         if ring and length <= ring:
             raise AssertionError(f"windowed check: rows of {length} tokens "
                                  f"never wrap a {ring}-slot ring")
+        rows_per_kv = (small.num_heads // small.num_kv_heads) * (max_k + 1)
+        if sl is not None and rows_per_kv <= 64:
+            raise AssertionError(f"SL {sl} check: verify passes of "
+                                 f"{rows_per_kv} query rows a KV head fit "
+                                 "one launch")
         emit({"phase": "check", "what": "reduced-width greedy streams, card vs CPU",
               "drafter": drafter, "kv_quant": kv_quant,
               "layout": "dense" if dense else "paged", "pipelined": pipelined,
-              "window": window, "ring_slots": ring, "min_tokens": length,
-              "requests": 4, "proposed": proposed["cuda"], "equal": same})
+              "window": window, "ring_slots": ring, "static_sl": sl,
+              "max_k": max_k, "verify_rows_per_kv_head": rows_per_kv,
+              "min_tokens": length, "requests": 4,
+              "proposed": proposed["cuda"], "equal": same})
         if not same:
             raise AssertionError(f"card and CPU streams differ ({drafter}, "
                                  f"{kv_quant}, dense={dense}, pipelined="
-                                 f"{pipelined}, window={window}): {outs}")
+                                 f"{pipelined}, window={window}, sl={sl}): "
+                                 f"{outs}")
 
 
 # the device kernels of the port's CUDA sources, by name; the attention
@@ -882,9 +970,9 @@ def profile_phase(serve, engine, reqs) -> None:
 
 
 # the sources whose kernels' registers, shared memory and spills the
-# build phase reports (B1, B4, B5, B2)
+# build phase reports (B1, B4, B5, B2, B3)
 PTXAS_SOURCES = ("paged_attention", "paged_attention_quant", "ragged_attention",
-                 "kld_accept")
+                 "kld_accept", "ngram_match")
 
 # one A/B run: this file's kernel phase (one harness for both trees) on
 # the kernels of the tree whose ``src`` is argv[2]
@@ -905,11 +993,15 @@ chip_smoke.kernel_phase(torch.empty(64 * 2 ** 20, dtype=torch.float32,
 """
 
 
+# the sources whose ptxas reports the A/B compares (B3: this change's)
+AB_PTXAS_SOURCES = ("ngram_match",)
+
+
 def ab_phase(parent: Path) -> None:
     """This file's kernel phase on ``parent``'s kernels and on this
     tree's in turns (parent, change, change, parent), each in a process
     of its own that builds and imports its tree's ``repro_torch``; then
-    ptxas's report of each tree's B5 and B2 sources, compiled with this
+    ptxas's report of each tree's ``AB_PTXAS_SOURCES``, compiled with this
     tree's flags."""
     import tempfile
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc, parse_ptxas
@@ -926,7 +1018,7 @@ def ab_phase(parent: Path) -> None:
             if line.startswith("{"):
                 emit(dict(json.loads(line), ab_run=i, tree=tag))
     for tag, tree in (("parent", parent), ("change", ROOT)):
-        for source in ("ragged_attention", "kld_accept"):
+        for source in AB_PTXAS_SOURCES:
             with tempfile.TemporaryDirectory() as tmp:
                 src = tree / "src" / "repro_torch" / "csrc" / f"{source}.cu"
                 log = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o",

@@ -14,7 +14,8 @@ divergence signal is the finite surrogate ``-log p_target(token)``; the
 fused KLD kernel is not on this drafter's path, as in the reference.
 
 The suffix match runs on the CUDA kernel for CUDA tensors and on its
-plain version on the CPU (:mod:`repro_torch.kernels.ngram_match`).
+plain version on the CPU (:func:`repro_torch.kernels.ngram_match
+.ngram_propose_history`).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.drafters.base import DraftProposal, Drafter, register_drafter
-from repro_torch.kernels.ngram_match import ngram_propose
+from repro_torch.kernels.ngram_match import ngram_propose_history
 from repro_torch.models.weights import VOCAB_PAD_MULTIPLE
 
 NEG = -1e30
@@ -59,15 +60,13 @@ class NGramDrafter(Drafter):
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
                 step_u, live):
-        buf, ln = draft_cache["tokens"], draft_cache["length"]
-        b, h = buf.shape
+        buf = draft_cache["tokens"]
         # the proposal conditions on committed history + the pending
-        # token, written at ``length`` where it fits
-        col = torch.arange(h, device=buf.device)[None]
-        work = torch.where(col == ln[:, None], pending[:, None].to(torch.int32),
-                           buf).contiguous()
-        ctx = torch.clamp(ln + 1, max=h).to(torch.int32)
-        toks, cnt = ngram_propose(work, ctx, n=self.spec.ngram_n, k=k)
+        # token at ``length`` where it fits; the lookup reads it there
+        # without writing the buffer
+        toks, cnt = ngram_propose_history(buf, draft_cache["length"],
+                                          pending.to(torch.int32),
+                                          n=self.spec.ngram_n, k=k)
         # one-hot over the target's padded vocabulary
         v = self.cfg_t.padded_vocab(VOCAB_PAD_MULTIPLE)
         vocab = torch.arange(v, device=buf.device)

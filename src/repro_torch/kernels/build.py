@@ -34,8 +34,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the port's kernels, then the empty kernel chip_smoke.py times as the
+# launch floor
 SOURCES = ("paged_attention", "kld_accept", "paged_attention_quant",
-           "ngram_match", "ragged_attention")
+           "ngram_match", "ragged_attention", "launch_floor")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -22,6 +22,9 @@ see their headers for the design and bound.
   S thread blocks, chosen from the shapes and the card's SM count alone
   (never from a device tensor, so a launch makes no host sync), shared
   with the int8 and ring kernels through :func:`plan_splits`.
+* :func:`check_verify_shape` / :func:`query_groups` — what one launch of
+  the three verify kernels takes, and the launches a call's T query
+  positions are cut into so that each one fits.
 * :func:`split_attention_plain` and
   :func:`paged_ragged_verify_attention_split_plain` — the kernel's
   split-and-merge algorithm in plain PyTorch, for the CPU tests (no main
@@ -116,6 +119,34 @@ def check_verify_shape(h: int, kv: int, t: int, d: int, bs: int) -> None:
         raise ValueError(f"paged verify kernel takes D 32/64/128, G*T <= 64 "
                          f"(<= 32 at D 128), block size a power of two <= 32; "
                          f"got D {d}, G*T {rows}, block size {bs}")
+
+
+def query_groups(h: int, kv: int, t: int, d: int):
+    """The verify kernels' launches over the T query positions:
+    consecutive positions [begin, end) whose G * (end - begin) rows fit
+    one launch (:func:`check_verify_shape`: 64 rows a KV head, 32 at D
+    128); one group at the serves' shapes."""
+    step = max(1, (32 if d == 128 else 64) // max(1, h // kv))
+    return [(i, min(i + step, t)) for i in range(0, t, step)]
+
+
+def launch_query_groups(q: torch.Tensor, q_pos: torch.Tensor, groups, plans,
+                        launch) -> torch.Tensor:
+    """The verify kernels' launches of one call: ``launch(q_g, q_pos_g,
+    out_g, t_g, splits)`` once per query group (:func:`query_groups`,
+    with its S in ``plans``), on contiguous slices of q and q_pos whose
+    output is written back into the call's; returns the output."""
+    out = torch.empty_like(q)
+    t = q.shape[1]
+    for (lo, hi), s in zip(groups, plans):
+        whole = hi - lo == t
+        qg = q if whole else q[:, lo:hi].contiguous()
+        pg = q_pos if whole else q_pos[:, lo:hi].contiguous()
+        og = out if whole else torch.empty_like(qg)
+        launch(qg, pg, og, hi - lo, s)
+        if not whole:
+            out[:, lo:hi] = og
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,7 +255,9 @@ def paged_ragged_verify_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
     """The CUDA kernel on CUDA tensors (same arguments as the plain
     version).  q and the pools share a dtype (float32 or bfloat16);
     indices are int32; everything is contiguous on one device.
-    ``splits`` forces S (tests); by default :func:`split_plan` picks it."""
+    ``splits`` forces S (tests); by default :func:`split_plan` picks it.
+    Query rows past one launch's (:func:`query_groups`) go to further
+    launches of the same call."""
     b, t, h, d = q.shape
     n, bs, kv, d2 = pool_k.shape
     maxb = block_table.shape[1]
@@ -245,25 +278,29 @@ def paged_ragged_verify_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
             f"shapes q{tuple(q.shape)} pool{tuple(pool_k.shape)} "
             f"table{tuple(block_table.shape)} q_pos{tuple(q_pos.shape)} "
             f"kv_pos{tuple(kv_pos.shape)}")
-    s = plan_splits(b, t, h, kv, d, bs, maxb, splits, dev)
+    groups = query_groups(h, kv, t, d)
+    plans = [plan_splits(b, hi - lo, h, kv, d, bs, maxb, splits, dev)
+             for lo, hi in groups]
     tensors = (q, pool_k, pool_v, block_table, q_pos, kv_pos)
     if any(x.device != dev for x in tensors):
         raise ValueError("all inputs must be on one device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("all inputs must be contiguous")
-    out = torch.empty_like(q)
     if b == 0 or t == 0:
-        return out
+        return torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = _lib()
-    err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-             block_table.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-             out.data_ptr(), b, t, h, kv, d, bs, maxb,
-             -1 if window is None else int(window), 1.0 / math.sqrt(d),
-             _DTYPES[q.dtype], s,
-             split_scratch(b, t, h, kv, d, s, dev, stream), stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
+
+    def launch(qg, pg, og, tg, s):
+        err = fn(qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                 block_table.data_ptr(), pg.data_ptr(), kv_pos.data_ptr(),
+                 og.data_ptr(), b, tg, h, kv, d, bs, maxb,
+                 -1 if window is None else int(window), 1.0 / math.sqrt(d),
+                 _DTYPES[q.dtype], s,
+                 split_scratch(b, tg, h, kv, d, s, dev, stream), stream)
+        if err != 0:
+            raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
+    out = launch_query_groups(q, q_pos, groups, plans, launch)
     LAUNCHES["paged_ragged_verify_attention"] += 1
     return out
 

@@ -30,7 +30,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.paged_attention import (plan_splits,
+from repro_torch.kernels.paged_attention import (launch_query_groups,
+                                                 plan_splits, query_groups,
                                                  split_attention_plain,
                                                  split_ranges, split_scratch)
 from repro_torch.models.cache import gather_paged_kv_quant, gather_paged_pos
@@ -92,7 +93,9 @@ def paged_ragged_verify_attention_quant_cuda(
     """The CUDA kernel on CUDA tensors (same arguments as the plain
     version).  q is float32 or bfloat16, the pools int8, the scales
     float32, indices int32; everything contiguous on one device.
-    ``splits`` forces S (tests); by default ``split_plan`` picks it."""
+    ``splits`` forces S (tests); by default ``split_plan`` picks it.
+    Query rows past one launch's (``query_groups``) go to further
+    launches of the same call."""
     b, t, h, d = q.shape
     n, bs, kv, d2 = pool_k.shape
     maxb = block_table.shape[1]
@@ -118,25 +121,31 @@ def paged_ragged_verify_attention_quant_cuda(
             f"shapes q{tuple(q.shape)} pool{tuple(pool_k.shape)} "
             f"scale{tuple(k_scale.shape)} table{tuple(block_table.shape)} "
             f"q_pos{tuple(q_pos.shape)} kv_pos{tuple(kv_pos.shape)}")
-    s = plan_splits(b, t, h, kv, d, bs, maxb, splits, dev)
+    groups = query_groups(h, kv, t, d)
+    plans = [plan_splits(b, hi - lo, h, kv, d, bs, maxb, splits, dev)
+             for lo, hi in groups]
     tensors = (q, pool_k, pool_v, k_scale, v_scale, block_table, q_pos, kv_pos)
     if any(x.device != dev for x in tensors):
         raise ValueError("all inputs must be on one device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("all inputs must be contiguous")
-    out = torch.empty_like(q)
     if b == 0 or t == 0:
-        return out
+        return torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+    fn = _lib()
+
+    def launch(qg, pg, og, tg, s):
+        err = fn(qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(),
-                 block_table.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-                 out.data_ptr(), b, t, h, kv, d, bs, maxb,
+                 block_table.data_ptr(), pg.data_ptr(), kv_pos.data_ptr(),
+                 og.data_ptr(), b, tg, h, kv, d, bs, maxb,
                  -1 if window is None else int(window), 1.0 / math.sqrt(d),
                  _DTYPES[q.dtype], s,
-                 split_scratch(b, t, h, kv, d, s, dev, stream), stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention_quant launch failed: cudaError {err}")
+                 split_scratch(b, tg, h, kv, d, s, dev, stream), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"paged_attention_quant launch failed: cudaError {err}")
+    out = launch_query_groups(q, q_pos, groups, plans, launch)
     LAUNCHES["paged_ragged_verify_attention_quant"] += 1
     return out
 

@@ -34,7 +34,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.paged_attention import (plan_splits,
+from repro_torch.kernels.paged_attention import (launch_query_groups,
+                                                 plan_splits, query_groups,
                                                  split_attention_plain,
                                                  split_ranges, split_scratch)
 from repro_torch.models.layers import attend
@@ -71,14 +72,6 @@ def ring_split_ranges(w: int, splits: int):
     W."""
     return [(min(lo * CHUNK_SLOTS, w), min(hi * CHUNK_SLOTS, w))
             for lo, hi in split_ranges(ring_chunks(w), splits)]
-
-
-def query_groups(h: int, kv: int, t: int, d: int):
-    """The kernel's launches over the T query positions: consecutive
-    positions [begin, end) whose G * (end - begin) rows fit one launch
-    (64 rows a KV head, 32 at D 128); one group at the serves' shapes."""
-    step = max(1, (32 if d == 128 else 64) // max(1, h // kv))
-    return [(i, min(i + step, t)) for i in range(0, t, step)]
 
 
 def live_slots(q_pos: torch.Tensor, kv_pos: torch.Tensor,
@@ -139,7 +132,7 @@ def ragged_verify_attention_cuda(q: torch.Tensor, k_buf: torch.Tensor,
     positions are int32; everything is contiguous on one device.
     ``splits`` forces S (tests); by default ``split_plan`` picks it over
     the ring's 16-slot chunks.  Query rows past one launch's (see
-    :func:`query_groups`) go to further launches of the same call."""
+    ``query_groups``) go to further launches of the same call."""
     b, t, h, d = q.shape
     b2, w, kv, d2 = k_buf.shape
     dev = q.device
@@ -164,25 +157,20 @@ def ragged_verify_attention_cuda(q: torch.Tensor, k_buf: torch.Tensor,
         raise ValueError("all inputs must be on one device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("all inputs must be contiguous")
-    out = torch.empty_like(q)
     if b == 0 or t == 0:
-        return out
+        return torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = _lib()
-    for (lo, hi), s in zip(groups, plans):
-        whole = hi - lo == t
-        qg = q if whole else q[:, lo:hi].contiguous()
-        pg = q_pos if whole else q_pos[:, lo:hi].contiguous()
-        og = out if whole else torch.empty_like(qg)
+
+    def launch(qg, pg, og, tg, s):
         err = fn(qg.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(),
                  pg.data_ptr(), kv_pos.data_ptr(), og.data_ptr(),
-                 b, hi - lo, h, kv, d, w, -1 if window is None else int(window),
+                 b, tg, h, kv, d, w, -1 if window is None else int(window),
                  1.0 / math.sqrt(d), _DTYPES[q.dtype], s,
-                 split_scratch(b, hi - lo, h, kv, d, s, dev, stream), stream)
+                 split_scratch(b, tg, h, kv, d, s, dev, stream), stream)
         if err != 0:
             raise RuntimeError(f"ragged_attention launch failed: cudaError {err}")
-        if not whole:
-            out[:, lo:hi] = og
+    out = launch_query_groups(q, q_pos, groups, plans, launch)
     LAUNCHES["ragged_verify_attention"] += 1
     return out
 

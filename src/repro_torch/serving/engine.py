@@ -539,7 +539,8 @@ class ServingEngine:
                 if self.scheduler.shrink_to(req, keep):
                     shrunk.append((req.slot, self._table_row(req)))
         self._sync_block_tables(shrunk, [])
-        log = {"k": rec.k, "emitted": float(n_emit[live].sum()),
+        log = {"k": rec.k, "drafter": self.spec.drafter,
+               "emitted": float(n_emit[live].sum()),
                "accepted": float(n_acc[live].sum()),
                "proposed": float(n_prop[live].sum())}
         eff_steps = 0
@@ -552,6 +553,10 @@ class ServingEngine:
         log["kv_blocks_in_use"] = float(self.scheduler.kv_blocks_in_use())
         log["kv_pool_utilization"] = (log["kv_blocks_in_use"]
                                       / max(self.scheduler.kv_blocks_total(), 1))
+        # the mirrored draft pool holds the target's in-use block set; a
+        # model-free drafter holds none
+        log["draft_kv_blocks_in_use"] = (log["kv_blocks_in_use"]
+                                         if self.drafter.mirrors_kv() else 0.0)
         log["host_blocked_s"] = host_blocked
         # with a successor in flight the round's cadence is dispatch to
         # dispatch (pipelined walls sum to the run's); else dispatch to
@@ -622,13 +627,22 @@ class ServingEngine:
         return self.summary(done, time.monotonic() - t0)
 
     def summary(self, done: Sequence[Request], wall: float) -> Dict[str, float]:
+        """Run-level metrics over a set of terminal requests: the
+        reference's summary without its SLO and prefix-cache fields
+        (their features come with their slices)."""
         fin = [r for r in done if r.state == RequestState.FINISHED]
         rej = [r for r in done if r.state == RequestState.REJECTED]
         lat = [r.latency() for r in fin if r.latency() is not None]
         ttft = [r.ttft() for r in fin if r.ttft() is not None]
+        qw = [r.queue_wait() for r in fin if r.queue_wait() is not None]
+        log = self.round_log
+        blocked = float(sum(r["host_blocked_s"] for r in log))
 
         def mean(xs):
             return float(np.mean(xs)) if xs else float("nan")
+
+        def p95(xs):
+            return float(np.percentile(xs, 95)) if xs else float("nan")
 
         return {
             **self.latency_model.summary_fields(),
@@ -641,20 +655,36 @@ class ServingEngine:
             "rounds": self.rounds,
             "drafter": self.spec.drafter,
             "draft_step_cost": self.drafter.step_cost(),
+            "draft_cost_effective": float(sum(r["draft_cost_effective"]
+                                              for r in log)),
+            "draft_kv_blocks_peak": float(max(
+                (r["draft_kv_blocks_in_use"] for r in log), default=0.0)),
             "draft_steps": self.draft_steps,
             "draft_steps_effective": self.draft_steps_effective,
             "block_efficiency": mean([r.block_efficiency() for r in fin]),
             "batch_tokens_per_round": self.emitted_total / max(self.rounds, 1),
             "throughput_tok_s": self.emitted_total / max(wall, 1e-9),
             "mean_latency_s": mean(lat),
+            "p95_latency_s": p95(lat),
             "ttft_mean_s": mean(ttft),
-            "host_blocked_s": float(sum(r["host_blocked_s"]
-                                        for r in self.round_log)),
+            "ttft_p95_s": p95(ttft),
+            "queue_wait_mean_s": mean(qw),
+            "host_blocked_s": blocked,
+            "host_blocked_per_round_s": blocked / max(len(log), 1),
             "mean_acceptance": mean([r.acceptance_rate() for r in fin]),
-            "kv_blocks_peak": float(max((r["kv_blocks_in_use"]
-                                         for r in self.round_log), default=0.0)),
+            "kv_blocks_peak": float(max((r["kv_blocks_in_use"] for r in log),
+                                        default=0.0)),
             "kv_pool_blocks": float(self.scheduler.kv_blocks_total()),
             "kv_quant": self.kv_quant,
             "kv_block_bytes": float(self.scheduler.kv_block_bytes()),
             "kv_pool_bytes": float(self.scheduler.kv_bytes_total()),
+            # resident KV bytes summed over rounds: a proxy for the bytes
+            # the verify passes stream from the pool
+            "kv_bytes_swept": float(sum(r["kv_blocks_in_use"] for r in log))
+                              * float(self.scheduler.kv_block_bytes()),
+            "kv_pool_utilization_mean": (
+                float(np.mean([r["kv_pool_utilization"] for r in log]))
+                if log else 0.0),
+            "kv_pool_utilization_peak": float(max(
+                (r["kv_pool_utilization"] for r in log), default=0.0)),
         }

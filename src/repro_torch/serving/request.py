@@ -30,6 +30,9 @@ class Request:
     output: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
     arrival_time: float = dataclasses.field(default_factory=time.monotonic)
+    # first admission out of the queue (never overwritten on a
+    # preemption readmit: queue wait is an arrival-side metric)
+    admit_time: Optional[float] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     rounds: int = 0                    # target verifications consumed
@@ -57,6 +60,12 @@ class Request:
         if self.finish_time is None:
             return None
         return self.finish_time - self.arrival_time
+
+    def queue_wait(self) -> Optional[float]:
+        """Arrival -> first admission (scheduler wait, paper §5 framing)."""
+        if self.admit_time is None:
+            return None
+        return self.admit_time - self.arrival_time
 
     def ttft(self) -> Optional[float]:
         """Arrival -> first token observed by the host."""

@@ -158,6 +158,8 @@ class LookaheadScheduler:
             req.state = RequestState.RUNNING
             req.admit_seq = self._admit_seq
             self._admit_seq += 1
+            if req.admit_time is None:       # readmits keep the first wait
+                req.admit_time = time.monotonic()
             self.slots[i] = req
             admitted.append(req)
         return admitted

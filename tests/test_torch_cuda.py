@@ -195,6 +195,38 @@ def test_paged_kernels_bit_identical_launches(cuda, kernel):
                            fn(*args, window=12, splits=s))
 
 
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("kernel", ["fp", "int8"])
+@pytest.mark.parametrize("shape", [(4, 22, 9, 3, 64, 40, 16, 8),
+                                   (3, 11, 32, 4, 128, 30, 16, 8)],
+                         ids=["GT66", "D128-GT88"])
+@pytest.mark.parametrize("splits", [None, 1])
+def test_paged_kernels_past_one_launch_of_query_rows(cuda, splits, shape,
+                                                     kernel, dtype, atol,
+                                                     rtol):
+    """B1 and B4 where G * T passes one launch's rows (64, 32 at D 128:
+    smollm at SL 21, a D-128 target with G 8 at SL 10): the wrapper cuts
+    T into launches, counts one, and matches the plain version; two calls
+    give the same bits."""
+    args = _paged(*shape, dtype=dtype if kernel == "fp" else torch.float32,
+                  device=cuda)
+    fn, plain, key = (pa.paged_ragged_verify_attention_cuda,
+                      pa.paged_ragged_verify_attention_plain, pa.LAUNCHES)
+    if kernel == "int8":
+        args = _quant(args, dtype)
+        fn, plain, key = (pq.paged_ragged_verify_attention_quant_cuda,
+                          pq.paged_ragged_verify_attention_quant_plain,
+                          pq.LAUNCHES)
+    name = next(iter(key))
+    key[name] = 0
+    got = fn(*args, splits=splits)
+    assert key[name] == 1
+    want = plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())          # the row with no valid slot
+    assert torch.equal(got, fn(*args, splits=splits))
+
+
 def _ring(b, t, h, kv, d, w, dtype, device, seed=0, wrap=False):
     """Dense-ring inputs: row b holds positions [0, len + t) at p % W
     (with ``wrap`` it has run past W, up to 3W); row 0 holds nothing, so
@@ -380,6 +412,82 @@ def test_ngram_kernel_equals_plain(cuda, l, n, k):
     want = ng.ngram_propose_plain(buf, ctx, n=n, k=k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(want[1].max()) > 0
+
+
+def _ngram_rows(l, n, seed, b=6):
+    """History-like rows from a 3-symbol alphabet (plenty of matches)
+    whose ctx are 0, n, n + 1, L - 1, L and L + 3."""
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.randint(0, 3, (b, l), generator=g, dtype=torch.int32)
+    ctx = torch.tensor([0, n, n + 1, l - 1, l, l + 3], dtype=torch.int32)
+    return buf, ctx
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("n", [1, 3, 5])
+@pytest.mark.parametrize("l", [1, 15, 16, 17, 256, 4096, 65536, 70000])
+def test_ngram_kernel_sizes_equal_plain(cuda, l, n, k):
+    """B3 bit for bit over row lengths on both sides of its 16-byte and
+    chunk boundaries: one CTA (L <= 512), a cluster of 8 (4096), 8 chunks
+    of 8192 (65536, the staged capacity) and past it (70000: each CTA walks
+    two chunks)."""
+    buf, ctx = _ngram_rows(l, n, seed=l + 7 * n + k)
+    if l > 2 * n + 2:
+        # row 3 (ctx L - 1): distinct tokens but for its suffix planted at
+        # start 1, the row's only match, in the lowest chunk
+        buf[3] = torch.arange(3, l + 3, dtype=torch.int32)
+        buf[3, 1:1 + n] = buf[3, l - 1 - n:l - 1]
+    buf, ctx = buf.to(cuda), ctx.to(cuda)
+    got = ng.ngram_suffix_propose_cuda(buf, ctx, n=n, k=k)
+    want = ng.ngram_propose_plain(buf, ctx, n=n, k=k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if l > 2 * n + 2:
+        assert int(want[1][3]) == min(k, l - 2 - n)
+
+
+@pytest.mark.parametrize("l", [256, 4096])
+def test_ngram_kernel_unaligned_rows(cuda, l):
+    """Rows at a 4-byte offset from 16 bytes (and L 255, rows that
+    alternate) take the vector-load path: the same bits."""
+    for off, width in ((1, l), (0, l - 1), (3, l + 1)):
+        buf, ctx = _ngram_rows(width, 3, seed=width + off)
+        flat = torch.zeros(off + buf.numel(), dtype=torch.int32, device=cuda)
+        rows = flat[off:].view(buf.shape)
+        rows.copy_(buf.to(cuda))
+        ctx = ctx.to(cuda)
+        assert rows.is_contiguous() and rows.data_ptr() % 16 == 4 * off
+        got = ng.ngram_suffix_propose_cuda(rows, ctx, n=3, k=10)
+        want = ng.ngram_propose_plain(rows, ctx, n=3, k=10)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(want[1].max()) > 0
+
+
+@pytest.mark.parametrize("l", [40, 256, 4096, 70000])
+def test_ngram_history_kernel_equals_plain(cuda, l):
+    """The drafter's entry: pending read at ``length``, stale random text
+    past it never read as context, length L dropping the write, and the
+    buffer left as it was."""
+    g = torch.Generator().manual_seed(l)
+    buf = torch.randint(0, 3, (6, l), generator=g, dtype=torch.int32)
+    length = torch.tensor([0, 3, l // 2, l - 2, l - 1, l], dtype=torch.int32)
+    pending = torch.randint(0, 3, (6,), generator=g, dtype=torch.int32)
+    buf, length, pending = buf.to(cuda), length.to(cuda), pending.to(cuda)
+    ng.LAUNCHES["ngram_suffix_propose"] = 0
+    for n, k in ((1, 4), (3, 10), (5, 16)):
+        # row 3 (length L - 2): its suffix, pending last, planted at start 1
+        buf[3, 1:n] = buf[3, l - 1 - n:l - 2]
+        buf[3, n] = pending[3]
+        before = buf.clone()
+        got = ng.ngram_propose_history(buf, length, pending, n=n, k=k)
+        want = ng.ngram_propose_history_plain(buf, length, pending, n=n, k=k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(want[1][3]) > 0
+        assert torch.equal(buf, before)
+    assert ng.LAUNCHES["ngram_suffix_propose"] == 3
+    with pytest.raises(ValueError):     # n past the registers: raise
+        ng.ngram_propose_history(buf, length, pending, n=17, k=2)
+    with pytest.raises(TypeError):      # int64 pending: raise, no fallback
+        ng.ngram_propose_history(buf, length, pending.long(), n=3, k=2)
 
 
 def test_ngram_kernel_k_zero_launches_nothing(cuda):

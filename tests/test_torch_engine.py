@@ -1,6 +1,7 @@
 """The port's serving engine against the reference's: greedy token
 streams byte-identical on the paged pool (sync schedule, model drafter),
-per-round SL predictions equal, including under forced preemption."""
+per-round SL predictions equal, including under forced preemption, and
+the run summary's fields equal to the reference's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +33,41 @@ def small_pair():
     conv = lambda p: from_reference(jax.tree_util.tree_map(np.asarray, p),
                                     device="cpu")
     return cfg, pt, pd, t_get_config("smollm-135m").reduced(), conv(pt), conv(pd)
+
+
+# the reference's summary keys whose features the port does not have yet:
+# the SLO gate (ROADMAP A2) and the prefix cache (A4)
+LATER_KEYS = ("slo_", "prefix_cache_", "cow_copies")
+# timing fields: only present and finite
+TIMING_KEYS = ("wall_time_s", "throughput_tok_s", "mean_latency_s",
+               "p95_latency_s", "ttft_mean_s", "ttft_p95_s",
+               "queue_wait_mean_s", "host_blocked_s",
+               "host_blocked_per_round_s")
+# counts, blocks and bytes: equal
+COUNT_KEYS = ("rounds", "tokens_emitted", "requests_finished",
+              "requests_rejected", "preemptions", "draft_steps",
+              "draft_steps_effective", "drafter", "draft_step_cost",
+              "kv_quant", "kv_blocks_peak", "kv_pool_blocks",
+              "kv_block_bytes", "kv_pool_bytes", "kv_bytes_swept",
+              "draft_kv_blocks_peak")
+# ratios: within 1e-9
+RATIO_KEYS = ("kv_pool_utilization_mean", "kv_pool_utilization_peak",
+              "draft_cost_effective", "block_efficiency", "mean_acceptance",
+              "batch_tokens_per_round")
+
+
+def _assert_summary_matches(m, rm, counts=COUNT_KEYS, ratios=RATIO_KEYS):
+    """The port's run summary ``m`` against the reference's ``rm``: every
+    reference key but the later features' is there, ``counts`` equal,
+    ``ratios`` within 1e-9, timing fields finite."""
+    missing = sorted(k for k in rm if k not in m and not k.startswith(LATER_KEYS))
+    assert not missing, missing
+    for key in counts:
+        assert m[key] == rm[key], (key, m[key], rm[key])
+    for key in ratios:
+        assert abs(m[key] - rm[key]) <= 1e-9, (key, m[key], rm[key])
+    for key in TIMING_KEYS:
+        assert np.isfinite(m[key]), (key, m[key])
 
 
 def _record_sl(eng):
@@ -86,6 +122,13 @@ def test_greedy_streams_match_reference(small_pair, policy):
     for key in ("rounds", "tokens_emitted", "requests_finished",
                 "draft_steps", "draft_steps_effective"):
         assert tm[key] == m[key], key
+    _assert_summary_matches(tm, m)
+    assert tm["draft_kv_blocks_peak"] == tm["kv_blocks_peak"] > 0
+    assert tm["queue_wait_mean_s"] >= 0
+    # the round log's fields too (kv_blocks_cached: the prefix cache's)
+    missing = {k for k in eng.round_log[0] if k not in teng.round_log[0]
+               and not k.startswith(LATER_KEYS)}
+    assert missing == {"kv_blocks_cached"}, missing
 
 
 def test_greedy_streams_match_reference_under_preemption(small_pair):

@@ -108,6 +108,36 @@ def test_cpu_dispatch_uses_plain_and_counts_no_launch():
     assert t_ngram.LAUNCHES["ngram_suffix_propose"] == 0
 
 
+@pytest.mark.parametrize("n,k", [(1, 4), (3, 10)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_history_plain_equals_oracle_of_the_overlaid_buffer(n, k, seed):
+    """The drafter's entry: the oracle of the reference drafter's overlay
+    (``buf.at[bi, ln].set(pending, mode="drop")``, ``min(ln + 1, h)``) at
+    length 0, mid-row, L - 1 and L (the dropped write), with stale random
+    text past each length."""
+    rng = np.random.RandomState(seed)
+    b, l = 6, 64
+    buf = rng.randint(0, 3, size=(b, l)).astype(np.int32)
+    length = np.array([0, l // 2, l - 1, l, n, rng.randint(0, l)], np.int32)
+    pending = rng.randint(0, 3, size=(b,)).astype(np.int32)
+    toks, cnt = t_ngram.ngram_propose_history_plain(
+        torch.from_numpy(buf), torch.from_numpy(length),
+        torch.from_numpy(pending), n=n, k=k)
+    ln = jnp.asarray(length)
+    work = jnp.asarray(buf).at[jnp.arange(b), ln].set(jnp.asarray(pending),
+                                                      mode="drop")
+    want_t, want_c = ref.ngram_propose_ref(work, jnp.minimum(ln + 1, l),
+                                           n=n, k=k)
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(want_t))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_c))
+    assert np.asarray(want_c).max() > 0
+    # the CPU dispatcher is the plain version
+    for got, want in zip(t_ngram.ngram_propose_history(
+            torch.from_numpy(buf), torch.from_numpy(length),
+            torch.from_numpy(pending), n=n, k=k), (toks, cnt)):
+        assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # The drafter on the same inputs
 # ---------------------------------------------------------------------------

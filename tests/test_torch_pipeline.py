@@ -34,6 +34,7 @@ from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Request as TRequest
 from repro_torch.serving.request import RequestState
 from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
+from test_torch_engine import _assert_summary_matches
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -127,6 +128,25 @@ def test_streams_match_reference_both_layouts_both_schedules(small_pair,
                     assert m[key] == rm[key], key
                 assert m["kv_blocks_peak"] == max(
                     r["kv_blocks_in_use"] for r in reng.round_log)
+            # the summary's fields: all of the synchronous dense run's
+            # equal to the reference's (whose engine is the dense
+            # synchronous one); on the pool or under pipelining, those
+            # that depend on neither the layout nor the schedule's rounds
+            counts = ["tokens_emitted", "requests_finished",
+                      "requests_rejected", "drafter", "draft_step_cost",
+                      "kv_quant"]
+            ratios = []
+            if not pipelined:
+                counts += ["rounds", "draft_steps", "draft_steps_effective"]
+                ratios += ["block_efficiency", "mean_acceptance",
+                           "batch_tokens_per_round", "draft_cost_effective"]
+            if not paged:
+                counts += ["kv_pool_blocks", "kv_block_bytes",
+                           "kv_pool_bytes", "kv_bytes_swept", "preemptions"]
+            if paged or pipelined:
+                _assert_summary_matches(m, rm, counts, ratios)
+            else:
+                _assert_summary_matches(m, rm)
 
 
 def test_ngram_dense_streams_match_reference(small_pair):

@@ -195,6 +195,39 @@ def test_ring_query_groups_cover_t(h, kv, t, d):
     assert len(groups) == 1 or (h // kv) * t > (32 if d == 128 else 64)
 
 
+@pytest.mark.parametrize("h,kv,t,d", [(9, 3, 22, 64), (4, 1, 17, 64),
+                                      (32, 4, 11, 128), (9, 3, 11, 64)])
+def test_paged_query_groups_cover_t(h, kv, t, d):
+    """B1's and B4's launches over T (smollm at SL 21, the reduced smollm
+    at SL 16, a D-128 target with G 8, the serves' verify pass): they
+    tile [0, T) in order, each launch passes the kernels' shape check,
+    which the whole call fails past 64 rows (32 at D 128), and the
+    wrappers' loop writes each launch's output back in place."""
+    groups = pa.query_groups(h, kv, t, d)
+    assert [i for lo, hi in groups for i in range(lo, hi)] == list(range(t))
+    for lo, hi in groups:
+        pa.check_verify_shape(h, kv, hi - lo, d, 16)
+    # the wrappers' loop: each launch sees its group's rows, contiguous,
+    # and its output lands at the group's positions
+    q = torch.randn(2, t, h, d)
+    q_pos = torch.arange(2 * t, dtype=torch.int32).reshape(2, t)
+    seen = []
+
+    def launch(qg, pg, og, tg, s):
+        assert qg.is_contiguous() and pg.is_contiguous() and og.is_contiguous()
+        assert qg.shape[1] == pg.shape[1] == og.shape[1] == tg
+        seen.append((tg, s))
+        og.copy_(qg + pg[:, :, None, None])
+    out = pa.launch_query_groups(q, q_pos, groups, range(len(groups)), launch)
+    assert torch.equal(out, q + q_pos[:, :, None, None])
+    assert seen == [(hi - lo, s) for s, (lo, hi) in enumerate(groups)]
+    if (h // kv) * t > (32 if d == 128 else 64):
+        assert len(groups) > 1
+        with pytest.raises(ValueError):
+            pa.check_verify_shape(h, kv, t, d, 16)
+    else:
+        assert groups == [(0, t)]
+
 def _ring(b, t, h, kv, d, w, seed, fills=None, wrap=False):
     """Ring rows (fp32): with ``fills`` row i holds positions 0 .. n_i - 1
     in slots 0 .. n_i - 1 and queries at max(n_i - t, 0) ...; with
