@@ -32,25 +32,33 @@ Phases, each printing one JSON line:
              KV write on each cache (forward phase), then
              ``ServingEngine(...).run`` at smollm-135m full width (30
              layers, d 576, 9/3 heads, vocab 49152 padded to 49280) with
-             seeded random weights and the dsde policy (``SERVES``): the
-             model drafter (target + 0.03 x noise) on the fp32 pool and
-             on the int8 pool, the n-gram drafter on the int8 pool
+             seeded random weights (``SERVES``): under the dsde policy
+             the model drafter (target + 0.03 x noise) on the fp32 pool
+             and on the int8 pool, the n-gram drafter on the int8 pool
              (undamped, printed only, and damped), the model drafter on
              the dense ring (synchronous and pipelined) and on the fp32
-             pool pipelined.  Each kernel of a serve's path must launch
-             during it; ``dispatch`` runs under
-             ``torch.cuda.set_sync_debug_mode("warn")`` and its
-             synchronising calls are counted; a pipelined serve must
-             emit its synchronous twin's greedy streams.  Then some
+             pool pipelined; then the model drafter on the fp32 pool
+             under adaedl, goodput and slo (whose streams must equal
+             serve's), the self drafter (4 leading layers) on the dense
+             ring, and slo with deadlines (half the requests 0.05 s,
+             half 60 s: every request must finish and the admission
+             gate must flag some).  Each kernel of a serve's path must
+             launch during it; ``dispatch`` runs under
+             ``torch.cuda.set_sync_debug_mode("warn")`` and must make
+             no synchronising call; a serve with a twin must emit its
+             twin's greedy streams.  Then some
              serves again under ``torch.profiler`` for a few rounds
              (device busy share, top kernels, the port's own kernels
              and host calls), and the paths at the reduced width on the
              card and on the CPU (plain versions) must emit the same
              greedy streams (the fp32 and int8 pools also at SL 16,
-             verify passes past one launch of B1 and B4).
+             verify passes past one launch of B1 and B4; adaedl,
+             goodput and slo on the fp32 pool, goodput x n-gram on the
+             int8 pool, the self drafter on the pool and the ring).
 
-It ends with the kernels line, the ``nvidia-smi`` line and the result
-line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+It ends with the script's seconds so far, the kernels line, the
+``nvidia-smi`` line and the result line ``{"ok": true, "device":
+{...}}``.  Any failure raises and exits
 non-zero; without CUDA, or without the port beside it, it prints no
 result.
 
@@ -573,7 +581,12 @@ class Serve(NamedTuple):
     """One full-width serve.  ``nblocks`` None serves from the dense ring
     (``paged_kv=False``), else from a pool of that many blocks of 16.
     ``twin``: the serve whose greedy streams this one must equal.
-    ``path``: the kernels that must launch during it."""
+    ``path``: the kernels that must launch during it.  ``self_layers``:
+    the self drafter's leading layers.  ``deadlines``: odd requests
+    carry a deadline no round can meet (0.05 s), even ones a loose one
+    (60 s); the SLO gate must flag some, and the streams are printed
+    beside ``serve``'s, not required to equal them (deferral changes
+    which slot a request runs in)."""
     name: str
     drafter: str
     kv_quant: str
@@ -582,6 +595,9 @@ class Serve(NamedTuple):
     damp: float
     path: Tuple[str, ...]
     twin: Optional[str] = None
+    policy: str = "dsde"
+    self_layers: int = 1
+    deadlines: bool = False
 
 
 # 32 blocks of 16 are half the dense equivalent of batch 4 x 256 tokens;
@@ -604,6 +620,20 @@ SERVES = (
           ("ragged_verify_attention", "fused_kld_accept"), twin="serve-dense"),
     Serve("serve-pipe", "model", "none", 32, True, 1.0,
           ("paged_ragged_verify_attention", "fused_kld_accept"), twin="serve"),
+    Serve("serve-adaedl", "model", "none", 32, False, 1.0,
+          ("paged_ragged_verify_attention", "fused_kld_accept"),
+          policy="adaedl"),
+    Serve("serve-goodput", "model", "none", 32, False, 1.0,
+          ("paged_ragged_verify_attention", "fused_kld_accept"),
+          policy="goodput"),
+    Serve("serve-slo", "model", "none", 32, False, 1.0,
+          ("paged_ragged_verify_attention", "fused_kld_accept"), twin="serve",
+          policy="slo"),
+    Serve("serve-self", "self", "none", None, False, 1.0,
+          ("ragged_verify_attention", "fused_kld_accept"), self_layers=4),
+    Serve("serve-slo-deadlines", "model", "none", 32, False, 1.0,
+          ("paged_ragged_verify_attention", "fused_kld_accept"),
+          policy="slo", deadlines=True),
 )
 # profiled after every untraced serve (each trace costs host time)
 PROFILED = ("serve", "serve-int8", "serve-ngram-int8", "serve-dense",
@@ -699,11 +729,14 @@ def serve_phase():
                    serving=serving):
             return ServingEngine(target, cfg, pd if model else None,
                                  cfg if model else None,
-                                 SpecDecodeConfig(policy="dsde",
-                                                  drafter=sv.drafter),
+                                 SpecDecodeConfig(
+                                     policy=sv.policy, drafter=sv.drafter,
+                                     self_draft_layers=sv.self_layers),
                                  serving, seed=0, device="cuda")
 
-        reqs = [Request(i, prompt=p, max_new_tokens=32)
+        reqs = [Request(i, prompt=p, max_new_tokens=32,
+                        slo_deadline_s=((0.05 if i % 2 else 60.0)
+                                        if sv.deadlines else None))
                 for i, p in enumerate(serve_prompts(cfg.vocab_size,
                                                     sv.drafter))]
         # one-time set-up (library handles, allocator pools) outside the
@@ -728,8 +761,15 @@ def serve_phase():
         proposing = sum(1 for r in eng.round_log if r["proposed"] > 0)
         if sv.name == "serve-ngram-int8" and proposing == 0:
             raise AssertionError(f"{sv.name}: no round proposed a token")
+        if sum(syncs.values()):
+            raise AssertionError(f"{sv.name}: dispatch synchronised: "
+                                 f"{dict(syncs)}")
+        if sv.deadlines and m["slo_predicted_violations"] <= 0:
+            raise AssertionError(f"{sv.name}: the SLO gate flagged nothing")
         streams[sv.name] = [r.output for r in reqs]
         row = {"phase": sv.name, "arch": cfg.name, "layers": cfg.num_layers,
+               "policy": sv.policy, "self_draft_layers": (
+                   sv.self_layers if sv.drafter == "self" else None),
                "drafter": sv.drafter, "kv_quant": sv.kv_quant,
                "paged_kv": sv.nblocks is not None, "pipelined": sv.pipelined,
                "residual_scale": sv.damp,
@@ -747,9 +787,14 @@ def serve_phase():
                "kv_pool_blocks": m["kv_pool_blocks"],
                "kv_block_bytes": m["kv_block_bytes"],
                "kv_pool_bytes": m["kv_pool_bytes"], "launches": launches,
+               "slo_predicted_violations": m["slo_predicted_violations"],
+               "slo_deferrals": m["slo_deferrals"],
+               "slo_attained_frac": m["slo_attained_frac"],
                "tf32": False}
         if sv.twin is not None:
             row["equal_to_" + sv.twin] = streams[sv.name] == streams[sv.twin]
+        if sv.deadlines:                 # printed only
+            row["equal_to_serve"] = streams[sv.name] == streams["serve"]
         emit(row)
         if sv.twin is not None and streams[sv.name] != streams[sv.twin]:
             raise AssertionError(f"{sv.name}: greedy streams differ from "
@@ -830,18 +875,41 @@ def forward_phase(cfg, params) -> None:
     emit(row)
 
 
-# drafter, kv_quant, dense ring?, pipelined, attention window, static SL
+class Check(NamedTuple):
+    """One reduced-width card == CPU check: drafter, pool storage, dense
+    ring?, pipelined, attention window, static SL (None: the policy's
+    own), policy, and the scale of the draft's tied embedding."""
+    drafter: str
+    kv_quant: str
+    dense: bool
+    pipelined: bool
+    window: Optional[int]
+    sl: Optional[int]
+    policy: str = "dsde"
+    sharpen: float = 1.0
+
+
 CHECKS = (
-    ("model", "none", False, False, None, None),
-    ("model", "int8", False, False, None, None),
-    ("ngram", "int8", False, False, None, None),
-    ("model", "none", True, False, None, None),
-    ("model", "none", True, True, None, None),
-    ("ngram", "none", True, False, None, None),
-    ("model", "none", True, False, 24, None),
-    ("model", "none", False, False, None, 16),
-    ("model", "int8", False, False, None, 16),
+    Check("model", "none", False, False, None, None),
+    Check("model", "int8", False, False, None, None),
+    Check("ngram", "int8", False, False, None, None),
+    Check("model", "none", True, False, None, None),
+    Check("model", "none", True, True, None, None),
+    Check("ngram", "none", True, False, None, None),
+    Check("model", "none", True, False, 24, None),
+    Check("model", "none", False, False, None, 16),
+    Check("model", "int8", False, False, None, 16),
+    Check("model", "none", False, False, None, None, "adaedl", 8.0),
+    Check("model", "none", False, False, None, None, "goodput"),
+    Check("model", "none", False, False, None, None, "slo"),
+    Check("ngram", "int8", False, False, None, None, "goodput"),
+    Check("self", "none", False, False, None, None),
+    Check("self", "none", True, False, None, None),
+    Check("self", "none", True, True, None, None),
 )
+# the adaedl check's stop bound: with the draft's embedding x 8 its
+# bounds spread over 0.005-0.045 at this width, so drafts stop partway
+ADAEDL_CHECK_THRESHOLD = 0.01
 
 
 def check_phase(cfg) -> None:
@@ -854,7 +922,11 @@ def check_phase(cfg) -> None:
     run the static policy at SL 16 (sl_max 16) on the fp32 and int8
     pools: verify passes of T 17, G * T 68 query rows a KV head (G 4),
     past one launch of B1 and B4, which their wrappers cut in two (with
-    random weights the dsde policy would keep SL near sl_min)."""
+    random weights the dsde policy would keep SL near sl_min).  Then the
+    adaedl (its draft sharpened so drafts stop partway), goodput and slo
+    policies on the fp32 pool, goodput with the n-gram drafter on the
+    int8 pool, and the self drafter (one leading layer) on the fp32 pool
+    and on the dense ring, synchronous and pipelined."""
     import dataclasses
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
     from repro_torch.models.weights import init_params, map_params
@@ -865,20 +937,24 @@ def check_phase(cfg) -> None:
     p_small = init_params(small, seed=2, device="cpu")
     d_small = map_params(lambda a, n: a + 0.03 * n, p_small,
                          init_params(small, seed=3, device="cpu"))
-    for drafter, kv_quant, dense, pipelined, window, sl in CHECKS:
+    for drafter, kv_quant, dense, pipelined, window, sl, policy, sharpen \
+            in CHECKS:
         model = drafter == "model"
         arch = dataclasses.replace(small, attention_window=window)
-        spec = SpecDecodeConfig(policy="dsde", drafter=drafter,
-                                ngram_n=3 if model else 1)
+        spec = SpecDecodeConfig(policy=policy, drafter=drafter,
+                                ngram_n=1 if drafter == "ngram" else 3,
+                                adaedl_threshold=ADAEDL_CHECK_THRESHOLD)
+        draft = (d_small if sharpen == 1.0 else
+                 dict(d_small, embed=d_small["embed"] * sharpen))
         if sl is not None:
             spec = dataclasses.replace(spec, policy="static", sl_max=sl,
                                        static_sl=sl)
-        outs, proposed, length, max_k = {}, {}, 0, 0
+        outs, proposed, length, max_k, partial = {}, {}, 0, 0, 0
         for device in ("cuda", "cpu"):
             rs = [Request(i, prompt=list(range(3 + i, 12 + 2 * i)) * 2,
                           max_new_tokens=24) for i in range(4)]
             eng = ServingEngine(
-                p_small, arch, d_small if model else None,
+                p_small, arch, draft if model else None,
                 arch if model else None, spec,
                 ServingConfig(max_batch_size=2, max_seq_len=128,
                               pipelined=pipelined, paged_kv=not dense,
@@ -890,9 +966,15 @@ def check_phase(cfg) -> None:
             proposed[device] = sum(r["proposed"] for r in eng.round_log)
             length = min(r.cache_len for r in rs)
             max_k = max(r["k"] for r in eng.round_log)
+            # rounds where some row's draft stopped short of the bucket
+            partial = sum(1 for r in eng.round_log
+                          if r["k"] and r["proposed"] % r["k"])
         same = outs["cuda"] == outs["cpu"] and proposed["cuda"] == proposed["cpu"]
         if proposed["cuda"] <= 0:
-            raise AssertionError(f"check ({drafter}, {kv_quant}): no proposals")
+            raise AssertionError(f"check ({drafter}, {kv_quant}, {policy}): "
+                                 "no proposals")
+        if policy == "adaedl" and partial <= 0:
+            raise AssertionError("adaedl check: no draft stopped partway")
         ring = (window + 16) if window else None
         if ring and length <= ring:
             raise AssertionError(f"windowed check: rows of {length} tokens "
@@ -903,15 +985,18 @@ def check_phase(cfg) -> None:
                                  f"{rows_per_kv} query rows a KV head fit "
                                  "one launch")
         emit({"phase": "check", "what": "reduced-width greedy streams, card vs CPU",
-              "drafter": drafter, "kv_quant": kv_quant,
+              "drafter": drafter, "policy": policy, "draft_sharpen": sharpen,
+              "kv_quant": kv_quant,
               "layout": "dense" if dense else "paged", "pipelined": pipelined,
               "window": window, "ring_slots": ring, "static_sl": sl,
               "max_k": max_k, "verify_rows_per_kv_head": rows_per_kv,
               "min_tokens": length, "requests": 4,
-              "proposed": proposed["cuda"], "equal": same})
+              "proposed": proposed["cuda"], "partial_rounds": partial,
+              "equal": same})
         if not same:
             raise AssertionError(f"card and CPU streams differ ({drafter}, "
-                                 f"{kv_quant}, dense={dense}, pipelined="
+                                 f"{kv_quant}, {policy}, dense={dense}, "
+                                 "pipelined="
                                  f"{pipelined}, window={window}, sl={sl}): "
                                  f"{outs}")
 
@@ -1030,6 +1115,7 @@ def ab_phase(parent: Path) -> None:
 
 
 def main() -> int:
+    t_start = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1078,6 +1164,7 @@ def main() -> int:
             "src/repro_torch/csrc/ragged_attention.cu",
             "src/repro/kernels/ragged_attention.py:88"),
     }
+    emit({"phase": "total", "seconds": time.monotonic() - t_start})
     kernels = []
     for kernel, (src, replaces) in sources.items():
         row = contract[kernel]

@@ -2,7 +2,8 @@
 
 Per sequence and iteration: Eq. (1) calibration of SL_max, Eq. (3) the
 scale factor, Eq. (4) WVIR (``signals``), Eq. (2)/(8) the predicted SL
-with its conservative floor, Eq. (11) SL_cap, and the static baseline.
+with its conservative floor, Eq. (11) SL_cap, the static baseline and
+AdaEDL's entropy stop bound.
 The math is unchanged; the state is a NamedTuple of tensors.
 """
 from __future__ import annotations
@@ -140,3 +141,13 @@ def predict_sl(state: AdapterState, cfg: SpecDecodeConfig,
 def static_sl(batch: int, cfg: SpecDecodeConfig, device="cpu") -> torch.Tensor:
     return torch.full((batch,), cfg.static_sl, dtype=torch.int32,
                       device=device)
+
+
+def adaedl_stop_threshold(entropy: torch.Tensor,
+                          cfg: SpecDecodeConfig) -> torch.Tensor:
+    """AdaEDL: keep drafting while the entropy-based lower bound on the
+    token acceptance probability,
+    ``1 - sqrt(max(0, 1 - exp(-H(q))))``, stays at or above the
+    threshold.  Returns the bool 'keep drafting' mask."""
+    bound = 1.0 - torch.sqrt((1.0 - torch.exp(-entropy)).clamp(min=0.0))
+    return bound >= cfg.adaedl_threshold

@@ -87,6 +87,18 @@ class SpecDecodeConfig:
     calibration_sl: int = 5
     eps: float = 1e-6
     use_sl_cap: bool = True            # Eq. (11)
+    # AdaEDL baseline: stop drafting when the entropy-based acceptance
+    # lower bound drops below the threshold; base=7 is the paper's
+    adaedl_base: int = 7
+    adaedl_threshold: float = 0.1
+    # goodput controller: EMA decay of the per-round acceptance, the
+    # per-draft-step cost relative to one verification (None = the
+    # serving drafter's ``step_cost()``), the optimistic prior
+    goodput_ema: float = 0.75
+    goodput_draft_cost: Optional[float] = None
+    goodput_init_acc: float = 0.7
+    # self drafter: leading target layers the early-exit draft runs
+    self_draft_layers: int = 1
     temperature: float = 0.0           # 0.0 = greedy
     penalty_cutoff: float = 1.0        # Eq. (8)
 
@@ -99,6 +111,7 @@ class ServingConfig:
     ``pipelined`` dispatches round N+1 before the host reconciles round
     N.  ``kv_quant`` is the paged pool's storage mode: ``"none"`` (fp32)
     or ``"int8"`` (int8 values plus one fp32 scale per stored vector).
+    ``slo_defer_limit`` bounds the SLO admission gate's deferrals.
     Prefix caching comes with its slice."""
     max_batch_size: int = 64
     max_seq_len: int = 4096
@@ -107,6 +120,10 @@ class ServingConfig:
     kv_block_size: int = 16
     num_kv_blocks: Optional[int] = None     # None = dense-equivalent
     kv_quant: str = "none"
+    # SLO admission (DESIGN.md §15): times a fresh request predicted to
+    # miss its deadline may be deferred behind feasible later arrivals
+    # before it admits anyway (0 = never deferred, still surfaced)
+    slo_defer_limit: int = 4
 
     def blocks_per_seq(self) -> int:
         """Block-table width: worst-case blocks one sequence can hold."""

@@ -76,10 +76,13 @@ class Drafter:
     def propose(self, params_d, draft_cache: State, pending: torch.Tensor,
                 k: int, sl_i: torch.Tensor, policy: Any,
                 step_u: Callable[[int], torch.Tensor],
-                live: torch.Tensor) -> DraftProposal:
+                live: torch.Tensor, *, params_t=None,
+                target_cache: Optional[dict] = None) -> DraftProposal:
         """Up to ``k`` proposals per sequence (``sl_i [B]`` the budget, 0
         for dead rows).  ``step_u(j)`` gives the [B] uniforms of draft
-        step j (identity-threaded)."""
+        step j (identity-threaded).  ``params_t`` / ``target_cache`` are
+        the target's parameters and pre-round cache, for a drafter that
+        drafts with the target itself."""
         raise NotImplementedError
 
     def commit(self, tokens: torch.Tensor, snapshot: State, drafted: State,

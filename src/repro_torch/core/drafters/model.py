@@ -108,7 +108,7 @@ class ModelDrafter(Drafter):
         return prefill_lib.scatter_paged_rows(cache, rows, idx)
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
-                step_u, live):
+                step_u, live, *, params_t=None, target_cache=None):
         toks, logits, cache, eff = autoregressive_draft_loop(
             params_d, self.cfg_d, draft_cache, pending, k, sl_i, policy,
             step_u, live, self.spec.temperature)

@@ -59,7 +59,7 @@ class NGramDrafter(Drafter):
         return {"tokens": buf, "length": length}
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
-                step_u, live):
+                step_u, live, *, params_t=None, target_cache=None):
         buf = draft_cache["tokens"]
         # the proposal conditions on committed history + the pending
         # token at ``length`` where it fits; the lookup reads it there

@@ -6,7 +6,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.policies.base import HostRoundContext, SpecPolicy, register
+from repro_torch.core.policies.base import (HostRoundContext, SpecPolicy,
+                                            as_host_round_context, register)
 
 
 @register("autoregressive")
@@ -19,6 +20,8 @@ class AutoregressivePolicy(SpecPolicy):
         return False
 
     def lookahead(self, ctx: HostRoundContext) -> np.ndarray:
+        # one decode slot per round, no speculative lookahead
+        ctx = as_host_round_context(ctx, hook="lookahead")
         return np.ones_like(np.asarray(ctx.sl_next))
 
     def max_lookahead(self) -> int:

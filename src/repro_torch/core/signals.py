@@ -2,6 +2,8 @@
 
 * ``kld_per_position``  — KL(target ‖ draft) at each proposed position,
   computed by the fused KLD kernel on CUDA (its plain version on CPU).
+* ``draft_entropy``     — entropy of the draft distribution (AdaEDL's
+  forward-looking signal).
 * ``weighted_mean/var`` — Eq. (5)–(7): ``alpha_i = delta^(i-1)``, i=1 the
   most recent step.
 * ``KLDHistory``        — per-sequence ring buffer of per-step mean KLDs
@@ -26,6 +28,13 @@ def kld_per_position(target_logits: torch.Tensor, draft_logits: torch.Tensor,
     if valid is not None:
         kld = torch.where(valid, kld, 0.0)
     return kld
+
+
+def draft_entropy(draft_logits: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy of the draft distribution per position, over the
+    fp32 log-softmax of the last axis: [B, T, V] -> [B, T]."""
+    lq = torch.log_softmax(draft_logits.float(), dim=-1)
+    return -(lq.exp() * lq).sum(-1)
 
 
 def decay_weights(n: int, delta: float, device=None) -> torch.Tensor:

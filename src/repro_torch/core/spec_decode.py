@@ -3,7 +3,9 @@ dense ring or the block-paged pool alike.
 
   1. propose      — the drafter (``ModelDrafter``: K+1 single-token draft
                     decode steps against its mirrored pool;
-                    ``NGramDrafter``: one suffix-match lookup);
+                    ``NGramDrafter``: one suffix-match lookup;
+                    ``SelfDrafter``: the target's leading layers over a
+                    leading-layer view of the target cache);
   2. verification — ONE target forward over [pending, d_1..d_K];
   3. rejection    — exact batched ragged rejection sampling;
   4. post-hoc     — KL per proposed position (the fused KLD kernel on
@@ -102,7 +104,9 @@ def spec_decode_round_impl(params_t, params_d, cfg_t: ModelConfig,
     if k > 0:
         prop = drafter.propose(params_d, state.draft_cache, state.pending, k,
                                sl_i, policy,
-                               lambda j: uniforms(PURPOSE_DRAFT, j), live)
+                               lambda j: uniforms(PURPOSE_DRAFT, j), live,
+                               params_t=params_t,
+                               target_cache=state.target_cache)
         sl_i = torch.minimum(sl_i, prop.eff_sl)
         draft_tokens, drafted_cache = prop.tokens, prop.cache
     else:

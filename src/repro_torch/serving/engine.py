@@ -29,6 +29,7 @@ CUDA where there is none raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -91,18 +92,32 @@ class ServingEngine:
                  params_draft: Optional[Params],
                  cfg_draft: Optional[ModelConfig],
                  spec: SpecDecodeConfig, serving: ServingConfig,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda",
+                 latency_model: Optional[RoundLatencyModel] = None):
         """``params_*`` are parameter trees (``models/weights.py``); they
         are moved to ``device`` if they live elsewhere.  The KV layout is
         the dense ring or, with ``serving.paged_kv``, the block-paged
         pool, fp32 or int8 (``serving.kv_quant``); the schedule is
-        synchronous or pipelined (``serving.pipelined``)."""
+        synchronous or pipelined (``serving.pipelined``).
+
+        ``latency_model``: a pre-seeded :class:`RoundLatencyModel` (e.g.
+        warm-started from a calibration sweep's round log), or None for a
+        fresh one.  The engine feeds it one sample per collected round
+        and installs it on the scheduler, where the ``slo`` policy's
+        bucket pick and the admission gate read it."""
         self.device = resolve_device(device)
         drafter = build_drafter(spec, cfg_target, cfg_draft)
         if drafter.uses_draft_model() and (params_draft is None
                                            or cfg_draft is None):
             raise ValueError(f"drafter {spec.drafter!r} needs draft-model "
                              "params/config")
+        # a goodput cost left at None comes from the drafter's own step
+        # cost, before any policy is built: the resolved spec is the one
+        # every later part sees
+        if spec.goodput_draft_cost is None:
+            spec = dataclasses.replace(spec,
+                                       goodput_draft_cost=drafter.step_cost())
+            drafter = build_drafter(spec, cfg_target, cfg_draft)
         self.paged = serving.paged_kv
         # only a drafter that mirrors the pool stores KV of its own
         pooled = [cfg_target] + ([cfg_draft] if drafter.mirrors_kv() else [])
@@ -134,7 +149,9 @@ class ServingEngine:
             block_bytes=(cache_lib.kv_block_bytes(
                 cfg_target, serving.kv_block_size, self.kv_quant)
                 if self.paged else 0))
-        self.latency_model = RoundLatencyModel()   # round-cost telemetry
+        self.latency_model = (latency_model if latency_model is not None
+                              else RoundLatencyModel())
+        self.scheduler.latency_model = self.latency_model
         self.seed = seed
         b = serving.max_batch_size
         self.state = sd.init_round_state(
@@ -283,7 +300,11 @@ class ServingEngine:
     def _admit(self) -> None:
         """Admission, then one prefill group per prompt bucket."""
         groups: Dict[int, List[Request]] = {}
-        for req in self.scheduler.admit():
+        admitted = self.scheduler.admit()
+        now = time.monotonic()
+        for req in admitted:
+            if req.first_dispatch_time is None:
+                req.first_dispatch_time = now
             b = _bucket(len(req.prefill_tokens()), cap=self.serving.max_seq_len)
             groups.setdefault(b, []).append(req)
         for bucket in sorted(groups):
@@ -422,8 +443,13 @@ class ServingEngine:
         never clips the window a sampled stream depends on."""
         if self.spec.temperature > 0.0:
             return self.policy.max_bucket()
-        return self.policy.pick_bucket(
-            self.scheduler.host_context(self._sl_next_host))
+        return self.policy.pick_bucket(self._host_context())
+
+    def _host_context(self):
+        """The policy hooks' view of the round: the scheduler's per-slot
+        state, the SL mirror, the latency model and the round ordinal."""
+        return self.scheduler.host_context(self._sl_next_host,
+                                           round_ordinal=self.rounds)
 
     def dispatch(self) -> Optional[_DispatchRecord]:
         """Enqueue one speculative round over the occupied slots and
@@ -435,8 +461,7 @@ class ServingEngine:
         rows = [(r, r.slot, r.preemptions) for r in self.scheduler.running]
         active = self._to_device(self.scheduler.active_mask)
         k = (self._planned_k if self._planned_k is not None
-             else self.policy.pick_bucket(
-                 self.scheduler.host_context(self._sl_next_host)))
+             else self.policy.pick_bucket(self._host_context()))
         self._planned_k = None
         t_dispatch = time.monotonic()
         self.state, out = sd.spec_decode_round(
@@ -628,8 +653,8 @@ class ServingEngine:
 
     def summary(self, done: Sequence[Request], wall: float) -> Dict[str, float]:
         """Run-level metrics over a set of terminal requests: the
-        reference's summary without its SLO and prefix-cache fields
-        (their features come with their slices)."""
+        reference's summary without its prefix-cache fields (that
+        feature comes with its slice)."""
         fin = [r for r in done if r.state == RequestState.FINISHED]
         rej = [r for r in done if r.state == RequestState.REJECTED]
         lat = [r.latency() for r in fin if r.latency() is not None]
@@ -644,8 +669,20 @@ class ServingEngine:
         def p95(xs):
             return float(np.percentile(xs, 95)) if xs else float("nan")
 
+        # SLO accounting: attainment over every terminal request (a
+        # rejected one never attains); goodput counts the tokens of the
+        # requests that met their own deadline, so with no deadline it
+        # equals throughput
+        attained = [r for r in done if r.slo_attained()]
         return {
             **self.latency_model.summary_fields(),
+            "slo_requests_attained": len(attained),
+            "slo_attained_frac": len(attained) / max(len(done), 1),
+            "slo_goodput_tok_s": (sum(len(r.output) for r in attained)
+                                  / max(wall, 1e-9)),
+            "slo_predicted_violations": float(
+                self.scheduler.slo_predicted_violations),
+            "slo_deferrals": float(self.scheduler.slo_deferrals_total),
             "device": str(self.device),
             "wall_time_s": wall,
             "requests_finished": len(fin),

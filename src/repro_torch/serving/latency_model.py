@@ -11,13 +11,15 @@ quantities by recursive least squares with a forgetting factor:
 bucket, ``B_eff`` the live rows verified.  The engine feeds it one
 sample per collected round and reports the coefficients in its summary
 (``latency_model_*``) and the pre-update prediction per round
-(``t_round_pred_s``).  The reference's consumers of the fit — the
-``slo`` policy and the SLO admission gate, with the calibration
-warm start they rely on — come with the ``slo`` slice.
+(``t_round_pred_s``).  A calibration sweep's round log warm-starts the
+fit (:meth:`RoundLatencyModel.warm_start_from_rounds`).  Its consumers
+are the ``slo`` policy (``predict_round_s`` against the batch's tightest
+deadline) and the scheduler's SLO admission gate (best-case completion
+of a queued request); both act only once :meth:`ready` holds.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, List
 
 import numpy as np
 
@@ -40,12 +42,15 @@ class RoundLatencyModel:
     ``forgetting`` < 1 geometrically down-weights old rounds so the
     model tracks drifting host conditions; ``prior_scale`` sets the
     initial parameter covariance (large = the first samples dominate
-    the zero prior quickly).
+    the zero prior quickly); ``min_rounds`` is the readiness gate: below
+    it :meth:`ready` is False and the SLO consumers stay deadline-blind.
     """
 
-    def __init__(self, forgetting: float = 0.995, prior_scale: float = 1e4):
+    def __init__(self, forgetting: float = 0.995,
+                 prior_scale: float = 1e4, min_rounds: int = 8):
         assert 0.0 < forgetting <= 1.0
         self.forgetting = float(forgetting)
+        self.min_rounds = int(min_rounds)
         self.theta = np.zeros((N_COEF,), np.float64)
         self.P = np.eye(N_COEF, dtype=np.float64) * float(prior_scale)
         self.rounds_fit = 0
@@ -70,7 +75,38 @@ class RoundLatencyModel:
         self._mse_ema = a * self._mse_ema + (1.0 - a) * err * err
         return err
 
+    def warm_start_from_rounds(self, round_log: Iterable[Dict]) -> int:
+        """Seed the fit from a calibration sweep: a batch ridge least
+        squares over an engine ``round_log`` (entries with ``wall_s`` /
+        ``k`` / ``b_eff`` / ``prefill_tokens``).  Returns the rounds
+        absorbed; entries without ``wall_s`` or ``k`` are skipped.  The
+        batch's information becomes the RLS prior (P = gram^-1), so later
+        online samples update from the calibration."""
+        X: List[np.ndarray] = []
+        y: List[float] = []
+        for rec in round_log:
+            if "wall_s" not in rec or "k" not in rec:
+                continue
+            X.append(round_features(int(rec["k"]),
+                                    int(rec.get("b_eff", 1)),
+                                    float(rec.get("prefill_tokens", 0.0))))
+            y.append(float(rec["wall_s"]))
+        if not X:
+            return 0
+        Xm = np.stack(X)
+        yv = np.asarray(y, np.float64)
+        gram = Xm.T @ Xm + 1e-8 * np.eye(N_COEF)
+        self.theta = np.linalg.solve(gram, Xm.T @ yv)
+        self.P = np.linalg.inv(gram)
+        self.rounds_fit += len(y)
+        resid = yv - Xm @ self.theta
+        self._mse_ema = float(np.mean(resid * resid))
+        return len(y)
+
     # -------------------------------------------------------------- predict
+    def ready(self) -> bool:
+        return self.rounds_fit >= self.min_rounds
+
     def predict_round_s(self, k: int, b_eff: int,
                         prefill_tokens: float = 0.0) -> float:
         """Predicted wall seconds of one round at bucket ``k`` with
@@ -78,6 +114,11 @@ class RoundLatencyModel:
         a negative cost)."""
         return max(float(self.theta @ round_features(k, b_eff,
                                                      prefill_tokens)), 0.0)
+
+    def predict_prefill_s(self, tokens: int) -> float:
+        """Predicted cost of prefilling ``tokens``: the c0 + c_prefill
+        slice of the form (what an admission wave adds to its round)."""
+        return max(float(self.theta[0] + self.theta[1] * float(tokens)), 0.0)
 
     # ------------------------------------------------------------ telemetry
     def coefficients(self) -> Dict[str, float]:

@@ -1,5 +1,5 @@
 """Look-ahead scheduler (paper §3.2; ``repro.serving.scheduler``
-without the prefix cache and the SLO gate).  Two KV layouts:
+without the prefix cache).  Two KV layouts:
 
 * **dense** (``paged_kv=False``) — one ring row per slot: admission is
   by free slot and the worst-case fit alone; there is no allocator, no
@@ -16,12 +16,17 @@ without the prefix cache and the SLO gate).  Two KV layouts:
 
 :class:`LookaheadScheduler` holds the waiting queue and the slot table.
 A request whose worst case cannot fit ``max_seq_len`` is ``REJECTED``.
+The SLO admission gate (DESIGN.md §15) surfaces, and at most
+``slo_defer_limit`` times defers, a fresh request whose best-case
+completion under the engine's latency model already misses its
+deadline; it never rejects or drops one.
 """
 from __future__ import annotations
 
 import collections
+import math
 import time
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
@@ -101,6 +106,12 @@ class LookaheadScheduler:
         self._rejected: List[Request] = []
         self._admit_seq = 0
         self.preempted_total = 0
+        # SLO admission: the engine installs its RoundLatencyModel here;
+        # without one (or before it is ready) admission is deadline-blind
+        self.latency_model: Optional[Any] = None
+        self._slo_risk: List[Request] = []
+        self.slo_predicted_violations = 0
+        self.slo_deferrals_total = 0
 
     # ------------------------------------------------------------- admission
     def submit(self, req: Request) -> None:
@@ -109,12 +120,30 @@ class LookaheadScheduler:
     def update_predictions(self, sl_next: np.ndarray) -> None:
         self.sl_pred = np.array(sl_next)
 
-    def host_context(self, sl_next: Optional[np.ndarray] = None
-                     ) -> HostRoundContext:
+    def host_context(self, sl_next: Optional[np.ndarray] = None,
+                     round_ordinal: int = 0,
+                     now: Optional[float] = None) -> HostRoundContext:
         """The round's host-side view for the policy hooks, from state
-        the scheduler owns (no device sync)."""
+        the scheduler owns (no device sync): per-slot deadline remaining
+        (+inf where there is none) and token budgets (0 for empty
+        slots), and the engine's latency model."""
         sl = self.sl_pred if sl_next is None else np.asarray(sl_next)
-        return HostRoundContext(sl_next=sl, active=self.active_mask)
+        b = self.serving.max_batch_size
+        deadlines = np.full((b,), np.inf)
+        tokens_rem = np.zeros((b,), np.int64)
+        if any(r is not None and r.slo_deadline_s is not None
+               for r in self.slots):
+            now = time.monotonic() if now is None else now
+        for i, r in enumerate(self.slots):
+            if r is None:
+                continue
+            tokens_rem[i] = max(r.max_new_tokens - len(r.output), 0)
+            if r.slo_deadline_s is not None:
+                deadlines[i] = (r.arrival_time + r.slo_deadline_s) - now
+        return HostRoundContext(
+            sl_next=sl, active=self.active_mask,
+            deadline_remaining_s=deadlines, tokens_remaining=tokens_rem,
+            latency_model=self.latency_model, round_ordinal=round_ordinal)
 
     def lookahead_slots(self, sl_next: Optional[np.ndarray] = None
                         ) -> np.ndarray:
@@ -130,16 +159,108 @@ class LookaheadScheduler:
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
 
+    def _is_readmit(self, req: Request) -> bool:
+        """A queued request that has run before (evict-and-requeue)."""
+        return req.preemptions > 0 or req.admit_time is not None
+
+    def assert_readmit_fifo(self) -> None:
+        """Starvation guard: preempted readmits form a contiguous prefix
+        of the queue, ahead of every fresh arrival.  It holds by
+        construction (``submit`` appends, ``preempt`` appends left,
+        requests leave from the front); the assert pins it."""
+        seen_fresh = False
+        for r in self.queue:
+            if self._is_readmit(r):
+                assert not seen_fresh, (
+                    "readmit queued behind a fresh arrival — starvation")
+            else:
+                seen_fresh = True
+
+    # ------------------------------------------------------- SLO admission
+    def predict_completion_s(self, req: Request) -> Optional[float]:
+        """Best-case predicted wall seconds for ``req`` to finish once
+        admitted: its prefill plus ``ceil(tokens_remaining / (K+1))``
+        rounds at the policy's typical bucket against the live batch
+        (every draft position accepted, so a feasible request is never
+        gated on a pessimistic guess).  None without a ready model."""
+        lm = self.latency_model
+        if lm is None or not lm.ready():
+            return None
+        k = int(min(max(self.policy.initial_sl_value(), self.spec.sl_min)
+                    if self.policy.uses_draft() else 0,
+                    self.policy.max_bucket()))
+        b_eff = min(len(self.running) + 1, self.serving.max_batch_size)
+        tokens = max(req.max_new_tokens - len(req.output), 1)
+        rounds = math.ceil(tokens / float(k + 1))
+        return (lm.predict_prefill_s(len(req.prefill_tokens()))
+                + rounds * lm.predict_round_s(k, b_eff))
+
+    def _surface_slo_risk(self, req: Request) -> None:
+        if not req.slo_predicted_violation:
+            req.slo_predicted_violation = True
+            self.slo_predicted_violations += 1
+            self._slo_risk.append(req)
+
+    def _slo_feasible_behind(self, head: Request, now: float) -> bool:
+        """Is there a later FRESH request (same or higher priority)
+        predicted to attain its deadline?  Only then is deferring the
+        head worth anything."""
+        for r in list(self.queue)[1:]:
+            if self._is_readmit(r) or r.priority < head.priority:
+                continue
+            if r.slo_deadline_s is None:
+                return True
+            t = self.predict_completion_s(r)
+            if t is None or now + t <= r.arrival_time + r.slo_deadline_s:
+                return True
+        return False
+
+    def pop_slo_risk(self) -> List[Request]:
+        """Requests newly flagged as predicted SLO violations, each
+        surfaced once (the flag stays on the request)."""
+        out, self._slo_risk = self._slo_risk, []
+        return out
+
     def admit(self) -> List[Request]:
         """Move queued requests into free slots in strict queue order.
         Paged: each is charged ``ceil(prefill_len / block_size)`` blocks,
         and a request the pool cannot cover stays queued (round-time
         preemption resolves sustained pressure).  Oversize requests
-        become ``REJECTED`` (drained by :meth:`pop_rejected`)."""
+        become ``REJECTED`` (drained by :meth:`pop_rejected`).
+
+        SLO gate: a fresh head with a deadline whose best-case predicted
+        completion already misses it is surfaced (:meth:`pop_slo_risk`)
+        and, at most ``slo_defer_limit`` times and only when a feasible
+        same-or-higher-priority fresh arrival waits behind it, rotated to
+        the back.  Readmits are never deferred; without deadlines or a
+        ready latency model the gate is inert.  ``now`` is read once per
+        call."""
+        if __debug__:
+            self.assert_readmit_fifo()
         admitted = []
         free = collections.deque(self.free_slots())
+        deferred_ids: set = set()
+        now = None
         while free and self.queue:
             req = self.queue[0]
+            if (req.slo_deadline_s is not None
+                    and not self._is_readmit(req)
+                    and self.latency_model is not None
+                    and self.latency_model.ready()):
+                now = time.monotonic() if now is None else now
+                t_pred = self.predict_completion_s(req)
+                if (t_pred is not None and
+                        now + t_pred > req.arrival_time + req.slo_deadline_s):
+                    self._surface_slo_risk(req)
+                    if (id(req) not in deferred_ids
+                            and req.slo_deferrals < self.serving.slo_defer_limit
+                            and self._slo_feasible_behind(req, now)):
+                        self.queue.popleft()
+                        self.queue.append(req)
+                        req.slo_deferrals += 1
+                        self.slo_deferrals_total += 1
+                        deferred_ids.add(id(req))
+                        continue
             if not self._fits(req):
                 self.queue.popleft()
                 req.state = RequestState.REJECTED

@@ -642,3 +642,144 @@ def test_dense_engine_streams_match_cpu(cuda, pipelined, window):
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
     assert ra.LAUNCHES["ragged_verify_attention"] > 0
+
+
+def _small_pair(device="cpu"):
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params, map_params
+    cfg = get_config("smollm-135m").reduced()
+    pt = init_params(cfg, seed=2, device=device)
+    pd = map_params(lambda a, n: a + 0.03 * n, pt,
+                    init_params(cfg, seed=3, device=device))
+    return cfg, pt, pd
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["pool", "ring"])
+def test_self_drafter_launches_on_a_layer_sliced_view(cuda, paged):
+    """The self drafter's draft loop hands B1 (pool) or B5 (ring) one
+    layer of the leading-layer view ``cache["k"][:n]``: each of the
+    k + 1 steps launches once per drafted layer, and the proposal equals
+    the CPU's (plain versions) on the same state."""
+    from repro_torch.core.config import SpecDecodeConfig
+    from repro_torch.core.drafters import build_drafter
+    from repro_torch.core.policies import build_policy
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.weights import map_params
+    cfg, pt, _ = _small_pair()
+    spec = SpecDecodeConfig(drafter="self", self_draft_layers=1)
+    drafter, policy = build_drafter(spec, cfg), build_policy(spec)
+    b, k = 2, 3
+    props, counts = [], []
+    for device in ("cpu", cuda):
+        params = map_params(lambda a: a.to(device), pt)
+        if paged:
+            cache = cache_lib.paged_cache_struct(cfg, b, 64, 8, 16,
+                                                 device=device)
+            cache["block_table"][:, :4] = torch.arange(
+                8, dtype=torch.int32, device=device).reshape(b, 4)
+        else:
+            cache = cache_lib.cache_struct(cfg, b, 64, device=device)
+        view = cache["k"][:1]
+        assert view.is_contiguous() and view[0].data_ptr() == cache["k"].data_ptr()
+        pa.LAUNCHES["paged_ragged_verify_attention"] = 0
+        ra.LAUNCHES["ragged_verify_attention"] = 0
+        pending = torch.tensor([5, 9], dtype=torch.int32, device=device)
+        sl = torch.tensor([k, 2], dtype=torch.int32, device=device)
+        live = torch.ones((b,), dtype=torch.bool, device=device)
+        prop = drafter.propose(
+            None, (), pending, k, sl, policy,
+            lambda j: torch.full((b,), 0.5, device=device), live,
+            params_t=params, target_cache=cache)
+        props.append(prop)
+        counts.append(pa.LAUNCHES["paged_ragged_verify_attention"]
+                      + ra.LAUNCHES["ragged_verify_attention"])
+    assert counts == [0, (k + 1) * spec.self_draft_layers]
+    assert torch.equal(props[0].tokens, props[1].tokens.cpu())
+    assert torch.equal(props[0].eff_sl, props[1].eff_sl.cpu())
+    torch.testing.assert_close(props[1].logits.cpu(), props[0].logits,
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "pipe"])
+@pytest.mark.parametrize("paged", [True, False], ids=["pool", "ring"])
+def test_self_drafter_engine_streams_match_cpu(cuda, paged, pipelined):
+    """The self drafter served on the card (B1 or B5 over the layer-sliced
+    view, B2 for the KLD) emits the CPU's greedy streams; on the pool
+    with preemption."""
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg, pt, _ = _small_pair()
+    serving = (dict(paged_kv=True, max_seq_len=64, kv_block_size=8,
+                    num_kv_blocks=4) if paged else dict(max_seq_len=96))
+    outs, summaries = [], []
+    for device in ("cpu", cuda):
+        kl.LAUNCHES["fused_kld_accept"] = 0
+        reqs = [Request(i, prompt=list(range(5 + i, 20 + 3 * i)),
+                        max_new_tokens=24) for i in range(3)]
+        summaries.append(ServingEngine(
+            pt, cfg, None, None, SpecDecodeConfig(drafter="self"),
+            ServingConfig(max_batch_size=2, pipelined=pipelined, **serving),
+            device=device).run(reqs))
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert kl.LAUNCHES["fused_kld_accept"] > 0
+    assert summaries[0]["preemptions"] == summaries[1]["preemptions"]
+    if paged and not pipelined:
+        assert summaries[1]["preemptions"] >= 1
+
+
+def _dispatch_syncs(eng):
+    """Count the synchronising calls ``eng.dispatch`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    seen = []
+    dispatch = eng.dispatch
+
+    def watched():
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                rec = dispatch()
+            seen.extend(w for w in caught if "synchroniz" in str(w.message))
+            return rec
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng.dispatch = watched
+    return seen
+
+
+@pytest.mark.parametrize("policy,drafter", [("adaedl", "model"),
+                                            ("goodput", "model"),
+                                            ("goodput", "ngram"),
+                                            ("slo", "model"),
+                                            ("slo", "self")])
+def test_new_policies_dispatch_without_syncs(cuda, policy, drafter):
+    """draft_keep, observe and predict read nothing back to the host,
+    and the slo pick reads only the host context: dispatch makes no
+    synchronising call (the slo serve also with deadlines, once its
+    latency model is ready); the streams equal the CPU's."""
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg, pt, pd = _small_pair()
+    model = drafter == "model"
+    spec = SpecDecodeConfig(policy=policy, drafter=drafter,
+                            ngram_n=3 if model else 1)
+    outs = []
+    for device in ("cpu", cuda):
+        eng = ServingEngine(pt, cfg, pd if model else None,
+                            cfg if model else None, spec,
+                            ServingConfig(max_batch_size=2, max_seq_len=96,
+                                          paged_kv=True),
+                            device=device)
+        syncs = _dispatch_syncs(eng) if device != "cpu" else []
+        reqs = [Request(i, prompt=list(range(5 + i, 14 + 3 * i)),
+                        max_new_tokens=20,
+                        slo_deadline_s=(60.0 if policy == "slo" and i % 2
+                                        else None)) for i in range(4)]
+        eng.run(reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert syncs == [], [str(w.message) for w in syncs]

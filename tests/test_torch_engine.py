@@ -36,24 +36,29 @@ def small_pair():
 
 
 # the reference's summary keys whose features the port does not have yet:
-# the SLO gate (ROADMAP A2) and the prefix cache (A4)
-LATER_KEYS = ("slo_", "prefix_cache_", "cow_copies")
-# timing fields: only present and finite
+# the prefix cache (ROADMAP A4)
+LATER_KEYS = ("prefix_cache_", "cow_copies")
+# timing fields, and the latency model's fit of them: only present and
+# finite
 TIMING_KEYS = ("wall_time_s", "throughput_tok_s", "mean_latency_s",
                "p95_latency_s", "ttft_mean_s", "ttft_p95_s",
                "queue_wait_mean_s", "host_blocked_s",
-               "host_blocked_per_round_s")
+               "host_blocked_per_round_s", "slo_goodput_tok_s",
+               "latency_model_c0", "latency_model_c_prefill",
+               "latency_model_c_draft", "latency_model_c_verify",
+               "latency_model_rounds_fit", "latency_model_rmse_s")
 # counts, blocks and bytes: equal
 COUNT_KEYS = ("rounds", "tokens_emitted", "requests_finished",
               "requests_rejected", "preemptions", "draft_steps",
               "draft_steps_effective", "drafter", "draft_step_cost",
               "kv_quant", "kv_blocks_peak", "kv_pool_blocks",
               "kv_block_bytes", "kv_pool_bytes", "kv_bytes_swept",
-              "draft_kv_blocks_peak")
+              "draft_kv_blocks_peak", "slo_requests_attained",
+              "slo_predicted_violations", "slo_deferrals")
 # ratios: within 1e-9
 RATIO_KEYS = ("kv_pool_utilization_mean", "kv_pool_utilization_peak",
               "draft_cost_effective", "block_efficiency", "mean_acceptance",
-              "batch_tokens_per_round")
+              "batch_tokens_per_round", "slo_attained_frac")
 
 
 def _assert_summary_matches(m, rm, counts=COUNT_KEYS, ratios=RATIO_KEYS):

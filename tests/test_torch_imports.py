@@ -24,7 +24,9 @@ def test_import_port_leaves_jax_out():
         " or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(mods) > 20, mods\n"
         "for m in ('kernels.paged_attention_quant', 'kernels.ngram_match',\n"
-        "          'core.drafters.ngram', 'kernels.ragged_attention'):\n"
+        "          'core.drafters.ngram', 'kernels.ragged_attention',\n"
+        "          'core.policies.adaedl', 'core.policies.goodput',\n"
+        "          'core.policies.slo', 'core.drafters.self_draft'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
