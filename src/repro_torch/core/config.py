@@ -2,7 +2,8 @@
 
 A copy of the parts of ``repro.core.config`` the port runs (the port
 imports nothing of the JAX package): the architecture description, the
-speculation config and the serving config.  Field names, defaults and
+speculation config, the serving config and the training configs
+(optimizer, trainer).  Field names, defaults and
 ``reduced()`` are kept identical, so a config built here describes the
 same model and the same schedule as its twin in the reference.
 """
@@ -134,3 +135,31 @@ class ServingConfig:
         if self.num_kv_blocks is not None:
             return self.num_kv_blocks
         return self.max_batch_size * self.blocks_per_seq()
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch_size: int = 256
+    seq_len: int = 4096
+    microbatch_size: Optional[int] = None   # for gradient accumulation
+    remat: bool = True                       # activation checkpointing
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=OptimizerConfig)
+    checkpoint_every: int = 500
+    checkpoint_dir: str = "/tmp/repro_ckpt"

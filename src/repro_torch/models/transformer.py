@@ -3,7 +3,9 @@
 ``forward(params, cfg, tokens, cache=..., mode=...)`` has the
 reference's three modes:
 
-* ``"train"``   — full causal pass, no cache;
+* ``"train"``   — full causal pass, no cache; ``remat=True`` keeps only
+  each layer's input for the backward pass and runs the layer again
+  there (the reference's ``jax.checkpoint`` per layer);
 * ``"prefill"`` — right-padded prompts (``input_mask``) written into the
   cache, attention over the fresh K/V;
 * ``"decode"``  — T tokens against the cache (T = 1 for a draft step,
@@ -32,6 +34,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.paged_attention import paged_ragged_attention
@@ -41,6 +44,11 @@ from repro_torch.models import cache as cache_lib
 from repro_torch.models.layers import (attend, attn_output, mlp_apply,
                                        qkv_project, rmsnorm, rope_angles)
 from repro_torch.models.weights import Params
+
+
+# at this many tokens the reference's train mode attends blockwise
+# (``flash_attend``); the port's train mode has only the quadratic path
+BLOCKWISE_THRESHOLD = 2048
 
 
 def _layer(params: Params, i: int) -> dict:
@@ -96,20 +104,40 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
     return attn_output(p, out)
 
 
+def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
+           mode: str, positions: torch.Tensor, rope,
+           input_mask: Optional[torch.Tensor],
+           cache: Optional[cache_lib.CacheT],
+           slots: Optional[torch.Tensor]) -> torch.Tensor:
+    """One pre-norm layer: attention, then the MLP, each residual."""
+    x = x + _attn_sublayer(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
+                           layer, mode, positions, rope, input_mask, cache,
+                           slots)
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: Optional[cache_lib.CacheT] = None, mode: str = "train",
             input_mask: Optional[torch.Tensor] = None,
-            write_mask: Optional[torch.Tensor] = None
+            write_mask: Optional[torch.Tensor] = None,
+            remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[cache_lib.CacheT]]:
     """Returns (logits [B, T, Vp] float32, cache).  ``write_mask [B, T]``
     (decode, paged pool) drops the KV writes of masked positions, so a
     short-SL sequence never writes outside its allocated blocks; a ring
-    ignores it, as in the reference."""
+    ignores it, as in the reference.  ``remat`` applies to train mode
+    only, which raises ``NotImplementedError`` at T >= 2048."""
     assert mode in ("train", "prefill", "decode")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
     x = params["embed"][tokens.long()]
     b, t = x.shape[:2]
+    if mode == "train" and t >= BLOCKWISE_THRESHOLD:
+        raise NotImplementedError(
+            f"train mode at {t} >= {BLOCKWISE_THRESHOLD} tokens attends "
+            "blockwise in the reference (models/flash.py flash_attend), "
+            "which the port does not have yet (ROADMAP A7, flash train "
+            "attention)")
     ar = torch.arange(t, dtype=torch.int32, device=x.device)[None]
     if mode == "decode":
         positions = cache["length"][:, None] + ar
@@ -130,11 +158,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         cache_lib.write_pos_paged(cache["kv_pos"], positions, slots,
                                   valid=valid)
     for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        x = x + _attn_sublayer(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
-                               i, mode, positions, rope, input_mask, cache,
-                               slots)
-        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        args = (_layer(params, i), cfg, x, i, mode, positions, rope,
+                input_mask, cache, slots)
+        x = (checkpoint(_block, *args, use_reentrant=False)
+             if remat and mode == "train" else _block(*args))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["embed"].t()
     return logits.float(), (None if cache is None else dict(cache))

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -101,23 +101,45 @@ def from_reference(tree, device="cuda", dtype=torch.float32) -> Params:
                                              device=device), tree)
 
 
+def param_leaves(tree, prefix: Tuple[str, ...] = ()
+                 ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``(key path, leaf)`` pairs of a nested dict in the reference's
+    leaf order: jax flattens a dict by its sorted keys, so reductions
+    over leaves and checkpoint manifests follow the same order."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in param_leaves(tree[k], prefix + (str(k),))]
+    return [(prefix, tree)]
+
+
+def unflatten_params(pairs) -> Params:
+    """The nested dict of ``(key path, leaf)`` pairs."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in pairs:
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def read_checkpoint(fname: str) -> Dict[str, Any]:
+    """The whole tree of a ``.npz`` checkpoint in the reference's format
+    (``training/checkpoint.py`` of either package: leaves ``leaf_<i>``
+    plus a JSON ``manifest`` of their ``/``-joined key paths), as nested
+    dicts of numpy arrays: ``{"params": ..., "extra": ...}``."""
+    with np.load(fname, allow_pickle=False) as data:
+        keys = json.loads(str(data["manifest"]))
+        return unflatten_params((tuple(k.split("/")), data[f"leaf_{i}"])
+                                for i, k in enumerate(keys))
+
+
 def load_reference_checkpoint(fname: str, device="cuda",
                               dtype=torch.float32) -> Params:
-    """Read the reference's ``.npz`` checkpoint (``training/checkpoint.py``:
-    leaves ``leaf_<i>`` plus a JSON ``manifest`` of ``/``-joined key
-    paths) and return the ``params`` subtree as the port's tensors."""
-    data = np.load(fname, allow_pickle=False)
-    keys = json.loads(str(data["manifest"]))
-    tree: Dict[str, Any] = {}
-    for i, path in enumerate(keys):
-        parts = path.split("/")
-        if parts[0] != "params":
-            continue
-        node = tree
-        for p in parts[1:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = data[f"leaf_{i}"]
-    return from_reference(tree, device=device, dtype=dtype)
+    """Read a ``.npz`` checkpoint (:func:`read_checkpoint`) and return its
+    ``params`` subtree as the port's tensors."""
+    return from_reference(read_checkpoint(fname)["params"], device=device,
+                          dtype=dtype)
 
 
 def resolve_device(device) -> torch.device:

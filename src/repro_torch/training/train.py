@@ -1,0 +1,131 @@
+"""Training of the port (``repro.training.train``): the loss, one
+optimizer step, and the loop that trains a model for a number of steps.
+
+Gradients come from autograd over the train-mode :func:`forward`.
+Parameters stay a nested dict of plain tensors: each step makes
+gradient-tracking leaves of them, and :func:`adamw_update` returns new
+ones.  Gradient accumulation over ``microbatches`` is a loop that sums
+the gradients in float32 and divides by their count, as the reference's
+``lax.scan`` does.  The step runs no kernel of ``csrc/``: train-mode
+attention is the plain masked ``attend``, as in the reference below
+2048 tokens.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import ModelConfig, OptimizerConfig, TrainConfig
+from repro_torch.core.sampling import mask_vocab
+from repro_torch.models.transformer import forward
+from repro_torch.models.weights import (Params, init_params, param_leaves,
+                                        resolve_device, unflatten_params)
+from repro_torch.training.optimizer import (AdamWState, adamw_update,
+                                            init_adamw)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy over the unpadded vocabulary (the
+    padded rows masked to -1e30 before the log-sum-exp); with ``mask``,
+    the mean over the masked-in positions."""
+    logits = mask_vocab(logits, vocab_size).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tok_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    ll = tok_logit - lse
+    if mask is not None:
+        mask = mask.to(ll.dtype)
+        return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -ll.mean()
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, remat: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    if cfg.family != "dense":
+        # the reference adds the MoE router's auxiliary losses here
+        raise NotImplementedError(
+            f"the port trains the dense family, not {cfg.family!r} "
+            "(ROADMAP A7: other families, with the MoE aux losses)")
+    logits, _ = forward(params, cfg, tokens, mode="train", remat=remat)
+    loss = cross_entropy(logits, labels, cfg.vocab_size)
+    return loss, {"ce_loss": loss.detach(), "loss": loss.detach()}
+
+
+def _grads(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           labels: torch.Tensor, remat: bool):
+    """(gradients in leaf order, metrics) of one batch."""
+    live = [(k, p.detach().requires_grad_()) for k, p in param_leaves(params)]
+    loss, metrics = loss_fn(unflatten_params(live), cfg, tokens, labels, remat)
+    return torch.autograd.grad(loss, [p for _, p in live]), metrics
+
+
+def train_step(params: Params, opt_state: AdamWState, tokens: torch.Tensor,
+               labels: torch.Tensor, *, cfg: ModelConfig,
+               opt_cfg: OptimizerConfig, remat: bool = True,
+               microbatches: int = 1
+               ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
+    """One optimizer step; returns (params, state, metrics) and leaves
+    its arguments as they were.  ``microbatches > 1`` splits the batch
+    into that many consecutive row groups and averages their gradients
+    and metrics."""
+    keys = [k for k, _ in param_leaves(params)]
+    if microbatches <= 1:
+        grads, metrics = _grads(params, cfg, tokens, labels, remat)
+    else:
+        m, b = microbatches, tokens.shape[0]
+        if b % m:
+            raise ValueError(f"batch {b} does not split into {m} microbatches")
+        acc, per = None, []
+        for t_i, l_i in zip(tokens.reshape(m, b // m, *tokens.shape[1:]),
+                            labels.reshape(m, b // m, *labels.shape[1:])):
+            g, met = _grads(params, cfg, t_i, l_i, remat)
+            g = [gi.float() for gi in g]
+            acc = g if acc is None else [a + gi for a, gi in zip(acc, g)]
+            per.append(met)
+        grads = [a / m for a in acc]
+        metrics = {k: torch.stack([p[k] for p in per]).mean(0) for k in per[0]}
+    grads = unflatten_params(zip(keys, grads))
+    params, opt_state, opt_m = adamw_update(params, grads, opt_state, opt_cfg)
+    metrics.update(opt_m)
+    return params, opt_state, metrics
+
+
+def train_loop(cfg: ModelConfig, train_cfg: TrainConfig,
+               batches: Iterator, *, seed: int = 0,
+               dtype=torch.float32, log_every: int = 20,
+               num_steps: Optional[int] = None,
+               params: Optional[Params] = None,
+               verbose: bool = True, device="cuda"
+               ) -> Tuple[Params, Dict[str, float]]:
+    """Train for ``num_steps`` (default: the schedule's total) on
+    ``batches`` of numpy (tokens [B, S], labels [B, S]), from
+    ``init_params(cfg, seed)`` unless ``params`` is given, on
+    ``device``.  Returns the params and the reference's metrics:
+    ``steps``, ``wall_s`` and the last logged step's ``loss``,
+    ``ce_loss``, ``grad_norm`` and ``lr``."""
+    device = resolve_device(device)
+    if params is None:
+        params = init_params(cfg, seed=seed, device=device, dtype=dtype)
+    opt_state = init_adamw(params)
+    n = num_steps or train_cfg.optimizer.total_steps
+    t0 = time.monotonic()
+    last = {}
+    for i, (toks, labs) in enumerate(batches):
+        if i >= n:
+            break
+        params, opt_state, m = train_step(
+            params, opt_state, torch.from_numpy(np.asarray(toks)).to(device),
+            torch.from_numpy(np.asarray(labs)).to(device), cfg=cfg,
+            opt_cfg=train_cfg.optimizer, remat=train_cfg.remat)
+        if i % log_every == 0 or i == n - 1:
+            last = {k: float(v) for k, v in m.items()}
+            if verbose:
+                print(f"  step {i:4d} loss={last['loss']:.4f} "
+                      f"lr={last['lr']:.2e} gnorm={last['grad_norm']:.2f}")
+    wall = time.monotonic() - t0
+    return params, {"steps": min(i + 1, n), "wall_s": wall, **last}
