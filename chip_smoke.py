@@ -55,7 +55,28 @@ Phases, each printing one JSON line:
              verify passes past one launch of B1 and B4; adaedl,
              goodput and slo on the fp32 pool, goodput x n-gram on the
              int8 pool, the self drafter on the pool and the ring).
-5. train   — training on the card (``repro_torch.training``), then a
+5. families — the dense remainder and the MoE family
+             (``FAMILY_SERVES``): granite-moe-3b-a800m (32 layers, d
+             1536, 24/8 heads, 40 experts top-8, expert d_ff 512) at
+             full width on the fp32 pool, the dense ring, the pipelined
+             pool (streams equal to the synchronous pool's) and with the
+             damped n-gram drafter on the int8 pool, and granite-8b (36
+             layers, d 4096, 32/8 heads, D 128, untied head) on the fp32
+             pool, each target's ``draft()`` as the model drafter, the
+             weights drawn on a card generator (seconds, where a CPU
+             generator would take a minute for 8.25e9 normals); each
+             target's decode step and verify pass timed against its
+             weight bytes (the attention launches of one pass counted:
+             two a layer for granite-8b's T 11 verify); the MoE serve
+             profiled; then ``FAMILY_CHECKS`` at reduced width, card ==
+             CPU streams on the pool and the ring: qk norm, qkv bias,
+             untied head, KV- and query-head padding, MoE batches that
+             overflow an expert (granite-moe, mixtral with its window;
+             some of the card's MoE calls must drop pairs), and D 128 at
+             static SL 10 (44 query rows a KV head: two launches).  The
+             kernel phase adds B1, B4 and B5 at granite-8b's heads (H 32
+             / KV 8 / D 128).
+6. train   — training on the card (``repro_torch.training``), then a
              trained pair served through the DSDE round: the entry point
              ``repro_torch.launch.train --demo`` for 60 steps (its loss
              must fall and its checkpoint restore); smollm-135m at full
@@ -172,11 +193,12 @@ def host_us(fn, iters: int = 200) -> float:
     return 1e6 * elapsed / iters
 
 
-def paged_case(b, t, ctx, dtype, seed):
+def paged_case(b, t, ctx, dtype, seed, heads=(9, 3, 64)):
     """A full-context paged attention call: every row holds ``ctx``
-    committed positions in scattered blocks, queries at the last ``t``."""
+    committed positions in scattered blocks, queries at the last ``t``;
+    ``heads`` = (query heads, KV heads, head dim)."""
     import torch
-    h, kv, d, bs = 9, 3, 64, 16
+    (h, kv, d), bs = heads, 16
     g = torch.Generator(device="cpu").manual_seed(seed)
     maxb = ctx // bs
     n = b * maxb + 8
@@ -197,7 +219,7 @@ def paged_case(b, t, ctx, dtype, seed):
     return args, nbytes, flops
 
 
-def quant_case(b, t, ctx, dtype, seed):
+def quant_case(b, t, ctx, dtype, seed, heads=(9, 3, 64)):
     """:func:`paged_case` over an int8 pool: the same tables, the K/V
     quantized on the card (one scale per stored vector), q in ``dtype``.
     Bytes: the int8 K/V and fp32 scales of ``ctx`` slots per row, plus
@@ -205,7 +227,7 @@ def quant_case(b, t, ctx, dtype, seed):
     import torch
     from repro_torch.models.cache import quantize_kv
     (q, pk, pv, table, q_pos, kv_pos), _, flops = paged_case(
-        b, t, ctx, torch.float32, seed)
+        b, t, ctx, torch.float32, seed, heads)
     (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
     q = q.to(dtype)
     kv, d = pk.shape[2], pk.shape[3]
@@ -458,7 +480,7 @@ def floor_row(flush):
           "one warp, event-bracketed", **kernel_ms(launch, flush)})
 
 
-def ring_case(b, t, w, dtype, seed, wrap=False, fill=None):
+def ring_case(b, t, w, dtype, seed, wrap=False, fill=None, heads=(9, 3, 64)):
     """A dense-ring attention call: every row's ring full (positions 0 ..
     W-1, queries at the last ``t``), or with ``wrap`` rows that have run
     past W (slot j holds the latest position p = j mod W), or with
@@ -467,7 +489,7 @@ def ring_case(b, t, w, dtype, seed, wrap=False, fill=None):
     the K/V of the slots that hold a position, all W positions of
     kv_pos, q_pos, q and out; operations over the slots that hold one."""
     import torch
-    h, kv, d = 9, 3, 64
+    h, kv, d = heads
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn(b, t, h, d, generator=g).to(dtype)
     kb = torch.randn(b, w, kv, d, generator=g).to(dtype)
@@ -566,6 +588,84 @@ def ring_rows(flush):
     return dict(first, max_abs_err=worst)
 
 
+# granite-8b's attention: 32 query heads over 8 KV heads at head dim 128
+D128_HEADS = (32, 8, 128)
+
+
+def d128_rows(flush):
+    """B1, B4 and B5 at granite-8b's head shape (H 32, KV 8, D 128):
+    draft step (T 1) and verify (T 11: G * T 44 query rows a KV head, past
+    one launch's 32 at D 128, so the wrapper makes two launches a call),
+    over ctx / W 256 and 2048 (full contexts and rings), fp32 and bf16;
+    B1's tolerances, each call launched twice for the same bits.  The
+    library yardstick is SDPA over the gathered view (B4: dequantized,
+    untimed).  Returns each kernel's largest error."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as pq
+    from repro_torch.kernels import ragged_attention as ra
+    from repro_torch.models.cache import (gather_paged_kv,
+                                          gather_paged_kv_quant,
+                                          gather_paged_pos)
+    tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
+    peak = {torch.float32: FP32_FLOP_S, torch.bfloat16: BF16_FLOP_S}
+    h, kv, d = D128_HEADS
+    # (name, case, kernel, plain, SDPA inputs: k, v, kv_pos view, q_pos)
+    kernels = (
+        ("paged_ragged_verify_attention", paged_case,
+         pa.paged_ragged_verify_attention_cuda,
+         pa.paged_ragged_verify_attention_plain,
+         lambda a: (*gather_paged_kv(a[1], a[2], a[3]),
+                    gather_paged_pos(a[-1], a[-3]), a[-2])),
+        ("paged_ragged_verify_attention_quant", quant_case,
+         pq.paged_ragged_verify_attention_quant_cuda,
+         pq.paged_ragged_verify_attention_quant_plain,
+         lambda a: (*gather_paged_kv_quant(*a[1:6]),
+                    gather_paged_pos(a[-1], a[-3]), a[-2])),
+        ("ragged_verify_attention", ring_case,
+         ra.ragged_verify_attention_cuda, ra.ragged_verify_attention_plain,
+         lambda a: (a[1], a[2], a[4], a[3])),
+    )
+    worst = {}
+    for name, case, kernel, plain, view in kernels:
+        for dtype in (torch.float32, torch.bfloat16):
+            for ctx in (256, 2048):
+                for t in (1, 11):
+                    args, nbytes, flops = case(4, t, ctx, dtype, seed=t + ctx,
+                                               heads=D128_HEADS)
+                    got = kernel(*args)
+                    want = plain(*args)
+                    again = kernel(*args)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{name} D128 {dtype} ctx={ctx} "
+                                             f"t={t}: two launches differ")
+                    diff = (got.float() - want.float()).abs()
+                    err = diff.max().item()
+                    atol, rtol = tol[dtype]
+                    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                        raise AssertionError(f"{name} D128 {dtype} ctx={ctx} "
+                                             f"t={t}: max abs err {err}")
+                    worst[name] = max(worst.get(name, 0.0), err)
+                    bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
+                    k, v, pos, q_pos = view(args)
+                    emit({"phase": "kernel", "name": name,
+                          "dtype": str(dtype).replace("torch.", ""), "B": 4,
+                          "T": t, "H": h, "KV": kv, "D": d,
+                          ("W" if name == "ragged_verify_attention"
+                           else "ctx"): ctx,
+                          "GT": h // kv * t,
+                          "launches_per_call": len(pa.query_groups(h, kv, t, d)),
+                          "max_abs_err": err, "atol": atol, "rtol": rtol,
+                          **kernel_ms(lambda: kernel(*args), flush),
+                          "plain_ms": time_ms(lambda: plain(*args),
+                                              flush=flush),
+                          "library_ms": sdpa_ms(args[0], k, v, pos, q_pos,
+                                                flush),
+                          "bound_ms": bound_ms, "bound_by": bound_by})
+    return worst
+
+
 def kernel_phase(flush):
     """Every kernel's rows; first about 0.1 s of L2 flushes, so the
     card's clocks have left idle before the first timed call."""
@@ -577,6 +677,8 @@ def kernel_phase(flush):
     contract["fused_kld_accept"] = kld_row(flush)
     contract["ngram_suffix_propose"] = ngram_rows(flush)
     contract["ragged_verify_attention"] = ring_rows(flush)
+    for name, err in d128_rows(flush).items():
+        contract[name]["max_abs_err"] = max(contract[name]["max_abs_err"], err)
     floor_row(flush)
     return contract
 
@@ -663,15 +765,16 @@ PROFILED = ("serve", "serve-int8", "serve-ngram-int8", "serve-dense",
 
 def damped(params, alpha):
     """``params`` with the residual branches' output projections
-    (``attn.wo``, ``mlp.w_down``) scaled by ``alpha``: every layer still
-    runs at full width, but the token embedding stays large in the
-    residual stream, so greedy streams run in repeats of a token, which
-    the n-gram drafter's lookup finds."""
+    (``attn.wo``, and ``mlp.w_down`` or the experts' ``moe.w_down``)
+    scaled by ``alpha``: every layer still runs at full width, but the
+    token embedding stays large in the residual stream, so greedy streams
+    run in repeats of a token, which the n-gram drafter's lookup finds."""
     if alpha == 1.0:
         return params
     layers = dict(params["layers"])
     layers["attn"] = dict(layers["attn"], wo=layers["attn"]["wo"] * alpha)
-    layers["mlp"] = dict(layers["mlp"], w_down=layers["mlp"]["w_down"] * alpha)
+    ffn = "moe" if "moe" in layers else "mlp"
+    layers[ffn] = dict(layers[ffn], w_down=layers[ffn]["w_down"] * alpha)
     return dict(params, layers=layers)
 
 
@@ -1020,6 +1123,369 @@ def check_phase(cfg) -> None:
                                  "pipelined="
                                  f"{pipelined}, window={window}, sl={sl}): "
                                  f"{outs}")
+
+
+# -- families phase ------------------------------------------------------
+
+class FamilyServe(NamedTuple):
+    """One full-width serve of the dense remainder or the MoE family:
+    ``arch``'s target with seeded random weights drawn on the card, the
+    model drafter on the target's own ``draft()`` (dense for an MoE
+    target) or the n-gram drafter, the serve settings of ``SERVES``.
+    ``nblocks`` None serves from the dense ring; ``twin``: the serve whose
+    greedy streams this one's are printed beside (not required equal:
+    the pipelined schedule runs other rows beside a request in some
+    rounds, a request that finished stays a round longer and the next
+    one starts a round later, and an MoE block's capacity couples the
+    rows of a call, so the reference's own pipelined streams part from
+    its synchronous ones; ``FAMILY_CHECKS`` holds the card's pipelined
+    MoE streams to the CPU's); ``path``: the kernels that must launch
+    during it."""
+    name: str
+    arch: str
+    drafter: str
+    kv_quant: str
+    nblocks: Optional[int]
+    pipelined: bool
+    damp: float
+    path: Tuple[str, ...]
+    twin: Optional[str] = None
+
+
+B1_B2 = ("paged_ragged_verify_attention", "fused_kld_accept")
+FAMILY_SERVES = (
+    FamilyServe("moe-serve", "granite-moe-3b-a800m", "model", "none", 32,
+                False, 1.0, B1_B2),
+    FamilyServe("moe-serve-dense", "granite-moe-3b-a800m", "model", "none",
+                None, False, 1.0,
+                ("ragged_verify_attention", "fused_kld_accept")),
+    FamilyServe("moe-serve-pipe", "granite-moe-3b-a800m", "model", "none", 32,
+                True, 1.0, B1_B2, twin="moe-serve"),
+    FamilyServe("moe-serve-ngram-int8", "granite-moe-3b-a800m", "ngram",
+                "int8", 16, False, NGRAM_DAMP,
+                ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
+    FamilyServe("granite8b-serve", "granite-8b", "model", "none", 32, False,
+                1.0, B1_B2),
+)
+
+
+def count_query_launches():
+    """Counts the attention kernels' launches over query groups (B1, B4
+    and B5 cut T into groups of at most 32 query rows a KV head at D
+    128): returns (the list that each call appends its launches to, a
+    function that stops counting)."""
+    from repro_torch.kernels import paged_attention as pa
+    seen, orig = [], pa.launch_query_groups
+
+    def counted(q, q_pos, groups, plans, launch):
+        seen.append(len(groups))
+        return orig(q, q_pos, groups, plans, launch)
+    mods = _counter_modules()
+    for mod in mods:
+        if hasattr(mod, "launch_query_groups"):
+            mod.launch_query_groups = counted
+
+    def stop():
+        for mod in mods:
+            if hasattr(mod, "launch_query_groups"):
+                mod.launch_query_groups = orig
+    return seen, stop
+
+
+def family_forward(cfg, params) -> None:
+    """One decode step (T 1) and one verify pass (T 11) of a full-width
+    target on the fp32 pool, B 4, 128 committed positions a row: wall ms
+    a call over 10 calls with a synchronise after them, and the attention
+    kernels' launches in one call (B1 cuts T 11 into two launches at D
+    128).  Bound: the target's weight bytes over 3.35 TB/s, which every
+    pass reads."""
+    import torch
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.transformer import forward
+    from repro_torch.models.weights import count_params
+
+    b, ctx, bs = 4, 128, 16
+    cache = cache_lib.paged_cache_struct(cfg, b, 256, b * 256 // bs, bs,
+                                         device="cuda")
+    cache["block_table"][:, :] = torch.arange(
+        b * 256 // bs, dtype=torch.int32, device="cuda").reshape(b, -1)
+    cache["kv_pos"][:b * 256 // bs] = torch.arange(
+        256, dtype=torch.int32, device="cuda").reshape(-1, bs).repeat(b, 1)
+    cache["length"] = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
+    weight_ms = 1e3 * count_params(cfg) * 4 / HBM_BYTES_S
+    row = {"phase": "family-forward", "arch": cfg.name, "B": b, "ctx": ctx,
+           "params": count_params(cfg), "weight_bound_ms": weight_ms}
+    for t in (1, 11):
+        tok = torch.ones((b, t), dtype=torch.int32, device="cuda")
+
+        def call():
+            return forward(params, cfg, tok, cache=cache, mode="decode")
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        seen, stop = count_query_launches()
+        try:
+            call()
+        finally:
+            stop()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.monotonic() - t0) / 10
+        row[f"T{t}"] = {"ms": ms, "attention_calls": len(seen),
+                        "attention_launches": sum(seen),
+                        "weight_bound_share": weight_ms / ms}
+    emit(row)
+    if row["T11"]["attention_launches"] != (
+            cfg.num_layers * (2 if cfg.resolved_head_dim == 128 else 1)):
+        raise AssertionError(f"{cfg.name}: verify attention launches "
+                             f"{row['T11']}")
+
+
+def family_serves(smi):
+    """The full-width serves of ``FAMILY_SERVES``, each target built once
+    and freed before the next; then ``moe-serve`` again under the
+    profiler.  Returns the launches summed over the serves."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    total = {k: 0 for k in read_launches()}
+    streams = {}
+    for arch in dict.fromkeys(sv.arch for sv in FAMILY_SERVES):
+        cfg = get_config(arch)
+        t0 = time.monotonic()
+        pt = init_params(cfg, seed=0, device="cuda", rng_device="cuda")
+        pd = init_params(cfg.draft(), seed=1, device="cuda",
+                         rng_device="cuda")
+        torch.cuda.synchronize()
+        emit({"phase": "family-init", "arch": arch,
+              "seconds": time.monotonic() - t0,
+              "memory_gib": torch.cuda.memory_allocated() / 2 ** 30})
+        family_forward(cfg, pt)
+        profiled = None
+        for sv in (sv for sv in FAMILY_SERVES if sv.arch == arch):
+            model = sv.drafter == "model"
+            serving = ServingConfig(max_batch_size=4, max_seq_len=256,
+                                    pipelined=sv.pipelined,
+                                    paged_kv=sv.nblocks is not None,
+                                    kv_block_size=16,
+                                    num_kv_blocks=sv.nblocks,
+                                    kv_quant=sv.kv_quant)
+            target = damped(pt, sv.damp)
+
+            def engine(target=target, model=model, sv=sv, serving=serving):
+                return ServingEngine(target, cfg, pd if model else None,
+                                     cfg.draft() if model else None,
+                                     SpecDecodeConfig(drafter=sv.drafter),
+                                     serving, seed=0, device="cuda")
+
+            reqs = [Request(i, prompt=p, max_new_tokens=32) for i, p in
+                    enumerate(serve_prompts(cfg.vocab_size, sv.drafter))]
+            engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
+            eng = engine()
+            syncs = count_syncs(eng)
+            reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            m = eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t1
+            launches = read_launches()
+            streams[sv.name] = [r.output for r in reqs]
+            proposing = sum(1 for r in eng.round_log if r["proposed"] > 0)
+            row = {"phase": sv.name, "arch": cfg.name,
+                   "layers": cfg.num_layers, "drafter": sv.drafter,
+                   "draft_arch": cfg.draft().name if model else None,
+                   "kv_quant": sv.kv_quant,
+                   "paged_kv": sv.nblocks is not None,
+                   "pipelined": sv.pipelined, "residual_scale": sv.damp,
+                   "requests": len(reqs), "rounds": m["rounds"],
+                   "tokens": m["tokens_emitted"],
+                   "preemptions": m["preemptions"],
+                   "proposed": sum(r["proposed"] for r in eng.round_log),
+                   "proposing_rounds": proposing,
+                   "mean_acceptance": m["mean_acceptance"],
+                   "wall_s": wall, "tokens_per_s": m["tokens_emitted"] / wall,
+                   "host_blocked_s": m["host_blocked_s"],
+                   "dispatch_syncs": sum(syncs.values()),
+                   "dispatch_sync_sources": dict(syncs),
+                   "draft_steps": m["draft_steps"],
+                   "kv_pool_bytes": m["kv_pool_bytes"],
+                   "launches": launches, "nvidia_smi": smi}
+            if sv.twin is not None:             # printed only
+                row["equal_to_" + sv.twin] = streams[sv.name] == streams[sv.twin]
+                row["requests_equal_to_" + sv.twin] = sum(
+                    a == b for a, b in zip(streams[sv.name], streams[sv.twin]))
+            emit(row)
+            if min(launches[k] for k in sv.path) <= 0:
+                raise AssertionError(f"{sv.name}: a kernel of the path never "
+                                     f"ran: {launches}")
+            if m["requests_finished"] != 8 or any(len(r.output) != 32
+                                                  for r in reqs):
+                raise AssertionError(f"{sv.name} did not finish: {m}")
+            if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+                raise AssertionError(f"{sv.name}: a token outside the "
+                                     "vocabulary")
+            if sum(syncs.values()):
+                raise AssertionError(f"{sv.name}: dispatch synchronised: "
+                                     f"{dict(syncs)}")
+            if sv.drafter == "ngram" and proposing == 0:
+                raise AssertionError(f"{sv.name}: no round proposed a token")
+            for k in total:
+                total[k] += launches[k]
+            if sv.name == "moe-serve":
+                profiled = (sv.name, engine, reqs)
+            del target, eng
+        if profiled is not None:
+            profile_phase(*profiled)
+        del pt, pd, profiled
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+class FamilyCheck(NamedTuple):
+    """One reduced-width card == CPU check of the dense options and the
+    MoE family: ``arch``'s ``reduced()`` with ``replace`` applied, its
+    ``draft()`` as the model drafter, dsde (or the static policy at SL
+    ``sl``), synchronous or ``pipelined``."""
+    name: str
+    arch: str
+    replace: Tuple[Tuple[str, object], ...] = ()
+    sl: Optional[int] = None
+    pipelined: bool = False
+
+
+def granite_routing():
+    """granite-moe-3b-a800m's routing (40 experts, top 8) with reduced
+    experts (d_ff 256): the reduced config keeps 4 experts, top 2."""
+    from repro_torch.core.config import MoEConfig
+    return MoEConfig(num_experts=40, top_k=8, expert_d_ff=256)
+
+
+FAMILY_CHECKS = (
+    FamilyCheck("qk_norm", "qwen3-32b"),
+    FamilyCheck("qkv_bias", "qwen2.5-32b"),
+    FamilyCheck("untied-head", "granite-8b"),
+    FamilyCheck("kv-head-pad", "qwen3-32b", (("kv_head_pad", 4),)),
+    FamilyCheck("q-head-pad", "smollm-135m", (("q_head_pad", 8),)),
+    FamilyCheck("moe-overflow", "granite-moe-3b-a800m"),
+    FamilyCheck("moe-overflow-window", "mixtral-8x22b"),
+    # the pipelined schedule with granite's routing, where its streams
+    # part from the synchronous ones (in the reference too)
+    FamilyCheck("moe-pipelined", "granite-moe-3b-a800m",
+                (("moe", "granite_routing"),), pipelined=True),
+    # D 128, G 4, static SL 10: verify passes of G * T 44 query rows a KV
+    # head, two launches of B1 / B5 each
+    FamilyCheck("d128", "granite-8b", (("head_dim", 128),), sl=10),
+)
+
+
+def family_check_phase() -> None:
+    """``FAMILY_CHECKS`` on the card (kernels) and on the CPU (plain
+    versions): equal greedy streams on the fp32 pool and on the dense
+    ring.  The draws of the zero-initialised qkv biases and qk-norm
+    scales are made random, so the options change the function.  The
+    MoE checks must drop (token, slot) pairs on the card: prompts of 30
+    tokens and batch 2 give prefill groups of 64 tokens, capacity 48."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models import transformer
+    from repro_torch.models.weights import init_params, map_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    drops = []
+    orig = transformer.moe_apply
+
+    def counted(p, cfg, x):
+        y, aux = orig(p, cfg, x)
+        if x.is_cuda:
+            drops.append(aux["dropped_fraction"])
+        return y, aux
+    transformer.moe_apply = counted
+    try:
+        for chk in FAMILY_CHECKS:
+            base = get_config(chk.arch).reduced()
+            replace = {k: (granite_routing() if v == "granite_routing" else v)
+                       for k, v in chk.replace}
+            cfg = dataclasses.replace(base, **replace)
+            # the head pads are the target's layout: its draft is the
+            # unpadded config's
+            dcfg = base.draft()
+            pt = init_params(cfg, seed=2, device="cpu")
+            gen = torch.Generator().manual_seed(4)
+            attn = pt["layers"]["attn"]
+            for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+                if name in attn:
+                    attn[name] = 0.3 * torch.randn(attn[name].shape,
+                                                   generator=gen)
+            pd = init_params(dcfg, seed=3, device="cpu")
+            spec = SpecDecodeConfig()
+            if chk.sl is not None:
+                spec = SpecDecodeConfig(policy="static", sl_max=chk.sl,
+                                        static_sl=chk.sl)
+            for dense in (False, True):
+                outs, max_k = {}, 0
+                drops.clear()
+                for device in ("cuda", "cpu"):
+                    rs = [Request(i, prompt=list(range(3 + i, 33 + i)),
+                                  max_new_tokens=24) for i in range(4)]
+                    eng = ServingEngine(
+                        pt, cfg, pd, dcfg, spec,
+                        ServingConfig(max_batch_size=2, max_seq_len=128,
+                                      paged_kv=not dense, kv_block_size=16,
+                                      num_kv_blocks=16,
+                                      pipelined=chk.pipelined),
+                        device=device)
+                    eng.run(rs)
+                    outs[device] = [r.output for r in rs]
+                    max_k = max(r["k"] for r in eng.round_log)
+                h = cfg.q_head_pad or cfg.num_heads
+                kv = cfg.kv_head_pad or cfg.num_kv_heads
+                rows = h // kv * (max_k + 1)
+                dropping = sum(bool(d > 0) for d in drops)
+                emit({"phase": "family-check",
+                      "what": "reduced-width greedy streams, card vs CPU",
+                      "check": chk.name, "arch": cfg.name,
+                      "replace": dict(chk.replace), "pipelined": chk.pipelined,
+                      "layout": "dense" if dense else "paged",
+                      "H": h, "KV": kv,
+                      "D": cfg.resolved_head_dim, "max_k": max_k,
+                      "verify_rows_per_kv_head": rows,
+                      "moe_calls": len(drops), "moe_calls_dropping": dropping,
+                      "equal": outs["cuda"] == outs["cpu"]})
+                if outs["cuda"] != outs["cpu"]:
+                    raise AssertionError(f"family check {chk.name} "
+                                         f"dense={dense}: card and CPU "
+                                         f"streams differ: {outs}")
+                if cfg.family == "moe" and dropping == 0:
+                    raise AssertionError(f"family check {chk.name}: no MoE "
+                                         "call dropped a pair")
+                if chk.sl is not None and rows <= 32:
+                    raise AssertionError(f"family check {chk.name}: verify "
+                                         f"rows {rows} fit one D-128 launch")
+    finally:
+        transformer.moe_apply = orig
+
+
+def families_phase(smi):
+    """The full-width serves and the reduced-width checks of the dense
+    remainder and the MoE family; returns the serves' launches."""
+    t0 = time.monotonic()
+    launches = family_serves(smi)
+    family_check_phase()
+    emit({"phase": "families-total", "seconds": time.monotonic() - t0})
+    return launches
 
 
 # -- train phase ---------------------------------------------------------
@@ -1552,8 +2018,9 @@ def main() -> int:
     contract = kernel_phase(flush)
     del flush
     launches = serve_phase()
-    for kernel, n in train_phase(smi).items():
-        launches[kernel] += n
+    for phase in (families_phase, train_phase):
+        for kernel, n in phase(smi).items():
+            launches[kernel] += n
 
     sources = {
         "paged_ragged_verify_attention": (

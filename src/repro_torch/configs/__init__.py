@@ -11,7 +11,16 @@ from typing import List
 
 from repro_torch.core.config import ModelConfig
 
-_ALIAS = {"smollm-135m": "smollm_135m"}
+_ALIAS = {
+    "smollm-135m": "smollm_135m",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "granite-8b": "granite_8b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "qwen3-32b": "qwen3_32b",
+    "paper-llama-pair": "paper_llama_pair",
+    "paper-gemma-pair": "paper_gemma_pair",
+}
 
 
 def list_archs() -> List[str]:

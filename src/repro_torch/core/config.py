@@ -1,9 +1,9 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the parts of ``repro.core.config`` the port runs (the port
-imports nothing of the JAX package): the architecture description, the
-speculation config, the serving config and the training configs
-(optimizer, trainer).  Field names, defaults and
+imports nothing of the JAX package): the architecture description with
+its mixture-of-experts block, the speculation config, the serving
+config and the training configs (optimizer, trainer).  Field names, defaults and
 ``reduced()`` are kept identical, so a config built here describes the
 same model and the same schedule as its twin in the reference.
 """
@@ -14,15 +14,32 @@ from dataclasses import dataclass
 from typing import Optional
 
 
+# the model families the port runs (of the reference's dense, moe, ssm,
+# hybrid, vlm and audio)
+FAMILIES = ("dense", "moe")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+    num_experts: int
+    top_k: int
+    # d_ff of each expert (may differ from the dense d_ff)
+    expert_d_ff: int
+    router_jitter: float = 0.0
+    load_balance_weight: float = 0.01
+    # the reference's sharding strategy ("tp" or "ep"); one card ignores it
+    sharding: str = "tp"
+
+
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description.  The port runs the dense family with
-    tied embeddings; the fields of other families and layouts (MoE, SSM,
-    RG-LRU, qkv bias, qk norm, M-RoPE, head padding) come with their
-    slices."""
+    """Architecture description.  The port runs the dense and MoE
+    families; the fields of the other families (SSM, RG-LRU, M-RoPE,
+    encoder-decoder, modality front ends) come with their slices."""
 
     name: str
-    family: str
+    family: str                      # dense | moe
     num_layers: int
     d_model: int
     num_heads: int
@@ -30,8 +47,16 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None   # default d_model // num_heads
+    qk_norm: bool = False            # qwen3
+    qkv_bias: bool = False           # qwen2.5
     rope_theta: float = 10000.0
     attention_window: Optional[int] = None
+    # physical KV heads in the cache replicated up to this count (exact)
+    kv_head_pad: Optional[int] = None
+    # query heads padded to this count (the extra heads' wo rows are zero)
+    q_head_pad: Optional[int] = None
+    moe: Optional[MoEConfig] = None
+    tie_embeddings: bool = True
     norm_eps: float = 1e-6
     source: str = ""
 
@@ -47,7 +72,8 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Small variant of the same architecture (<= 2 layers, d_model
-        <= 256), identical to the reference's ``reduced()``."""
+        <= 256, <= 4 experts), identical to the reference's
+        ``reduced()``."""
         d_model = min(self.d_model, 256)
         num_heads = min(self.num_heads, 4)
         head_dim = max(d_model // num_heads, 16)
@@ -63,8 +89,36 @@ class ModelConfig:
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                expert_d_ff=min(self.moe.expert_d_ff, 256),
+            )
         if self.attention_window is not None:
             kw["attention_window"] = min(self.attention_window, 64)
+        return dataclasses.replace(self, **kw)
+
+    def draft(self) -> "ModelConfig":
+        """The same-family draft (about 1/4 of the target's depth and
+        width, same vocabulary), identical to the reference's
+        ``draft()``.  The draft of an MoE target is dense."""
+        d_model = max(128, self.d_model // 4)
+        num_heads = max(2, self.num_heads // 4)
+        kw = dict(
+            name=self.name + "-draft",
+            num_layers=max(2, self.num_layers // 4),
+            d_model=d_model,
+            num_heads=num_heads,
+            num_kv_heads=max(1, min(self.num_kv_heads, num_heads)),
+            head_dim=max(32, d_model // num_heads),
+            d_ff=max(256, self.d_ff // 4) if self.d_ff else 0,
+        )
+        if self.moe is not None:
+            kw["moe"] = None
+            kw["family"] = "dense"
+            kw["d_ff"] = max(256, self.moe.expert_d_ff)
         return dataclasses.replace(self, **kw)
 
 

@@ -29,11 +29,15 @@ class DraftProposal(NamedTuple):
 
 
 def model_flops_per_token(cfg: ModelConfig) -> float:
-    """Rough decode FLOPs/token of one forward (projections + MLP + LM
-    head), the single source for :meth:`Drafter.step_cost` ratios."""
+    """Rough decode FLOPs/token of one forward (projections + MLP, or the
+    top-k experts of an MoE block, + LM head), the single source for
+    :meth:`Drafter.step_cost` ratios."""
     d, dh = cfg.d_model, cfg.resolved_head_dim
     attn = 2 * d * dh * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    mlp = 2 * d * cfg.d_ff * 3
+    if cfg.moe is not None:
+        mlp = 2 * d * cfg.moe.expert_d_ff * 3 * cfg.moe.top_k
+    else:
+        mlp = 2 * d * cfg.d_ff * 3
     return float(cfg.num_layers * (attn + mlp) + 2 * d * cfg.vocab_size)
 
 

@@ -1,6 +1,7 @@
 """Training launcher of the port (``repro.launch.train``).
 
-``--demo`` trains the reduced config for ``--steps`` steps on the
+``--demo`` trains the reduced config of any registered architecture
+(dense or MoE) for ``--steps`` steps on the
 synthetic Markov corpus (the reference's recipe: peakedness 2.0, a
 stream of 200 000 tokens, batch 16 x 64, lr 3e-3, warmup 20, clip 5.0),
 then writes a checkpoint in the reference's format.  It runs on the
@@ -16,7 +17,7 @@ import os
 import tempfile
 from typing import Dict, List, Optional
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core.config import OptimizerConfig, TrainConfig
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.data import MarkovTaskCorpus, lm_batches
@@ -27,7 +28,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     """Runs the demo and returns its metrics and ``checkpoint``, the
     file written."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--demo", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--ckpt-dir", default=os.path.join(

@@ -51,7 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import FAMILIES, ModelConfig
 
 CacheT = Dict[str, Any]
 
@@ -72,16 +72,23 @@ def _kv_window(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
+def eff_kv_heads(cfg: ModelConfig) -> int:
+    """KV heads the cache stores: ``kv_head_pad`` when set (each real
+    head replicated), else ``num_kv_heads``."""
+    return cfg.kv_head_pad or cfg.num_kv_heads
+
+
 def kv_buf_shape(cfg: ModelConfig, batch: int, window: int,
                  layers: int) -> Tuple[int, ...]:
-    return (layers, batch, window, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (layers, batch, window, eff_kv_heads(cfg), cfg.resolved_head_dim)
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                  dtype=torch.float32, device="cpu") -> CacheT:
     """Fresh dense-ring cache: zero rings, every slot empty, every length
-    0 (the dense family's leaves of the reference's ``cache_struct``)."""
-    if cfg.family != "dense":
+    0 (the dense and MoE families' leaves of the reference's
+    ``cache_struct``)."""
+    if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no dense ring in the port")
     w = _kv_window(cfg, max_len)
     shape = kv_buf_shape(cfg, batch, w, cfg.num_layers)
@@ -146,8 +153,9 @@ def write_pos(kv_pos: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The port's paged plane carries the dense family."""
-    return cfg.family == "dense"
+    """The port's paged plane carries every family it runs (the
+    reference's carries dense, moe, vlm and hybrid)."""
+    return cfg.family in FAMILIES
 
 
 def max_blocks_per_seq(max_len: int, block_size: int) -> int:
@@ -168,7 +176,7 @@ def is_quantized(cache: CacheT) -> bool:
 
 def supports_kv_quant(cfg: ModelConfig) -> bool:
     """The families whose paged cache is a pure attention pool (the
-    reference's list; the port carries the dense one so far)."""
+    reference's list; the port carries dense and moe so far)."""
     return cfg.family in ("dense", "moe", "vlm")
 
 
@@ -202,9 +210,9 @@ def kv_block_bytes(cfg: ModelConfig, block_size: int, kv_quant: str,
                    dtype=torch.float32) -> int:
     """Device bytes one pool block costs across all layers (K + V, plus
     the scales of an int8 pool)."""
-    elems = cfg.num_layers * block_size * cfg.num_kv_heads * cfg.resolved_head_dim
+    elems = cfg.num_layers * block_size * eff_kv_heads(cfg) * cfg.resolved_head_dim
     if kv_quant == "int8":
-        scales = cfg.num_layers * block_size * cfg.num_kv_heads
+        scales = cfg.num_layers * block_size * eff_kv_heads(cfg)
         return 2 * (elems * 1 + scales * 4)
     if kv_quant == "none":
         return 2 * elems * torch.tensor([], dtype=dtype).element_size()
@@ -234,7 +242,7 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     if kv_quant != "none" and not supports_kv_quant(cfg):
         raise ValueError(f"family {cfg.family!r} has no quantized KV layout")
     maxb = max_blocks_per_seq(max_len, block_size)
-    shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
+    shape = (cfg.num_layers, num_blocks + 1, block_size, eff_kv_heads(cfg),
              cfg.resolved_head_dim)
     i32 = dict(dtype=torch.int32, device=device)
     pool_dtype = torch.int8 if kv_quant == "int8" else dtype

@@ -1,5 +1,6 @@
 """Transformer layers of the port: RMSNorm, half-split RoPE, GQA
-projections, masked attention, SwiGLU MLP.
+projections (with the optional qkv bias and qk norm), masked attention,
+SwiGLU MLP.
 
 Plain functions on tensors over the reference's parameter layouts
 (``repro.models.layers``): ``wq [d, H, D]``, ``wo [H, D, d]``, norms as
@@ -12,6 +13,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.core.config import ModelConfig
 
 NEG_INF = -1e30
 
@@ -54,14 +57,19 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         b, t, w.shape[1], w.shape[2])
 
 
-def qkv_project(p: dict, x: torch.Tensor,
+def qkv_project(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [B, T, d] -> q [B,T,H,D], k/v [B,T,KV,D], RoPE applied."""
-    q = apply_rope(_proj(x, p["wq"]), rope)
-    k = apply_rope(_proj(x, p["wk"]), rope)
-    v = _proj(x, p["wv"])
-    return q, k, v
+    """x [B, T, d] -> q [B,T,H,D], k/v [B,T,KV,D]: the projections, then
+    the bias (``qkv_bias``), then the per-head RMSNorm (``qk_norm``),
+    then RoPE on q and k, in the reference's order."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return apply_rope(q, rope), apply_rope(k, rope), v
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

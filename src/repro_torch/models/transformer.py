@@ -1,4 +1,5 @@
-"""The dense-family transformer of the port (``repro.models.transformer``).
+"""The dense- and MoE-family transformer of the port
+(``repro.models.transformer``).
 
 ``forward(params, cfg, tokens, cache=..., mode=...)`` has the
 reference's three modes:
@@ -12,6 +13,11 @@ reference's three modes:
   K+1 for verification), K/V written first, then attention straight off
   the cache — the CUDA kernel when the cache is a CUDA tensor, its plain
   version on the CPU.
+
+An MoE layer replaces the MLP with :func:`models.moe.moe_apply`, whose
+expert capacity counts every row of the call.  Under ``kv_head_pad`` the
+cache stores each real KV head replicated (``_pad_kv``), and decode
+attends over the replicated heads.
 
 The cache is a dense ring or a block-paged pool (``models/cache.py``).
 A ring write lands at ``p % W`` and takes no write mask (a write past a
@@ -36,13 +42,14 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import FAMILIES, ModelConfig
 from repro_torch.kernels.paged_attention import paged_ragged_attention
 from repro_torch.kernels.paged_attention_quant import paged_ragged_attention_quant
 from repro_torch.kernels.ragged_attention import ragged_attention
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.layers import (attend, attn_output, mlp_apply,
                                        qkv_project, rmsnorm, rope_angles)
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.weights import Params
 
 
@@ -57,12 +64,25 @@ def _layer(params: Params, i: int) -> dict:
                 else v[i]) for k, v in params["layers"].items()}
 
 
+def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache's copy of fresh K/V under ``kv_head_pad``: padded head j
+    is real head j // r, matching the query heads' grouping exactly."""
+    pad = cfg.kv_head_pad
+    if pad is None or k.shape[2] >= pad:
+        return k, v
+    b, t, kv, d = k.shape
+    r = pad // kv
+    return tuple(x[:, :, :, None].expand(b, t, kv, r, d).reshape(b, t, pad, d)
+                 for x in (k, v))
+
+
 def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                    mode: str, positions: torch.Tensor, rope,
                    input_mask: Optional[torch.Tensor],
                    cache: Optional[cache_lib.CacheT],
                    slots: Optional[torch.Tensor]) -> torch.Tensor:
-    q, k, v = qkv_project(p, x, rope)
+    q, k, v = qkv_project(p, cfg, x, rope)
     b, t = x.shape[:2]
     window = cfg.attention_window
     quant = cache is not None and cache_lib.is_quantized(cache)
@@ -76,6 +96,7 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                   if quant else (k, v))
         out = attend(q, ka, va, q_pos=positions, kv_pos=positions,
                      kv_valid=valid, window=window)
+        k, v = _pad_kv(cfg, k, v)
         if quant:
             cache_lib.write_kv_paged_quant(cache["k"][layer], cache["v"][layer],
                                            *scales, k, v, slots)
@@ -86,6 +107,7 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                                      slots)
         return attn_output(p, out)
     pool_k, pool_v = cache["k"][layer], cache["v"][layer]
+    k, v = _pad_kv(cfg, k, v)
     if ring:
         cache_lib.write_kv(pool_k, pool_v, k, v, slots)
         out = ragged_attention(q.contiguous(), pool_k, pool_v, positions,
@@ -108,26 +130,37 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
            mode: str, positions: torch.Tensor, rope,
            input_mask: Optional[torch.Tensor],
            cache: Optional[cache_lib.CacheT],
-           slots: Optional[torch.Tensor]) -> torch.Tensor:
-    """One pre-norm layer: attention, then the MLP, each residual."""
+           slots: Optional[torch.Tensor]) -> Tuple[torch.Tensor, dict]:
+    """One pre-norm layer: attention, then the MLP or the MoE block, each
+    residual.  Returns (x, the MoE block's aux; empty for dense)."""
     x = x + _attn_sublayer(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
                            layer, mode, positions, rope, input_mask, cache,
                            slots)
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        h, aux = moe_apply(p["moe"], cfg.moe, h)
+        return x + h, aux
+    return x + mlp_apply(p["mlp"], h), {}
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: Optional[cache_lib.CacheT] = None, mode: str = "train",
             input_mask: Optional[torch.Tensor] = None,
             write_mask: Optional[torch.Tensor] = None,
-            remat: bool = False
-            ) -> Tuple[torch.Tensor, Optional[cache_lib.CacheT]]:
-    """Returns (logits [B, T, Vp] float32, cache).  ``write_mask [B, T]``
-    (decode, paged pool) drops the KV writes of masked positions, so a
-    short-SL sequence never writes outside its allocated blocks; a ring
-    ignores it, as in the reference.  ``remat`` applies to train mode
-    only, which raises ``NotImplementedError`` at T >= 2048."""
+            remat: bool = False, with_aux: bool = False):
+    """Returns (logits [B, T, Vp] float32, cache), and the MoE blocks'
+    aux losses averaged over the layers as a third item with
+    ``with_aux`` (the reference's ``aux``; empty for dense).
+    ``write_mask [B, T]`` (decode, paged pool) drops the KV writes of
+    masked positions, so a short-SL sequence never writes outside its
+    allocated blocks; a ring ignores it, as in the reference.  ``remat``
+    applies to train mode only, which raises ``NotImplementedError`` at
+    T >= 2048."""
     assert mode in ("train", "prefill", "decode")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the port runs the {' and '.join(FAMILIES)} families, not "
+            f"family {cfg.family!r} (ROADMAP A7)")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
     x = params["embed"][tokens.long()]
@@ -157,14 +190,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             keep=write_mask if mode == "decode" else None)
         cache_lib.write_pos_paged(cache["kv_pos"], positions, slots,
                                   valid=valid)
+    aux: dict = {}
     for i in range(cfg.num_layers):
         args = (_layer(params, i), cfg, x, i, mode, positions, rope,
                 input_mask, cache, slots)
-        x = (checkpoint(_block, *args, use_reentrant=False)
-             if remat and mode == "train" else _block(*args))
+        x, aux_i = (checkpoint(_block, *args, use_reentrant=False)
+                    if remat and mode == "train" else _block(*args))
+        aux = {k: aux.get(k, 0.0) + a for k, a in aux_i.items()}
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["embed"].t()
-    return logits.float(), (None if cache is None else dict(cache))
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head).float()
+    out = (logits, None if cache is None else dict(cache))
+    if not with_aux:
+        return out
+    return out + ({k: a / cfg.num_layers for k, a in aux.items()},)
 
 
 def commit(snapshot: cache_lib.CacheT, verified: cache_lib.CacheT,

@@ -4,11 +4,17 @@ parameters, and a reader for the reference's ``.npz`` checkpoints.
 Parameters are a nested ``dict`` of tensors with the reference's layouts
 (``repro.models.module`` / ``repro.models.transformer.model_specs``):
 
-* ``embed [Vp, d]`` (tied LM head), ``final_norm [d]``;
+* ``embed [Vp, d]``, ``final_norm [d]``, and ``lm_head [d, Vp]`` when
+  the head is untied (``tie_embeddings=False``; tied, the head is
+  ``embed``);
 * ``layers``: every leaf stacked over a leading ``[L, ...]`` axis —
-  ``ln1``/``ln2 [L, d]``, ``attn.wq [L, d, H, D]``, ``attn.wk/wv
-  [L, d, KV, D]``, ``attn.wo [L, H, D, d]``, ``mlp.w_gate/w_up
-  [L, d, F]``, ``mlp.w_down [L, F, d]``;
+  ``ln1``/``ln2 [L, d]``, ``attn.wq [L, d, H, D]`` (H = ``q_head_pad``
+  when set), ``attn.wk/wv [L, d, KV, D]``, ``attn.wo [L, H, D, d]``,
+  ``attn.bq [L, H, D]``/``bk``/``bv [L, KV, D]`` (``qkv_bias``),
+  ``attn.q_norm``/``k_norm [L, D]`` (``qk_norm``); then the dense MLP
+  ``mlp.w_gate/w_up [L, d, F]``, ``mlp.w_down [L, F, d]``, or the MoE
+  block ``moe.router [L, d, E]``, ``moe.w_gate/w_up [L, E, d, Fe]``,
+  ``moe.w_down [L, E, Fe, d]``;
 * RMSNorm scales are stored as offsets from 1 (the layer multiplies by
   ``1 + scale``), so a fresh norm is all zeros.
 """
@@ -21,7 +27,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import FAMILIES, ModelConfig
 
 Params = Dict[str, Any]
 
@@ -31,54 +37,77 @@ VOCAB_PAD_MULTIPLE = 128
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested ``{name: (shape, init, scale)}`` for the dense family.
-    ``scale`` is the normal init's stddev: 0.02 for the embedding, else
-    the reference's fan-in rule ``1/sqrt(shape[0])`` on the STACKED
-    shape, whose leading axis is the layer count."""
-    if cfg.family != "dense":
+    """Nested ``{name: (shape, init, scale)}`` for the dense and MoE
+    families.  ``scale`` is the normal init's stddev: 0.02 for the
+    embedding, the untied LM head and the router, else the reference's
+    fan-in rule ``1/sqrt(shape[0])`` on the STACKED shape, whose leading
+    axis is the layer count."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense family, not {cfg.family!r}")
-    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+            f"the port runs the {' and '.join(FAMILIES)} families, not "
+            f"{cfg.family!r}")
+    d, kv = cfg.d_model, cfg.num_kv_heads
+    h = cfg.q_head_pad or cfg.num_heads
     hd, f, n = cfg.resolved_head_dim, cfg.d_ff, cfg.num_layers
     vp = cfg.padded_vocab(VOCAB_PAD_MULTIPLE)
 
-    def normal(*shape):
-        return (shape, "normal", 1.0 / math.sqrt(max(shape[0], 1)))
+    def normal(*shape, scale=None):
+        return (shape, "normal",
+                scale if scale is not None else 1.0 / math.sqrt(max(shape[0], 1)))
 
     def zeros(*shape):
         return (shape, "zeros", None)
 
-    return {
-        "embed": ((vp, d), "normal", 0.02),
-        "final_norm": zeros(d),
-        "layers": {
-            "ln1": zeros(n, d),
-            "attn": {"wq": normal(n, d, h, hd), "wk": normal(n, d, kv, hd),
-                     "wv": normal(n, d, kv, hd), "wo": normal(n, h, hd, d)},
-            "ln2": zeros(n, d),
-            "mlp": {"w_gate": normal(n, d, f), "w_up": normal(n, d, f),
-                    "w_down": normal(n, f, d)},
-        },
-    }
+    attn = {"wq": normal(n, d, h, hd), "wk": normal(n, d, kv, hd),
+            "wv": normal(n, d, kv, hd), "wo": normal(n, h, hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=zeros(n, h, hd), bk=zeros(n, kv, hd),
+                    bv=zeros(n, kv, hd))
+    if cfg.qk_norm:
+        attn.update(q_norm=zeros(n, hd), k_norm=zeros(n, hd))
+    layers = {"ln1": zeros(n, d), "attn": attn, "ln2": zeros(n, d)}
+    if cfg.family == "moe":
+        e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
+        layers["moe"] = {"router": normal(n, d, e, scale=0.02),
+                         "w_gate": normal(n, e, d, fe),
+                         "w_up": normal(n, e, d, fe),
+                         "w_down": normal(n, e, fe, d)}
+    else:
+        layers["mlp"] = {"w_gate": normal(n, d, f), "w_up": normal(n, d, f),
+                         "w_down": normal(n, f, d)}
+    shapes = {"embed": ((vp, d), "normal", 0.02), "final_norm": zeros(d),
+              "layers": layers}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = ((d, vp), "normal", 0.02)
+    return shapes
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Parameters of ``cfg``, from the shapes alone."""
+    return sum(math.prod(shape)
+               for _, (shape, _, _) in param_leaves(param_shapes(cfg)))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                dtype=torch.float32) -> Params:
+                dtype=torch.float32, rng_device="cpu") -> Params:
     """The port's own seeded init: the reference's shapes and scales,
-    drawn from one CPU ``torch.Generator`` (so the same seed gives the
-    same weights on every device) and moved to ``device``.  It cannot
+    drawn from one ``torch.Generator`` on ``rng_device`` and moved to
+    ``device``.  With the default CPU generator the same seed gives the
+    same weights on every device; ``rng_device="cuda"`` draws on the
+    card instead (other values, the same distribution), which a model of
+    billions of parameters needs to start in seconds.  It cannot
     reproduce ``jax.random`` draws; parity tests convert reference
     parameters with :func:`from_reference` instead."""
     device = resolve_device(device)
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+    gen = torch.Generator(device=resolve_device(rng_device)).manual_seed(seed)
 
     def make(leaf: Tuple) -> torch.Tensor:
         shape, init, scale = leaf
         if init == "zeros":
-            t = torch.zeros(shape, dtype=torch.float32)
-        else:
-            t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
-        return t.to(device=device, dtype=dtype)
+            return torch.zeros(shape, dtype=dtype, device=device)
+        t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return t.mul_(scale).to(device=device, dtype=dtype)
 
     return map_params(make, param_shapes(cfg))
 

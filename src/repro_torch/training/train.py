@@ -46,14 +46,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if cfg.family != "dense":
-        # the reference adds the MoE router's auxiliary losses here
-        raise NotImplementedError(
-            f"the port trains the dense family, not {cfg.family!r} "
-            "(ROADMAP A7: other families, with the MoE aux losses)")
-    logits, _ = forward(params, cfg, tokens, mode="train", remat=remat)
+    """Cross entropy, plus for the MoE family the router's load-balance
+    loss x ``load_balance_weight`` and its z-loss x 1e-3, as in the
+    reference; returns (loss, detached metrics)."""
+    logits, _, aux = forward(params, cfg, tokens, mode="train", remat=remat,
+                             with_aux=True)
     loss = cross_entropy(logits, labels, cfg.vocab_size)
-    return loss, {"ce_loss": loss.detach(), "loss": loss.detach()}
+    metrics = {"ce_loss": loss.detach()}
+    if cfg.family == "moe":
+        lb = aux["load_balance_loss"] * cfg.moe.load_balance_weight
+        zl = aux["router_z_loss"] * 1e-3
+        loss = loss + lb + zl
+        metrics.update(load_balance=lb.detach(), router_z=zl.detach(),
+                       dropped=aux["dropped_fraction"].detach())
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 def _grads(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

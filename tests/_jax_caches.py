@@ -1,19 +1,34 @@
-"""A module-scoped fixture for the port's parity test files, which run the
+"""Module-scoped fixtures for the port's parity test files, which run the
 JAX reference beside the port in one process.
 
-Every compiled XLA CPU program that JAX keeps cached holds about three
-memory maps, and a pytest-xdist worker runs many JAX-heavy test files in
-one process: past the kernel's ``vm.max_map_count`` (65530 by default)
-the next XLA compile crashes the worker with a segmentation fault, and
-xdist's per-file scheduling then waits on the lost files until the run's
-time limit.  Dropping the caches when a parity module ends returns the
-maps of every program no longer in use, its own and those of the files
-the worker ran before it."""
+``release_jax_caches``: every compiled XLA CPU program that JAX keeps
+cached holds about three memory maps, and a pytest-xdist worker runs
+many JAX-heavy test files in one process: past the kernel's
+``vm.max_map_count`` (65530 by default) the next XLA compile crashes the
+worker with a segmentation fault, and xdist's per-file scheduling then
+waits on the lost files until the run's time limit.  Dropping the caches
+when a parity module ends returns the maps of every program no longer in
+use, its own and those of the files the worker ran before it.
+
+``one_torch_thread``: one torch intra-op thread while a parity module
+runs.  The suite runs several workers on the machine's cores, and a
+torch thread pool per worker oversubscribes them (measured on one file:
+237 s with the default pool, 67 s on one thread); the port's small
+reduced-width calls gain little from more threads."""
 import jax
 import pytest
+import torch
 
 
 @pytest.fixture(autouse=True, scope="module")
 def release_jax_caches():
     yield
     jax.clear_caches()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -28,7 +28,11 @@ def test_import_port_leaves_jax_out():
         "          'core.policies.adaedl', 'core.policies.goodput',\n"
         "          'core.policies.slo', 'core.drafters.self_draft',\n"
         "          'training.train', 'training.optimizer', 'training.data',\n"
-        "          'training.checkpoint', 'launch.train'):\n"
+        "          'training.checkpoint', 'launch.train', 'models.moe',\n"
+        "          'configs.granite_moe_3b_a800m', 'configs.mixtral_8x22b',\n"
+        "          'configs.granite_8b', 'configs.qwen2_5_32b',\n"
+        "          'configs.qwen3_32b', 'configs.paper_llama_pair',\n"
+        "          'configs.paper_gemma_pair'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))

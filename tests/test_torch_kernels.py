@@ -19,7 +19,7 @@ from repro.kernels.ragged_attention import (paged_ragged_verify_attention,
 from repro_torch.kernels import kld_accept as t_kld
 from repro_torch.kernels import paged_attention as t_attn
 from repro_torch.kernels import ragged_attention as t_ring
-from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
+from _jax_caches import one_torch_thread, release_jax_caches  # noqa: F401  (autouse)
 
 jax.config.update("jax_platform_name", "cpu")
 

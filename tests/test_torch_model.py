@@ -17,7 +17,7 @@ from repro_torch.models import cache as t_cache
 from repro_torch.models.transformer import commit, forward
 from repro_torch.models.weights import (from_reference, init_params,
                                         load_reference_checkpoint)
-from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
+from _jax_caches import one_torch_thread, release_jax_caches  # noqa: F401  (autouse)
 
 jax.config.update("jax_platform_name", "cpu")
 ATOL = 1e-4

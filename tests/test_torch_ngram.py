@@ -28,7 +28,7 @@ from repro_torch.models.weights import from_reference
 from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Request as TRequest
 from repro_torch.serving.scheduler import LookaheadScheduler
-from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
+from _jax_caches import one_torch_thread, release_jax_caches  # noqa: F401  (autouse)
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -46,7 +46,7 @@ from repro_torch.serving.latency_model import RoundLatencyModel as TLM
 from repro_torch.serving.request import Request as TRequest
 from repro_torch.serving.request import RequestState as TState
 from repro_torch.serving.scheduler import LookaheadScheduler as TScheduler
-from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
+from _jax_caches import one_torch_thread, release_jax_caches  # noqa: F401  (autouse)
 from test_torch_engine import _assert_summary_matches
 
 jax.config.update("jax_platform_name", "cpu")

@@ -23,7 +23,7 @@ from repro_torch.core.config import SpecDecodeConfig as TSpec
 from repro_torch.core.drafters import build_drafter as t_build_drafter
 from repro_torch.core.rejection import rejection_sample as t_rejection
 from repro_torch.models.weights import from_reference
-from _jax_caches import release_jax_caches  # noqa: F401  (autouse)
+from _jax_caches import one_torch_thread, release_jax_caches  # noqa: F401  (autouse)
 
 jax.config.update("jax_platform_name", "cpu")
 B, BS, NB, MAXLEN, PLEN = 3, 8, 30, 80, 9
