@@ -25,8 +25,10 @@ Phases, each printing one JSON line:
              plain version's time, a library call's time where one
              computes the same function, and the least time the card
              could take (bytes over 3.35 TB/s or operations over the
-             peak for their operand type, 989 TFLOP/s for bf16 and 67
-             TFLOP/s for fp32, whichever is larger); then an empty
+             peak for the way they run, whichever is larger: the
+             attention kernels' bf16 q at 989 TFLOP/s, fp32 q as 3xTF32
+             at 495/3 TFLOP/s, or 495/2 against int8 K/V; B2 and B3 at
+             67 TFLOP/s, fp32 outside the tensor cores); then an empty
              kernel timed the same way, the launch floor.
 4. serve   — the host cost of one full-width decode step and of one
              KV write on each cache (forward phase), then
@@ -55,7 +57,28 @@ Phases, each printing one JSON line:
              verify passes past one launch of B1 and B4; adaedl,
              goodput and slo on the fp32 pool, goodput x n-gram on the
              int8 pool, the self drafter on the pool and the ring).
-5. families — the dense remainder and the MoE family
+5. frontdoor — the serving front door at smollm-135m full width:
+             prefix caching (``WARM_SERVES``: a 512-token head seeded by
+             one request, then a partial hit with a 100-token tail, the
+             head alone, a full block-aligned repeat that forks a block
+             copy-on-write, and a cold outlier) with the model drafter on
+             the fp32 and int8 pools and the n-gram drafter on the int8
+             pool, each run warm and cold: equal streams, hits and one
+             COW copy or more, B1 or B4 launched by the tail prefills
+             (their widths and query-group launches printed), 0
+             synchronising calls in ``dispatch``, warm beside cold TTFT;
+             card == CPU warm streams at the reduced width
+             (``WARM_CHECKS``, one under forced preemption); the
+             ``ServingFrontend`` on the dense ring and on the fp32 pool
+             with caching (replay at arrival 0, and the threaded driver
+             with staggered arrivals, synchronous and pipelined, each
+             equal to ``run()``, each token once and in order); one
+             streaming and one non-streaming HTTP completion over a
+             loopback socket, equal to ``run()``; and the launcher
+             ``repro_torch.launch.serve`` (``--http-smoke``, ``--demo
+             --paged --prefix-share 0.5``) in subprocesses, which must
+             exit 0.
+6. families — the dense remainder and the MoE family
              (``FAMILY_SERVES``): granite-moe-3b-a800m (32 layers, d
              1536, 24/8 heads, 40 experts top-8, expert d_ff 512) at
              full width on the fp32 pool, the dense ring, the pipelined
@@ -76,7 +99,7 @@ Phases, each printing one JSON line:
              static SL 10 (44 query rows a KV head: two launches).  The
              kernel phase adds B1, B4 and B5 at granite-8b's heads (H 32
              / KV 8 / D 128).
-6. train   — training on the card (``repro_torch.training``), then a
+7. train   — training on the card (``repro_torch.training``), then a
              trained pair served through the DSDE round: the entry point
              ``repro_torch.launch.train --demo`` for 60 steps (its loss
              must fall and its checkpoint restore); smollm-135m at full
@@ -130,6 +153,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory
 FP32_FLOP_S = 67e12          # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_S = 495e12         # H100 SXM tf32 tensor cores, dense
 BF16_FLOP_S = 989e12         # H100 SXM bf16 tensor cores, dense
 # the n-gram serve's target: residual output projections scaled by this
 NGRAM_DAMP = 2e-4
@@ -193,10 +217,32 @@ def host_us(fn, iters: int = 200) -> float:
     return 1e6 * elapsed / iters
 
 
+def attention_flop_s(dtype, int8_kv: bool = False) -> float:
+    """The peak an attention kernel's operations count at (B1, B4, B5
+    compute on the tensor cores, csrc/paged_verify.cuh): bf16 q at the
+    bf16 rate; fp32 q as 3xTF32, three TF32 products for one fp32
+    product, or two where the other operand is int8 K/V (exact in TF32,
+    one term), so the TF32 rate over 3 or 2.  Both are above the
+    67 TFLOP/s of fp32 outside the tensor cores."""
+    import torch
+    if dtype == torch.bfloat16:
+        return BF16_FLOP_S
+    return TF32_FLOP_S / (2 if int8_kv else 3)
+
+
+def attended(kv_pos, q_pos) -> int:
+    """(query, slot) pairs a causal attention call computes: for each
+    row's query, the slots holding a position at or before it
+    (``kv_pos [B, S]`` per row, -1 empty; ``q_pos [B, T]``)."""
+    return int(((kv_pos[:, None, :] >= 0)
+                & (kv_pos[:, None, :] <= q_pos[:, :, None])).sum())
+
+
 def paged_case(b, t, ctx, dtype, seed, heads=(9, 3, 64)):
     """A full-context paged attention call: every row holds ``ctx``
     committed positions in scattered blocks, queries at the last ``t``;
-    ``heads`` = (query heads, KV heads, head dim)."""
+    ``heads`` = (query heads, KV heads, head dim).  Operations: each
+    query against the positions at or before it (:func:`attended`)."""
     import torch
     (h, kv, d), bs = heads, 16
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -215,7 +261,8 @@ def paged_case(b, t, ctx, dtype, seed, heads=(9, 3, 64)):
     es = q.element_size()
     nbytes = (2 * q.numel() * es + 2 * b * ctx * kv * d * es
               + b * ctx * 4 + table.numel() * 4 + q_pos.numel() * 4)
-    flops = 4 * b * h * t * ctx * d
+    row_pos = torch.arange(ctx, dtype=torch.int32)[None].repeat(b, 1)
+    flops = 4 * h * d * attended(row_pos, q_pos)
     return args, nbytes, flops
 
 
@@ -264,7 +311,9 @@ def attention_rows(flush):
     """B1 and B4 at draft-step (T 1) and verify (T 11) shapes, ctx 256
     and 2048, fp32 and bf16 q, then fp32 at ctx 64 (about what the
     serves' rows hold), then T 22 at ctx 256 (G * T 66: the wrapper cuts
-    T into two launches).  Each call is launched twice and must give the
+    T into two launches), then a prefix-cache tail prefill's shapes, T 64
+    and 128 at ctx 512, fp32 and bf16 (4 and 7 launches a call; each row
+    says how many).  Each call is launched twice and must give the
     same bits (the splits merge in a fixed order).  Returns each kernel's
     contract row: the draft-step shape of the serves (fp32, T 1, ctx 256)
     with the largest error over all its rows."""
@@ -280,10 +329,10 @@ def attention_rows(flush):
     # fp32 and round once, so they may differ by one bf16 ulp (rtol) or
     # a few ulps near 0 (atol)
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
-    peak = {torch.float32: FP32_FLOP_S, torch.bfloat16: BF16_FLOP_S}
     kernels = (
         # Both compute in q's type: int8 K/V are exact in bf16, so B4's
-        # operations with bf16 q count at the bf16 peak, as B1's do.  The
+        # operations with bf16 q count at the bf16 peak, as B1's do, and
+        # with fp32 q at two TF32 terms (:func:`attention_flop_s`).  The
         # SDPA yardstick of B4 reads the view dequantized beforehand (not
         # timed).
         ("paged_ragged_verify_attention", paged_case,
@@ -304,6 +353,11 @@ def attention_rows(flush):
         # after both kernels' other rows, so that an A/B parent without
         # them meets the same allocations up to there
         passes.append([(torch.float32, 256, 22), (torch.bfloat16, 256, 22)])
+        # a prefix-cache tail prefill: T 64 and 128 query positions after
+        # the shared prefix, ctx 512 (4 and 7 launches a call at G 3)
+        passes.append([(dtype, 512, t) for dtype in (torch.float32,
+                                                      torch.bfloat16)
+                       for t in (64, 128)])
     contract, rows, worst = {}, collections.defaultdict(list), {}
     for (name, case, kernel, plain, gather), shapes in (
             (kn, sh) for sh in passes for kn in kernels):
@@ -323,7 +377,8 @@ def attention_rows(flush):
                 raise AssertionError(f"{name} {dtype} ctx={ctx} t={t}: "
                                      f"max abs err {err}")
             worst[name] = max(worst.get(name, 0.0), err)
-            bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
+            bound_ms, bound_by = bound(
+                nbytes, flops, attention_flop_s(dtype, case is quant_case))
             k, v = gather(args)
             pos = gather_paged_pos(args[-1], args[-3])
             row = {
@@ -331,6 +386,8 @@ def attention_rows(flush):
                 "dtype": str(dtype).replace("torch.", ""), "B": 4,
                 "T": t, "H": 9, "KV": 3, "D": 64, "BS": 16, "ctx": ctx,
                 "GT": 3 * t,
+                "launches_per_call": (len(pa.query_groups(9, 3, t, 64))
+                                      if hasattr(pa, "query_groups") else 1),
                 "max_abs_err": err, "atol": atol, "rtol": rtol,
                 **kernel_ms(lambda: kernel(*args), flush),
                 "plain_ms": time_ms(lambda: plain(*args), flush=flush),
@@ -487,7 +544,8 @@ def ring_case(b, t, w, dtype, seed, wrap=False, fill=None, heads=(9, 3, 64)):
     ``fill`` (one count a row) rows holding positions 0 .. fill-1 in slots
     0 .. fill-1, the rest empty (-1), queries at the last ``t``.  Bytes:
     the K/V of the slots that hold a position, all W positions of
-    kv_pos, q_pos, q and out; operations over the slots that hold one."""
+    kv_pos, q_pos, q and out; operations: each query against the slots
+    holding a position at or before it (:func:`attended`)."""
     import torch
     h, kv, d = heads
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -509,7 +567,7 @@ def ring_case(b, t, w, dtype, seed, wrap=False, fill=None, heads=(9, 3, 64)):
     es = q.element_size()
     nbytes = (2 * q.numel() * es + 2 * held * kv * d * es + b * w * 4
               + q_pos.numel() * 4)
-    flops = 4 * h * t * held * d
+    flops = 4 * h * d * attended(kv_pos, q_pos)
     return args, nbytes, flops
 
 
@@ -527,7 +585,6 @@ def ring_rows(flush):
     import torch
     from repro_torch.kernels import ragged_attention as ra
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
-    peak = {torch.float32: FP32_FLOP_S, torch.bfloat16: BF16_FLOP_S}
     name = "ragged_verify_attention"
 
     def check(args, dtype, window, what):
@@ -556,7 +613,8 @@ def ring_rows(flush):
                 err = check(args, dtype, None,
                             f"{dtype} W={w} t={t} fill={fill}")
                 worst = max(worst, err)
-                bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
+                bound_ms, bound_by = bound(nbytes, flops,
+                                           attention_flop_s(dtype))
                 atol, rtol = tol[dtype]
                 row = {
                     "phase": "kernel", "name": name,
@@ -608,7 +666,6 @@ def d128_rows(flush):
                                           gather_paged_kv_quant,
                                           gather_paged_pos)
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
-    peak = {torch.float32: FP32_FLOP_S, torch.bfloat16: BF16_FLOP_S}
     h, kv, d = D128_HEADS
     # (name, case, kernel, plain, SDPA inputs: k, v, kv_pos view, q_pos)
     kernels = (
@@ -647,7 +704,9 @@ def d128_rows(flush):
                         raise AssertionError(f"{name} D128 {dtype} ctx={ctx} "
                                              f"t={t}: max abs err {err}")
                     worst[name] = max(worst.get(name, 0.0), err)
-                    bound_ms, bound_by = bound(nbytes, flops, peak[dtype])
+                    bound_ms, bound_by = bound(
+                        nbytes, flops,
+                        attention_flop_s(dtype, case is quant_case))
                     k, v, pos, q_pos = view(args)
                     emit({"phase": "kernel", "name": name,
                           "dtype": str(dtype).replace("torch.", ""), "B": 4,
@@ -1123,6 +1182,387 @@ def check_phase(cfg) -> None:
                                  "pipelined="
                                  f"{pipelined}, window={window}, sl={sl}): "
                                  f"{outs}")
+
+
+# -- frontdoor phase -----------------------------------------------------
+# The prefix cache's full-width serves: batch 1 seeds a 512-token head
+# (32 blocks of 16); batch 2 holds a partial hit (a 100-token tail: T 128
+# tail prefills, 7 launches a layer at G 3), the head alone (a full
+# block-aligned repeat: a COW fork) and a cold outlier.  Each runs with
+# prefix caching and without (the twin whose streams it must equal).
+class WarmServe(NamedTuple):
+    name: str
+    drafter: str
+    kv_quant: str
+    damp: float
+    path: Tuple[str, ...]
+
+
+WARM_SERVES = (
+    WarmServe("warm", "model", "none", 1.0,
+              ("paged_ragged_verify_attention", "fused_kld_accept")),
+    WarmServe("warm-int8", "model", "int8", 1.0,
+              ("paged_ragged_verify_attention_quant", "fused_kld_accept")),
+    WarmServe("warm-ngram-int8", "ngram", "int8", NGRAM_DAMP,
+              ("ngram_suffix_propose", "paged_ragged_verify_attention_quant")),
+)
+WARM_HEAD = 512
+WARM_NEW = 16
+
+
+def warm_batches(vocab, head_len=WARM_HEAD, tails=(8, 100, 40)):
+    import numpy as np
+    rng = np.random.RandomState(5)
+    head = rng.randint(0, vocab, size=head_len).tolist()
+    return ([head + rng.randint(0, vocab, size=tails[0]).tolist()],
+            [head + rng.randint(0, vocab, size=tails[1]).tolist(), list(head),
+             rng.randint(0, vocab, size=tails[2]).tolist()])
+
+
+def tail_prefill_counter():
+    """Counts what the warm tail prefills launch: wraps
+    ``prefill_paged_tail`` (the target's and a mirroring drafter's) and
+    records each call's tail width and the attention kernels' query-group
+    launches inside it.  Returns (the list of (width, launches), stop)."""
+    from repro_torch.core import prefill as prefill_lib
+    calls, orig = [], prefill_lib.prefill_paged_tail
+
+    def counted(*args):
+        seen, stop = count_query_launches()
+        try:
+            return orig(*args)
+        finally:
+            stop()
+            calls.append((args[6].shape[1], sum(seen)))
+    prefill_lib.prefill_paged_tail = counted
+
+    def stop():
+        prefill_lib.prefill_paged_tail = orig
+    return calls, stop
+
+
+def warm_serves(cfg, pt, pd, smi):
+    """``WARM_SERVES`` at full width, each warm and cold; returns the
+    launches of the warm runs."""
+    import torch
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    total = {k: 0 for k in read_launches()}
+    b1, b2 = warm_batches(cfg.vocab_size)
+    for sv in WARM_SERVES:
+        model = sv.drafter == "model"
+        streams, ttft = {}, {}
+        for caching in (False, True):
+            eng = ServingEngine(
+                damped(pt, sv.damp), cfg, pd if model else None,
+                cfg if model else None, SpecDecodeConfig(drafter=sv.drafter),
+                ServingConfig(max_batch_size=4, max_seq_len=1024,
+                              paged_kv=True, kv_block_size=16,
+                              num_kv_blocks=128, kv_quant=sv.kv_quant,
+                              prefix_caching=caching), seed=0, device="cuda")
+            syncs = count_syncs(eng)
+            calls, stop = tail_prefill_counter()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            reqs = []
+            try:
+                for j, batch in enumerate((b1, b2)):
+                    rs = [Request(j * 100 + i, prompt=list(p),
+                                  max_new_tokens=WARM_NEW)
+                          for i, p in enumerate(batch)]
+                    m = eng.run(rs)
+                    reqs += rs
+            finally:
+                stop()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = read_launches()
+            streams[caching] = [r.output for r in reqs]
+            ttft[caching] = [r.ttft() for r in reqs[1:]]
+            emit({"phase": "frontdoor-" + sv.name + ("" if caching
+                                                      else "-cold"),
+                  "arch": cfg.name, "layers": cfg.num_layers,
+                  "drafter": sv.drafter, "kv_quant": sv.kv_quant,
+                  "prefix_caching": caching, "head_tokens": WARM_HEAD,
+                  "prompt_lens": [len(r.prompt) for r in reqs],
+                  "rounds": m["rounds"], "tokens": m["tokens_emitted"],
+                  "prefix_cache_hit_blocks": m["prefix_cache_hit_blocks"],
+                  "prefix_cache_hit_rate": m["prefix_cache_hit_rate"],
+                  "cow_copies": m["cow_copies"],
+                  "prefix_hit_rate_by_request": [r.prefix_hit_rate()
+                                                 for r in reqs],
+                  "tail_prefills": [{"T": w, "attention_launches": n}
+                                    for w, n in calls],
+                  "ttft_batch2_s": ttft[caching], "wall_s": wall,
+                  "dispatch_syncs": sum(syncs.values()),
+                  "dispatch_sync_sources": dict(syncs),
+                  "launches": launches, "nvidia_smi": smi})
+            if sum(syncs.values()):
+                raise AssertionError(f"{sv.name}: dispatch synchronised: "
+                                     f"{dict(syncs)}")
+            if min(launches[k] for k in sv.path) <= 0:
+                raise AssertionError(f"{sv.name}: a kernel of the path never "
+                                     f"ran: {launches}")
+            if any(len(o) != WARM_NEW for o in streams[caching]):
+                raise AssertionError(f"{sv.name}: a request did not finish")
+            if caching:
+                if not (m["prefix_cache_hit_rate"] > 0
+                        and m["cow_copies"] >= 1):
+                    raise AssertionError(f"{sv.name}: no sharing: {m}")
+                if not calls or min(n for _, n in calls) <= 0:
+                    raise AssertionError(f"{sv.name}: the tail prefill "
+                                         f"launched no attention: {calls}")
+                if max(w for w, _ in calls) != 128:
+                    raise AssertionError(f"{sv.name}: no T-128 tail: {calls}")
+                for k in total:
+                    total[k] += launches[k]
+            elif calls:
+                raise AssertionError(f"{sv.name}: a cold run took the tail "
+                                     "path")
+        emit({"phase": "frontdoor-ttft", "serve": sv.name,
+              "what": "batch 2 (partial hit, aligned repeat, outlier): "
+                      "TTFT s, warm beside cold (not judged)",
+              "warm": ttft[True], "cold": ttft[False],
+              "equal": streams[True] == streams[False]})
+        if streams[True] != streams[False]:
+            raise AssertionError(f"{sv.name}: warm streams differ from cold: "
+                                 f"{streams}")
+    return total
+
+
+# card == CPU warm streams at the reduced width: (drafter, pool, policy,
+# block size, pool blocks, max new tokens, shared head, tails); the
+# first forces preemption (16 blocks of 8)
+WARM_CHECKS = (
+    ("model", "none", "dsde", 8, 16, 40, 24, (6, 3, 1)),
+    ("model", "int8", "static", 16, None, 10, 40, (6, 5, 0, 9)),
+    ("ngram", "int8", "dsde", 16, None, 10, 40, (6, 5, 0, 9)),
+)
+
+
+def warm_check_phase(cfg) -> None:
+    """The prefix cache at the reduced width, card (kernels) vs CPU
+    (plain versions): equal warm greedy streams, equal sharing."""
+    import numpy as np
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params, map_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    small = cfg.reduced()
+    p_small = init_params(small, seed=2, device="cpu")
+    d_small = map_params(lambda a, n: a + 0.03 * n, p_small,
+                         init_params(small, seed=3, device="cpu"))
+    for drafter, kv_quant, policy, bs, nblocks, new, head_len, tails \
+            in WARM_CHECKS:
+        rng = np.random.RandomState(11)
+        head = rng.randint(0, small.vocab_size, size=head_len).tolist()
+        prompts = [head[:32] if t == 0 else head + rng.randint(
+            0, small.vocab_size, size=t).tolist() for t in tails]
+        if nblocks is None:           # seed, then hit (incl. aligned repeat)
+            batches = (prompts[:1], prompts[1:])
+        else:
+            batches = (prompts,)
+        model = drafter == "model"
+        got = {}
+        for device in ("cuda", "cpu"):
+            eng = ServingEngine(
+                p_small, small, d_small if model else None,
+                small if model else None,
+                SpecDecodeConfig(policy=policy, drafter=drafter),
+                ServingConfig(max_batch_size=2, max_seq_len=128,
+                              paged_kv=True, kv_block_size=bs,
+                              num_kv_blocks=nblocks, kv_quant=kv_quant,
+                              prefix_caching=True), device=device)
+            outs = []
+            for j, batch in enumerate(batches):
+                rs = [Request(j * 100 + i, prompt=list(p), max_new_tokens=new)
+                      for i, p in enumerate(batch)]
+                m = eng.run(rs)
+                outs += [r.output for r in rs]
+            got[device] = (outs, m["prefix_cache_hit_blocks"], m["cow_copies"],
+                           m["preemptions"])
+        same = got["cuda"] == got["cpu"]
+        emit({"phase": "frontdoor-check",
+              "what": "reduced-width warm greedy streams, card vs CPU",
+              "drafter": drafter, "kv_quant": kv_quant, "policy": policy,
+              "block_size": bs, "pool_blocks": nblocks,
+              "hit_blocks": got["cuda"][1], "cow_copies": got["cuda"][2],
+              "preemptions": got["cuda"][3], "equal": same})
+        if not same or got["cuda"][1] <= 0:
+            raise AssertionError(f"warm check ({drafter}, {kv_quant}): "
+                                 f"{got}")
+        if nblocks is not None and got["cuda"][3] <= 0:
+            raise AssertionError("warm check: no preemption")
+
+
+def frontend_runs(cfg, pt, pd, smi):
+    """The front-end at full width on the dense ring and on the fp32 pool
+    with prefix caching: replay at arrival 0 (``run_until_drained``) ==
+    ``run()``; the threaded driver with staggered arrivals, synchronous
+    and pipelined, gives the same streams; every token arrives once, in
+    order (each handle's events rebuild ``request.output``).  Returns
+    the launches of the replays and the threaded runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.request import Request
+
+    rng = np.random.RandomState(7)
+    head = rng.randint(0, cfg.vocab_size, size=64).tolist()
+    prompts = [head + rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in (9, 20, 5, 14, 30, 11)]
+    total = {k: 0 for k in read_launches()}
+    for layout in ("dense", "pool-cached"):
+        paged = layout != "dense"
+
+        def engine(pipelined):
+            return ServingEngine(
+                pt, cfg, pd, cfg, SpecDecodeConfig(),
+                ServingConfig(max_batch_size=4, max_seq_len=256,
+                              pipelined=pipelined, paged_kv=paged,
+                              kv_block_size=16,
+                              num_kv_blocks=32 if paged else None,
+                              prefix_caching=paged), seed=0, device="cuda")
+
+        def reqs():
+            return [Request(i, prompt=list(p), max_new_tokens=12)
+                    for i, p in enumerate(prompts)]
+
+        want = reqs()
+        engine(False).run(want)
+        want = [r.output for r in want]
+        row = {"phase": "frontdoor-frontend", "layout": layout,
+               "arch": cfg.name, "requests": len(prompts), "nvidia_smi": smi}
+        for mode in ("replay", "threaded-sync", "threaded-pipelined"):
+            eng = engine(mode == "threaded-pipelined")
+            reset_launches()
+            t0 = time.monotonic()
+            fe = ServingFrontend(eng)
+            if mode == "replay":
+                syncs = count_syncs(eng)
+                handles = [fe.submit_request(r) for r in reqs()]
+                fe.run_until_drained()
+                row["replay_dispatch_syncs"] = sum(syncs.values())
+            else:
+                fe.start()
+                handles = []
+                for r in reqs():
+                    handles.append(fe.submit_request(r))
+                    time.sleep(0.05)           # staggered arrivals
+                if not fe.wait_idle(timeout=300):
+                    raise AssertionError(f"{layout} {mode}: not idle")
+                fe.stop()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            results = [h.result(timeout=5) for h in handles]
+            streams = [toks for toks, _ in results]
+            once = all(toks == h.request.output
+                       for (toks, _), h in zip(results, handles))
+            launches = read_launches()
+            m = fe.summary()
+            row[mode] = {"equal_to_run": streams == want,
+                         "tokens_once_in_order": once,
+                         "finish_reasons": sorted({r for _, r in results}),
+                         "wall_s": wall, "ttft_mean_s": m["ttft_mean_s"],
+                         "prefix_cache_hit_blocks":
+                             m["prefix_cache_hit_blocks"],
+                         "launches": launches}
+            if streams != want or not once:
+                raise AssertionError(f"front-end {layout} {mode}: streams "
+                                     f"differ from run(): {streams} {want}")
+            for k in total:
+                total[k] += launches[k]
+        emit(row)
+        if row["replay_dispatch_syncs"]:
+            raise AssertionError(f"front-end {layout}: dispatch synchronised")
+    return total
+
+
+def http_runs(cfg, pt, pd, smi) -> None:
+    """HTTP over a real loopback socket at full width (the fp32 pool with
+    prefix caching, pipelined): one non-streaming and one streaming
+    completion, each equal to ``run()``'s stream for the prompt; then
+    the serve launcher's ``--http-smoke`` and ``--demo --paged
+    --prefix-share 0.5`` as subprocesses on the card (reduced width),
+    each of which must exit 0."""
+    import os
+    import numpy as np
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.server import (smoke_check,
+                                            start_http_server_thread)
+
+    def engine():
+        return ServingEngine(pt, cfg, pd, cfg, SpecDecodeConfig(),
+                             ServingConfig(max_batch_size=4, max_seq_len=256,
+                                           pipelined=True, paged_kv=True,
+                                           kv_block_size=16, num_kv_blocks=32,
+                                           prefix_caching=True),
+                             seed=0, device="cuda")
+
+    prompt = np.random.RandomState(9).randint(0, cfg.vocab_size,
+                                              size=40).tolist()
+    want = Request(0, prompt=list(prompt), max_new_tokens=16)
+    engine().run([want])
+    fe = ServingFrontend(engine()).start()
+    port, stop = start_http_server_thread(fe, model_name=cfg.name)
+    try:
+        t0 = time.monotonic()
+        res = smoke_check("127.0.0.1", port, prompt, max_tokens=16)
+        wall = time.monotonic() - t0
+    finally:
+        stop()
+        fe.stop()
+    ok = res["non_streaming_tokens"] == res["streamed_tokens"] == want.output
+    emit({"phase": "frontdoor-http", "arch": cfg.name, "port": port,
+          "events": res["events"], "finish_reason": res["finish_reason"],
+          "equal_to_run": ok, "wall_s": wall, "nvidia_smi": smi})
+    if not ok:
+        raise AssertionError(f"HTTP streams differ from run(): {res} "
+                             f"{want.output}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for args in (["--http-smoke"], ["--demo", "--paged", "--prefix-share",
+                                    "0.5"]):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "smollm-135m", *args], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=300)
+        emit({"phase": "frontdoor-launcher", "args": args,
+              "returncode": proc.returncode,
+              "seconds": time.monotonic() - t0,
+              "stdout_tail": proc.stdout[-600:]})
+        if proc.returncode != 0:
+            raise AssertionError(f"launcher {args} failed:\n{proc.stderr[-3000:]}")
+
+
+def frontdoor_phase(smi):
+    """The serving front door (prefix caching, the front-end, HTTP, the
+    serve launcher) at smollm-135m full width; returns the launches of
+    its measured runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params, map_params
+
+    t0 = time.monotonic()
+    cfg = get_config("smollm-135m")
+    pt = init_params(cfg, seed=0, device="cuda")
+    pd = map_params(lambda a, n: a + 0.03 * n, pt,
+                    init_params(cfg, seed=1, device="cuda"))
+    total = warm_serves(cfg, pt, pd, smi)
+    warm_check_phase(cfg)
+    for kernel, n in frontend_runs(cfg, pt, pd, smi).items():
+        total[kernel] += n
+    http_runs(cfg, pt, pd, smi)
+    emit({"phase": "frontdoor-total", "seconds": time.monotonic() - t0})
+    return total
 
 
 # -- families phase ------------------------------------------------------
@@ -2018,7 +2458,7 @@ def main() -> int:
     contract = kernel_phase(flush)
     del flush
     launches = serve_phase()
-    for phase in (families_phase, train_phase):
+    for phase in (frontdoor_phase, families_phase, train_phase):
         for kernel, n in phase(smi).items():
             launches[kernel] += n
 

@@ -167,7 +167,9 @@ class ServingConfig:
     N.  ``kv_quant`` is the paged pool's storage mode: ``"none"`` (fp32)
     or ``"int8"`` (int8 values plus one fp32 scale per stored vector).
     ``slo_defer_limit`` bounds the SLO admission gate's deferrals.
-    Prefix caching comes with its slice."""
+    ``prefix_caching`` shares committed full prompt blocks between
+    requests (refcounted, copy-on-write; DESIGN.md §12); the engine turns
+    it on only with the paged pool and attention-only families."""
     max_batch_size: int = 64
     max_seq_len: int = 4096
     pipelined: bool = False
@@ -175,6 +177,7 @@ class ServingConfig:
     kv_block_size: int = 16
     num_kv_blocks: Optional[int] = None     # None = dense-equivalent
     kv_quant: str = "none"
+    prefix_caching: bool = False
     # SLO admission (DESIGN.md §15): times a fresh request predicted to
     # miss its deadline may be deferred behind feasible later arrivals
     # before it admits anyway (0 = never deferred, still surfaced)

@@ -77,6 +77,25 @@ class Drafter:
         rows of a ``max_len`` cache when ``table_rows`` is None."""
         return cache
 
+    def prefill_tail(self, params_d, cache: State, idx: torch.Tensor,
+                     tokens: torch.Tensor, prompt_lens: torch.Tensor,
+                     tail_tokens: torch.Tensor, start_lens: torch.Tensor,
+                     tail_lens: torch.Tensor, cow_src: torch.Tensor,
+                     cow_dst: torch.Tensor,
+                     table_rows: Optional[torch.Tensor] = None,
+                     max_len: Optional[int] = None) -> State:
+        """Warm (prefix-cache) admission, DESIGN.md §12: the rows'
+        ``[0, start_lens)`` prefixes are resident in shared pool blocks.
+        ``tokens``/``prompt_lens`` are the FULL prefixes (a token-history
+        drafter needs every token whatever the KV coverage);
+        ``tail_tokens [R, S]``/``tail_lens`` the uncovered suffixes and
+        ``cow_src``/``cow_dst`` the group's copy-on-write pairs.  The
+        default absorbs the full prefix through :meth:`prefill`, exact
+        for every drafter without a mirrored pool; a mirroring drafter
+        runs the tail program over its own pool."""
+        return self.prefill(params_d, cache, idx, tokens, prompt_lens,
+                            None, max_len=max_len)
+
     def propose(self, params_d, draft_cache: State, pending: torch.Tensor,
                 k: int, sl_i: torch.Tensor, policy: Any,
                 step_u: Callable[[int], torch.Tensor],

@@ -2,7 +2,9 @@
 (target) and the model drafter (draft mirror): one call per admission
 group per model.  :func:`prefill_rows` builds fresh dense-ring rows that
 :func:`set_slots` scatters into the batched ring; :func:`prefill_paged_rows`
-writes straight into allocated pool blocks."""
+writes straight into allocated pool blocks; :func:`prefill_paged_tail`,
+its prefix-cache sibling, computes only the uncached tail of each row
+after the group's copy-on-write block copies."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -82,8 +84,43 @@ def prefill_paged_rows(params, cfg: ModelConfig, pool_k: torch.Tensor,
     return view, _last_logits(logits, prompt_lens)
 
 
+def prefill_paged_tail(params, cfg: ModelConfig, pool_k: torch.Tensor,
+                       pool_v: torch.Tensor, kv_pos: torch.Tensor,
+                       table_rows: torch.Tensor, tokens: torch.Tensor,
+                       start_lens: torch.Tensor, tail_lens: torch.Tensor,
+                       cow_src: torch.Tensor, cow_dst: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None
+                       ) -> Tuple[dict, torch.Tensor]:
+    """Partial-prefix prefill (DESIGN.md §12): row r's first
+    ``start_lens[r]`` positions are already in shared pool blocks, and
+    ``tokens [R, S]`` holds its right-padded tail of ``tail_lens[r]``
+    tokens.  First the group's copy-on-write pairs ``cow_src/cow_dst
+    [R]`` (int64, sentinel = the pool's block count) run, so a row whose
+    tail rewrites the last slot of a shared block lands in its private
+    fork; the scale pools of an int8 pool copy with their blocks.  Then
+    a decode-mode pass over a view whose lengths are preset to
+    ``start_lens`` places the tail at ``start + arange(S)`` and attends
+    through the shared blocks (the paged attention kernel on CUDA
+    tensors); ``write_mask`` sends the padding's KV writes to the drop
+    block.  Returns (cache view with ``length = start + tail``,
+    logits [R, V] at each row's last tail token)."""
+    cache_lib.copy_blocks(pool_k, pool_v, kv_pos, cow_src, cow_dst)
+    if k_scale is not None:
+        cache_lib.copy_scales(k_scale, v_scale, cow_src, cow_dst)
+    view = cache_lib.paged_prefill_view(pool_k, pool_v, kv_pos, table_rows,
+                                        k_scale, v_scale, lengths=start_lens)
+    write_mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
+                  < tail_lens[:, None])
+    logits, view = forward(params, cfg, tokens, cache=view, mode="decode",
+                           write_mask=write_mask)
+    view["length"] = (start_lens + tail_lens).to(torch.int32)
+    return view, _last_logits(logits, tail_lens)
+
+
 def scatter_paged_rows(big: dict, rows: dict, idx: torch.Tensor) -> dict:
-    """Fold a :func:`prefill_paged_rows` result into the batched cache:
+    """Fold a :func:`prefill_paged_rows` or :func:`prefill_paged_tail`
+    result into the batched cache:
     the pools are the same tensors, per-row ``length`` is scattered at
     ``idx``.  Block tables are the engine's to write."""
     out = dict(big)

@@ -1,0 +1,180 @@
+"""Serving launcher of the port (``repro.launch.serve``).
+
+* ``--demo``       — serve a seeded request set through the engine at
+                     the chosen architecture's reduced width and print
+                     the run summary;
+* ``--http``       — stand the OpenAI-compatible HTTP front door
+                     (DESIGN.md §14) over that engine: the
+                     continuous-batching front-end and
+                     ``/v1/completions`` with SSE streaming, until
+                     interrupted;
+* ``--http-smoke`` — start that server on a free loopback port, run one
+                     streaming and one non-streaming completion through
+                     it, print the result JSON and exit.
+
+It runs on the CUDA card unless ``--device cpu`` is given.  The
+reference's default mode, lowering the production serve step, and its
+``--mesh`` are not ported.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo --paged --prefix-share 0.5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --http --paged --pipelined
+"""
+import argparse
+import json
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.configs import get_config, list_archs
+from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+from repro_torch.core.drafters import available_drafters, build_drafter
+from repro_torch.core.policies import available_policies
+from repro_torch.models.weights import init_params, map_params
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.frontend import ServingFrontend
+from repro_torch.serving.request import Request
+from repro_torch.serving.server import smoke_check, start_http_server_thread
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Runs the chosen mode; returns the demo's run summary or the HTTP
+    smoke test's result (``--http`` serves until interrupted, then
+    returns an empty dict)."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--demo", action="store_true",
+                    help="serve seeded requests at the reduced width")
+    ap.add_argument("--http", action="store_true",
+                    help="serve the reduced engine over the OpenAI-"
+                         "compatible HTTP layer until interrupted")
+    ap.add_argument("--http-smoke", action="store_true",
+                    help="start the HTTP server on a free port, run one "
+                         "streaming and one non-streaming completion, "
+                         "print the result JSON, exit")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="0 picks a free port")
+    ap.add_argument("--policy", default="dsde",
+                    choices=list(available_policies()))
+    ap.add_argument("--drafter", default="model",
+                    choices=list(available_drafters()),
+                    help="'model' runs a second draft model; 'ngram' and "
+                         "'self' serve with no draft params")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the block-paged KV pool at half the "
+                         "dense engine's KV bytes")
+    ap.add_argument("--prefix-share", type=float, default=0.0, metavar="S",
+                    help="demo only: fraction in [0, 1) of every prompt "
+                         "that is a common head; > 0 implies --paged and "
+                         "turns on prefix caching")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="paged pool storage; int8 implies --paged")
+    ap.add_argument("--slo-deadline", default=None, metavar="BASE,PER_TOK",
+                    help="demo only: every request's completion deadline "
+                         "is BASE + PER_TOK * max_new_tokens seconds")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="reconcile the host one round behind the device")
+    ap.add_argument("--mesh", default=None, metavar="DxM")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        ap.error("--mesh (multi-card serving) is not ported: ROADMAP A10")
+    if not (args.demo or args.http or args.http_smoke):
+        ap.error("only --demo, --http and --http-smoke are ported; lowering "
+                 "the production serve step (the reference's default mode) "
+                 "is ROADMAP A11")
+    if not 0.0 <= args.prefix_share < 1.0:
+        ap.error("--prefix-share must be in [0, 1)")
+    deadline = None
+    if args.slo_deadline:
+        try:
+            base_s, per_tok_s = map(float, args.slo_deadline.split(","))
+        except ValueError:
+            ap.error("--slo-deadline expects BASE,PER_TOK floats")
+        deadline = base_s + per_tok_s * args.max_new
+
+    eng, cfg = build_demo_engine(args)
+    rng = np.random.RandomState(0)
+    if args.http or args.http_smoke:
+        return serve_http(args, eng, cfg, rng)
+    head: List[int] = []
+    if args.prefix_share > 0:
+        # a shared head of whole KV blocks, so that its full blocks are
+        # hash-addressable, sized so head / (head + tail) ~= share
+        tail = 13                 # mean of the per-request draw below
+        n = int(round(args.prefix_share / (1 - args.prefix_share) * tail))
+        n = max(n // 16 * 16, 16)
+        head = rng.randint(0, cfg.vocab_size, size=n).tolist()
+    reqs = [Request(i, prompt=head + rng.randint(
+        0, cfg.vocab_size, size=rng.randint(6, 20)).tolist(),
+        max_new_tokens=args.max_new, slo_deadline_s=deadline)
+        for i in range(args.requests)]
+    m = eng.run(reqs)
+    print({k: round(v, 3) if isinstance(v, float) else v
+           for k, v in m.items()})
+    return m
+
+
+def build_demo_engine(args):
+    """The engine of every mode: the reduced config, seeded weights
+    (target seed 1; a model drafter's draft = target + 0.03 x a seed-7
+    draw), batch 4 and 256 tokens, on the ring or, with ``--paged``,
+    ``--prefix-share`` or ``--kv-quant``, on a pool of half the ring's
+    bytes."""
+    cfg = get_config(args.arch).reduced()
+    pt = init_params(cfg, seed=1, device=args.device)
+    spec = SpecDecodeConfig(policy=args.policy, drafter=args.drafter)
+    pd = cfg_d = None
+    if build_drafter(spec, cfg, cfg).uses_draft_model():
+        noise = init_params(cfg, seed=7, device=args.device)
+        pd, cfg_d = map_params(lambda a, b: a + 0.03 * b, pt, noise), cfg
+    caching = args.prefix_share > 0
+    quant = args.kv_quant != "none"
+    paged = args.paged or caching or quant
+    serving = ServingConfig(
+        max_batch_size=4, max_seq_len=256, pipelined=args.pipelined,
+        paged_kv=paged, kv_block_size=16, prefix_caching=caching,
+        kv_quant=args.kv_quant,
+        num_kv_blocks=4 * (256 // 16) // 2 if paged else None)
+    return ServingEngine(pt, cfg, pd, cfg_d, spec, serving,
+                         device=args.device), cfg
+
+
+def serve_http(args, eng, cfg, rng) -> Dict:
+    """The front-end's driver thread and the HTTP server over ``eng``:
+    self-test and return (``--http-smoke``) or serve until interrupted."""
+    fe = ServingFrontend(eng).start()
+    port, stop = start_http_server_thread(
+        fe, host=args.host, port=args.port, model_name=args.arch,
+        default_max_tokens=args.max_new)
+    try:
+        if args.http_smoke:
+            prompt = rng.randint(0, cfg.vocab_size, size=8).tolist()
+            out = smoke_check(args.host, port, prompt, max_tokens=8)
+            out["port"] = port
+            out["summary"] = {
+                k: round(v, 4) if isinstance(v, float) else v
+                for k, v in fe.summary().items()
+                if k in ("requests_finished", "tokens_emitted", "rounds",
+                         "ttft_mean_s", "queue_depth_peak", "device")}
+            print(json.dumps(out))
+            return out
+        print(f"serving {args.arch} ({args.drafter} drafter, {args.policy} "
+              f"policy) on http://{args.host}:{port}/v1/completions",
+              flush=True)
+        while True:             # the server and the driver run on daemons
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        return {}
+    finally:
+        stop()
+        fe.stop()
+
+
+if __name__ == "__main__":
+    main()

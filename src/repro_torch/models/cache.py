@@ -261,14 +261,19 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
 def paged_prefill_view(pool_k: torch.Tensor, pool_v: torch.Tensor,
                        kv_pos: torch.Tensor, table_rows: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
-                       v_scale: Optional[torch.Tensor] = None) -> CacheT:
+                       v_scale: Optional[torch.Tensor] = None,
+                       lengths: Optional[torch.Tensor] = None) -> CacheT:
     """Batch-R cache view over the shared pools for prefilling a group
     of requests straight into their allocated blocks: the pool leaves
     (and the scale pools of an int8 pool) ARE the live pools (writes
-    land in place), ``length`` is fresh."""
+    land in place), ``length`` is fresh.  ``lengths [R]`` presets each
+    row's committed length (zeros when omitted): the prefix cache's tail
+    prefill starts a row at its cached coverage, so decode-mode
+    positions and attention see the shared blocks as committed KV."""
     rows = table_rows.shape[0]
-    view = {"length": torch.zeros((rows,), dtype=torch.int32,
-                                  device=pool_k.device),
+    length = (torch.zeros((rows,), dtype=torch.int32, device=pool_k.device)
+              if lengths is None else lengths.to(torch.int32))
+    view = {"length": length,
             "k": pool_k, "v": pool_v, "kv_pos": kv_pos,
             "block_table": table_rows}
     if k_scale is not None:
@@ -383,6 +388,31 @@ def reset_blocks(kv_pos: torch.Tensor, block_ids) -> None:
         block_ids = torch.as_tensor(list(block_ids), dtype=torch.long,
                                     device=kv_pos.device)
     kv_pos[block_ids] = -1
+
+
+def copy_blocks(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                kv_pos: torch.Tensor, src: torch.Tensor,
+                dst: torch.Tensor) -> None:
+    """Copy-on-write fork (DESIGN.md §12), in place: every K/V entry of
+    every layer and the ``kv_pos`` row of block ``src[i]`` land in block
+    ``dst[i]`` (int64 ids on the pools' device).  Pairs are padded with
+    the sentinel ``num_blocks``, the drop block, which exists in the
+    port's pools: a sentinel pair copies the drop block onto itself, so
+    one pair per row serves every group with no clamp, no selection and
+    no host sync.  The sources are read before any destination is
+    written."""
+    for pool in (pool_k, pool_v):
+        pool.index_copy_(1, dst, pool.index_select(1, src))
+    kv_pos.index_copy_(0, dst, kv_pos.index_select(0, src))
+
+
+def copy_scales(k_scale: torch.Tensor, v_scale: torch.Tensor,
+                src: torch.Tensor, dst: torch.Tensor) -> None:
+    """The scale half of an int8 pool's :func:`copy_blocks`: each block's
+    fp32 scales travel with its int8 values (same pairs, same
+    sentinel)."""
+    for scales in (k_scale, v_scale):
+        scales.index_copy_(1, dst, scales.index_select(1, src))
 
 
 def commit_length(cache: CacheT, new_length: torch.Tensor) -> CacheT:

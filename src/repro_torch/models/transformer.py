@@ -213,3 +213,11 @@ def commit(snapshot: cache_lib.CacheT, verified: cache_lib.CacheT,
     (stale speculative slots are overwritten or masked, DESIGN.md §4)."""
     return cache_lib.commit_length(verified,
                                    snapshot["length"] + n_committed.to(torch.int32))
+
+
+def has_recurrent_state(cfg: ModelConfig) -> bool:
+    """Whether the family keeps per-slot recurrent state that the block
+    pool cannot recover (the reference's ssm and hybrid families; none
+    of the port's): the engine turns prefix caching off for such a
+    stack, as the reference does."""
+    return cfg.family in ("ssm", "hybrid")

@@ -10,7 +10,11 @@ dispatch → collect over the speculative round.
 * batched prefill — every admission wave prefills one multi-row call per
   model per prompt bucket (the reference's power-of-two buckets, so a
   ring keeps the same tokens as the reference's), into fresh ring rows
-  or straight into the allocated blocks.
+  or straight into the allocated blocks;
+* prefix caching (``ServingConfig.prefix_caching``, paged pool only) —
+  admission maps the cached full blocks of a prompt into the request's
+  table and a warm group prefills only its uncached tail
+  (``prefill_paged_tail``), bucketed by the tail's length.
 
 Two schedules share every phase:
 
@@ -44,6 +48,7 @@ from repro_torch.core.drafters import build_drafter
 from repro_torch.core.policies import build_policy
 from repro_torch.core.sampling import counter_uniform, sample_token
 from repro_torch.models import cache as cache_lib
+from repro_torch.models.transformer import has_recurrent_state
 from repro_torch.models.weights import Params, map_params, resolve_device
 from repro_torch.serving.latency_model import RoundLatencyModel
 from repro_torch.serving.request import Request, RequestState
@@ -144,8 +149,15 @@ class ServingEngine:
         self.spec = spec
         self.policy = build_policy(spec)
         self.serving = serving
+        # prefix caching (DESIGN.md §12) only on the paged pool and with
+        # attention-only stacks: recurrent per-slot state cannot be
+        # recovered from shared blocks (a mirroring drafter's family too)
+        self.prefix_caching = bool(
+            serving.prefix_caching and self.paged
+            and not any(has_recurrent_state(cfg) for cfg in pooled))
         self.scheduler = LookaheadScheduler(
             serving, spec, policy=self.policy, kv_mirror=drafter.mirrors_kv(),
+            prefix_cache=self.prefix_caching,
             block_bytes=(cache_lib.kv_block_bytes(
                 cfg_target, serving.kv_block_size, self.kv_quant)
                 if self.paged else 0))
@@ -179,6 +191,12 @@ class ServingEngine:
         self.draft_steps_effective = 0  # max per-seq proposals + 1
         self.emitted_total = 0
         self.round_log: List[Dict[str, float]] = []
+        # the scheduler keeps lifetime prefix-cache totals; the round log
+        # wants per-round deltas
+        self._hit_blocks_logged = 0
+        self._cow_logged = 0
+        self._prefix_tok_logged = 0
+        self._prefix_hit_tok_logged = 0
 
     def submit(self, req: Request) -> None:
         self.scheduler.submit(req)
@@ -276,11 +294,16 @@ class ServingEngine:
 
     # --------------------------------------------------------------- prefill
     def _emit_token(self, req: Request, tok: int, now: float) -> None:
-        """The single host-side token-delivery point."""
+        """The single host-side token-delivery point: append to the
+        output, stamp the first token's time, fire the request's
+        streaming callback.  Every reconciled token passes here exactly
+        once, in stream order; a readmit's recompute emits nothing."""
         req.output.append(tok)
         self.emitted_total += 1
         if req.first_token_time is None:
             req.first_token_time = now
+        if req.on_token is not None:
+            req.on_token(req, tok)
 
     def _commit_first_tokens(self, items: List[Tuple[Request, int]],
                              now: float) -> List[Request]:
@@ -298,32 +321,44 @@ class ServingEngine:
         return finished
 
     def _admit(self) -> None:
-        """Admission, then one prefill group per prompt bucket."""
-        groups: Dict[int, List[Request]] = {}
+        """Admission, then one prefill group per (warm, bucket): a warm
+        (cache-hit) request is bucketed by its uncached tail, the program
+        it runs; cold groups keep the full-prompt path."""
+        groups: Dict[Tuple[bool, int], List[Request]] = {}
         admitted = self.scheduler.admit()
         now = time.monotonic()
         for req in admitted:
             if req.first_dispatch_time is None:
                 req.first_dispatch_time = now
-            b = _bucket(len(req.prefill_tokens()), cap=self.serving.max_seq_len)
-            groups.setdefault(b, []).append(req)
-        for bucket in sorted(groups):
-            self._prefill_group(groups[bucket], bucket)
+            warm = req.prefill_start > 0
+            b = _bucket(len(req.prefill_tokens()) - req.prefill_start,
+                        cap=self.serving.max_seq_len)
+            groups.setdefault((warm, b), []).append(req)
+        for warm, bucket in sorted(groups):
+            self._prefill_group(groups[(warm, bucket)], bucket, warm)
 
-    def _prefill_group(self, reqs: List[Request], bucket: int) -> None:
+    def _prefill_group(self, reqs: List[Request], bucket: int,
+                       warm: bool = False) -> None:
         """One multi-row prefill per model for a same-bucket group, padded
         to the bucket: fresh requests sample their first token from the
         prefill logits, a readmitted (preempted) request recomputes
         prompt + output and keeps its last emitted token as the pending
-        token.  Under the pipelined schedule the fresh first tokens stay
-        on the device and ride the next dispatch record."""
+        token.  A warm group (every row with ``prefill_start > 0`` cached
+        tokens) computes only each row's tail, after its copy-on-write
+        block copies (at most one pair a row: a full block-aligned hit
+        forks its last shared block).  Under the pipelined schedule the
+        fresh first tokens stay on the device and ride the next dispatch
+        record."""
         dev = self.device
         r = len(reqs)
         prefixes = [req.prefill_tokens() for req in reqs]
+        starts = np.array([req.prefill_start if warm else 0 for req in reqs],
+                          np.int32)
         toks = np.zeros((r, bucket), np.int32)
         for i, p in enumerate(prefixes):
-            toks[i, :len(p)] = p
+            toks[i, :len(p) - starts[i]] = p[starts[i]:]
         plens = np.array([len(p) for p in prefixes], np.int32)
+        tails = plens - starts
         readmit = np.array([bool(req.output) for req in reqs])
         budgets = np.array([req.max_new_tokens - (len(req.output) or 1)
                             for req in reqs], np.int32)
@@ -334,20 +369,41 @@ class ServingEngine:
         slots = [req.slot for req in reqs]
         for req, n in zip(reqs, plens):
             req.cache_len = int(n)
-        self._prefill_tokens_pending += int(plens.sum())
+        self._prefill_tokens_pending += int(tails.sum())
         idx = self._to_device(np.asarray(slots, np.int64))
         toks_t = self._to_device(toks)
         plen_t = self._to_device(plens)
         rows_t = None
+        if warm:
+            # the sentinel pair (N, N) copies the drop block onto itself
+            nb = self.scheduler.kv_blocks_total()
+            cow = np.full((2, r), nb, np.int64)
+            for i, req in enumerate(reqs):
+                if req.cow_pairs:
+                    cow[:, i] = req.cow_pairs[0]
+            cow_t = self._to_device(cow)
+            starts_t = self._to_device(starts)
+            tails_t = self._to_device(tails)
         if self.paged:
             rows_np = np.stack([self._table_row(req) for req in reqs])
-            self._sync_block_tables(list(zip(slots, rows_np)),
-                                    [b for req in reqs for b in req.block_ids])
+            # reset only the PRIVATE fresh blocks: shared blocks hold live
+            # KV, and a COW destination takes its kv_pos from the block
+            # copy that runs after this reset
+            self._sync_block_tables(
+                list(zip(slots, rows_np)),
+                [b for req in reqs for b in req.fresh_block_ids])
             rows_t = self._to_device(rows_np)
             tc = self.state.target_cache
-            view, last = prefill_lib.prefill_paged_rows(
-                self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"], rows_t,
-                toks_t, plen_t, tc.get("k_scale"), tc.get("v_scale"))
+            if warm:
+                view, last = prefill_lib.prefill_paged_tail(
+                    self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"],
+                    rows_t, toks_t, starts_t, tails_t, cow_t[0], cow_t[1],
+                    tc.get("k_scale"), tc.get("v_scale"))
+            else:
+                view, last = prefill_lib.prefill_paged_rows(
+                    self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"],
+                    rows_t, toks_t, plen_t, tc.get("k_scale"),
+                    tc.get("v_scale"))
             tc = prefill_lib.scatter_paged_rows(tc, view, idx)
         else:
             rows, last = prefill_lib.prefill_rows(
@@ -360,8 +416,27 @@ class ServingEngine:
         # a token-history drafter takes the full prefix (prompt + output
         # on a readmit); a model drafter prefills its own cache
         dc = self.drafter.reset_rows(st.draft_cache, rows_mask)
-        dc = self.drafter.prefill(self.pd, dc, idx, toks_t, plen_t, rows_t,
-                                  max_len=self.serving.max_seq_len)
+        mirror_rows = rows_t if self.drafter.mirrors_kv() else None
+        if warm:
+            # a token-history drafter takes the FULL prefix whatever the
+            # KV coverage; a mirroring drafter runs the tail program and
+            # reads only the tail
+            full_t = toks_t
+            if mirror_rows is None:
+                full = np.zeros((r, _bucket(int(plens.max()),
+                                            cap=self.serving.max_seq_len)),
+                                np.int32)
+                for i, p in enumerate(prefixes):
+                    full[i, :len(p)] = p
+                full_t = self._to_device(full)
+            dc = self.drafter.prefill_tail(
+                self.pd, dc, idx, full_t, plen_t, toks_t,
+                starts_t, tails_t, cow_t[0], cow_t[1], mirror_rows,
+                max_len=self.serving.max_seq_len)
+        else:
+            dc = self.drafter.prefill(self.pd, dc, idx, toks_t, plen_t,
+                                      mirror_rows,
+                                      max_len=self.serving.max_seq_len)
         # first token of a fresh request: keyed by the request's identity
         # alone, so it does not depend on admission grouping
         ids = self._to_device(np.asarray([req.request_id for req in reqs],
@@ -398,6 +473,14 @@ class ServingEngine:
             done=put(st.done, done0), tokens_budget=put(st.tokens_budget,
                                                         budgets_t),
             eos_id=put(st.eos_id, eos_t))
+        for req in reqs:
+            # the COW sources may be reclaimed once the copies are
+            # enqueued (stream order), and the prefix's full blocks are
+            # committed by enqueue: publish them for the next wave
+            self.scheduler.release_cow_sources(req)
+            req.fresh_block_ids = []
+            req.cow_pairs = []
+            self.scheduler.register_prefix(req)
         fresh = [(i, req) for i, req in enumerate(reqs) if not readmit[i]]
         if not fresh:
             return
@@ -548,6 +631,11 @@ class ServingEngine:
                 if fin[slot]:
                     req.state = RequestState.FINISHED
                     req.finish_time = now
+                if not displaced:
+                    # publish newly completed full blocks BEFORE release,
+                    # so a finishing request's blocks go warm, still
+                    # indexed
+                    self.scheduler.register_prefix(req)
             if req.done:
                 if displaced:
                     self.scheduler.drop_from_queue(req)
@@ -582,6 +670,20 @@ class ServingEngine:
         # model-free drafter holds none
         log["draft_kv_blocks_in_use"] = (log["kv_blocks_in_use"]
                                          if self.drafter.mirrors_kv() else 0.0)
+        # prefix-cache deltas since the previous round's entry (each
+        # admission wave counts to the round that carries it)
+        sch = self.scheduler
+        log["kv_blocks_cached"] = float(sch.kv_blocks_cached())
+        log["prefix_cache_hit_blocks"] = float(sch.prefix_hit_blocks_total
+                                               - self._hit_blocks_logged)
+        log["cow_copies"] = float(sch.cow_copies_total - self._cow_logged)
+        d_tok = sch.prefix_tokens_total - self._prefix_tok_logged
+        d_hit = sch.prefix_hit_tokens_total - self._prefix_hit_tok_logged
+        log["prefix_cache_hit_rate"] = (d_hit / d_tok) if d_tok else 0.0
+        self._hit_blocks_logged = sch.prefix_hit_blocks_total
+        self._cow_logged = sch.cow_copies_total
+        self._prefix_tok_logged = sch.prefix_tokens_total
+        self._prefix_hit_tok_logged = sch.prefix_hit_tokens_total
         log["host_blocked_s"] = host_blocked
         # with a successor in flight the round's cadence is dispatch to
         # dispatch (pipelined walls sum to the run's); else dispatch to
@@ -652,9 +754,9 @@ class ServingEngine:
         return self.summary(done, time.monotonic() - t0)
 
     def summary(self, done: Sequence[Request], wall: float) -> Dict[str, float]:
-        """Run-level metrics over a set of terminal requests: the
-        reference's summary without its prefix-cache fields (that
-        feature comes with its slice)."""
+        """Run-level metrics over a set of terminal requests (the
+        reference's fields, plus ``device``), shared by ``run()`` and an
+        external driver such as the front-end."""
         fin = [r for r in done if r.state == RequestState.FINISHED]
         rej = [r for r in done if r.state == RequestState.REJECTED]
         lat = [r.latency() for r in fin if r.latency() is not None]
@@ -724,4 +826,15 @@ class ServingEngine:
                 if log else 0.0),
             "kv_pool_utilization_peak": float(max(
                 (r["kv_pool_utilization"] for r in log), default=0.0)),
+            # prefix cache: the hit rate is token-weighted over every
+            # (re)admission prefill of the run
+            "prefix_cache_hit_blocks": float(
+                self.scheduler.prefix_hit_blocks_total),
+            "prefix_cache_hit_rate": (
+                self.scheduler.prefix_hit_tokens_total
+                / max(self.scheduler.prefix_tokens_total, 1)),
+            "cow_copies": float(self.scheduler.cow_copies_total),
+            "prefix_cache_evictions": float(
+                self.scheduler.allocator.evictions
+                if self.scheduler.allocator is not None else 0.0),
         }

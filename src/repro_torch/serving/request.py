@@ -1,12 +1,11 @@
 """Request lifecycle for the serving engine: a copy of
-``repro.serving.request`` cut to the fields the port's engine uses (the
-prefix-cache and streaming fields come with their slices)."""
+``repro.serving.request``."""
 from __future__ import annotations
 
 import dataclasses
 import enum
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 
 class RequestState(enum.Enum):
@@ -14,7 +13,8 @@ class RequestState(enum.Enum):
     RUNNING = "running"
     FINISHED = "finished"
     # oversize at admission: can never fit prompt + max_new_tokens +
-    # the policy's worst-case lookahead inside max_seq_len.  Terminal;
+    # the policy's worst-case lookahead inside max_seq_len, or (paged,
+    # net of cached-prefix coverage) inside the block pool.  Terminal;
     # surfaced from ``ServingEngine.step`` and counted in the run summary.
     REJECTED = "rejected"
 
@@ -60,6 +60,29 @@ class Request:
     cache_len: int = 0                 # committed tokens in the KV cache
     preemptions: int = 0               # evict-and-requeue count
     admit_seq: int = -1                # admission order (LIFO preemption key)
+    # --- prefix-cache fields (DESIGN.md §12) --------------------------------
+    # first token the (re)admission prefill must compute; [0,
+    # prefill_start) is served from shared cached blocks
+    prefill_start: int = 0
+    # admission-time plumbing the engine consumes at prefill: blocks whose
+    # kv_pos must be reset (private, not shared) and (src, dst)
+    # copy-on-write block copies to run before the prefill
+    fresh_block_ids: List[int] = dataclasses.field(default_factory=list)
+    cow_pairs: List[tuple] = dataclasses.field(default_factory=list)
+    # hash-chain registration watermark: block_ids[:hashed_blocks] are
+    # published in the allocator's index, chain_hash is the running hash
+    hashed_blocks: int = 0
+    chain_hash: Optional[int] = None
+    # lifetime totals across (re)admissions, for the hit rate
+    prefix_tokens_total: int = 0
+    prefix_hit_tokens_total: int = 0
+    # --- streaming (DESIGN.md §14) ------------------------------------------
+    # per-token consumer callback, fired when a token is reconciled on the
+    # host and appended to ``output``: in order, exactly once a token,
+    # never for a readmit's recompute (its pending token was delivered
+    # when first emitted)
+    on_token: Optional[Callable[["Request", int], None]] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def done(self) -> bool:
@@ -132,9 +155,24 @@ class Request:
         return ((self.finish_time - self.first_token_time)
                 / (len(self.output) - 1))
 
+    def finish_reason(self) -> Optional[str]:
+        """OpenAI-style terminal cause: "stop" (EOS) or "length"
+        (``max_new_tokens``).  None while not finished."""
+        if self.state is not RequestState.FINISHED:
+            return None
+        if (self.eos_token_id is not None and self.output
+                and self.output[-1] == self.eos_token_id):
+            return "stop"
+        return "length"
+
     def block_efficiency(self) -> float:
         """Tokens emitted per target verification (paper's BE metric)."""
         return len(self.output) / max(self.rounds, 1)
 
     def acceptance_rate(self) -> float:
         return self.accepted_tokens / max(self.proposed_tokens, 1)
+
+    def prefix_hit_rate(self) -> float:
+        """Share of the (re)admission prefill tokens served from the
+        prefix cache (0.0 without prefix caching)."""
+        return self.prefix_hit_tokens_total / max(self.prefix_tokens_total, 1)

@@ -828,3 +828,105 @@ def test_train_steps_card_equal_cpu(cuda, remat, microbatches):
                                    param_leaves(runs[1][0])):
         assert got.is_cuda
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_copy_blocks_on_cuda_bit_equal_cpu(cuda, kv_quant):
+    """The copy-on-write block copy on CUDA pools (K, V, kv_pos and, on
+    the int8 pool, both scale pools) gives the CPU's bits, sentinel
+    pairs (the drop block onto itself) included."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache as cache_lib
+    cfg = get_config("smollm-135m").reduced()
+    c = cache_lib.paged_cache_struct(cfg, 2, 64, 12, 16, kv_quant=kv_quant)
+    g = torch.Generator().manual_seed(0)
+    for name, val in c.items():
+        if val.dtype == torch.int8:
+            val.copy_(torch.randint(-127, 128, val.shape, generator=g))
+        elif val.dtype == torch.float32:
+            val.copy_(torch.rand(val.shape, generator=g))
+    c["kv_pos"].copy_(torch.randint(-1, 60, c["kv_pos"].shape, generator=g))
+    src = torch.tensor([3, 12, 7, 12])
+    dst = torch.tensor([9, 12, 1, 12])
+    gpu = {k: v.to(cuda) for k, v in c.items()}
+    for cache, dev in ((c, "cpu"), (gpu, cuda)):
+        s, d = src.to(dev), dst.to(dev)
+        cache_lib.copy_blocks(cache["k"], cache["v"], cache["kv_pos"], s, d)
+        if kv_quant == "int8":
+            cache_lib.copy_scales(cache["k_scale"], cache["v_scale"], s, d)
+    for k in c:
+        assert torch.equal(gpu[k].cpu(), c[k]), k
+    assert torch.equal(c["k"][:, 9], c["k"][:, 3])
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_warm_tail_prefill_matches_plain(cuda, kv_quant):
+    """A warm tail prefill of 128 tokens after 64 shared ones (G * T 384
+    query rows a KV head: several launches of B1 or B4 a layer), with a
+    copy-on-write pair, on the card against the plain versions on the CPU
+    (logits within 2e-4 on the fp32 pool; on the int8 pool K/V that part
+    by rounding can land one quantum apart, so 5e-3 and the same argmax),
+    and twice on the card for the same bits (logits and every allocatable
+    block)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prefill as prefill_lib
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.weights import init_params
+    launches = (pa.LAUNCHES if kv_quant == "none" else pq.LAUNCHES)
+    key = next(iter(launches))
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, seed=4, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    head = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                         dtype=torch.int32)
+    tail = torch.randint(0, cfg.vocab_size, (2, 128), generator=g,
+                         dtype=torch.int32)
+    tail_lens = torch.tensor([128, 100], dtype=torch.int32)
+    # row 0 holds blocks 0-3 (the shared head) then 4-11; row 1 shares
+    # blocks 0-2 and takes block 3 as a COW copy into block 12
+    rows = torch.full((2, 16), -1, dtype=torch.int32)
+    rows[0, :12] = torch.arange(12)
+    rows[1, :3] = torch.arange(3)
+    rows[1, 3:11] = torch.arange(12, 20)
+
+    def run(device):
+        c = cache_lib.paged_cache_struct(cfg, 2, 256, 24, 16, device=device,
+                                         kv_quant=kv_quant)
+        cold = rows[:1, :4].to(device)
+        prefill_lib.prefill_paged_rows(
+            _to(params, device), cfg, c["k"], c["v"], c["kv_pos"], cold,
+            head[:1].to(device),
+            torch.tensor([64], dtype=torch.int32, device=device),
+            c.get("k_scale"), c.get("v_scale"))
+        view, last = prefill_lib.prefill_paged_tail(
+            _to(params, device), cfg, c["k"], c["v"], c["kv_pos"],
+            rows.to(device), tail.to(device),
+            torch.tensor([64, 64], dtype=torch.int32, device=device),
+            tail_lens.to(device),
+            torch.tensor([24, 3], device=device),
+            torch.tensor([24, 12], device=device),
+            c.get("k_scale"), c.get("v_scale"))
+        return last.cpu(), {k: v.cpu() for k, v in c.items()}
+
+    want, _ = run("cpu")
+    launches[key] = 0
+    got, pools = run(cuda)
+    assert launches[key] >= cfg.num_layers
+    again, pools2 = run(cuda)
+    assert torch.equal(got, again)
+    # every block but the drop block (24), which takes the dropped writes
+    # of both calls in no fixed order
+    for k in pools:
+        blocks = pools[k] if k in ("length", "block_table") else (
+            pools[k][:24] if k == "kv_pos" else pools[k][:, :24])
+        again_blocks = pools2[k] if k in ("length", "block_table") else (
+            pools2[k][:24] if k == "kv_pos" else pools2[k][:, :24])
+        assert torch.equal(blocks, again_blocks), k
+    atol = 2e-4 if kv_quant == "none" else 5e-3
+    torch.testing.assert_close(got, want, atol=atol, rtol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def _to(params, device):
+    from repro_torch.models.weights import map_params
+    return map_params(lambda t: t.to(device), params)

@@ -35,9 +35,9 @@ def small_pair():
     return cfg, pt, pd, t_get_config("smollm-135m").reduced(), conv(pt), conv(pd)
 
 
-# the reference's summary keys whose features the port does not have yet:
-# the prefix cache (ROADMAP A4)
-LATER_KEYS = ("prefix_cache_", "cow_copies")
+# the reference's summary keys whose features the port does not have yet
+# (none since the prefix cache)
+LATER_KEYS = ()
 # timing fields, and the latency model's fit of them: only present and
 # finite
 TIMING_KEYS = ("wall_time_s", "throughput_tok_s", "mean_latency_s",
@@ -54,11 +54,14 @@ COUNT_KEYS = ("rounds", "tokens_emitted", "requests_finished",
               "kv_quant", "kv_blocks_peak", "kv_pool_blocks",
               "kv_block_bytes", "kv_pool_bytes", "kv_bytes_swept",
               "draft_kv_blocks_peak", "slo_requests_attained",
-              "slo_predicted_violations", "slo_deferrals")
+              "slo_predicted_violations", "slo_deferrals",
+              "prefix_cache_hit_blocks", "cow_copies",
+              "prefix_cache_evictions")
 # ratios: within 1e-9
 RATIO_KEYS = ("kv_pool_utilization_mean", "kv_pool_utilization_peak",
               "draft_cost_effective", "block_efficiency", "mean_acceptance",
-              "batch_tokens_per_round", "slo_attained_frac")
+              "batch_tokens_per_round", "slo_attained_frac",
+              "prefix_cache_hit_rate")
 
 
 def _assert_summary_matches(m, rm, counts=COUNT_KEYS, ratios=RATIO_KEYS):
@@ -130,10 +133,14 @@ def test_greedy_streams_match_reference(small_pair, policy):
     _assert_summary_matches(tm, m)
     assert tm["draft_kv_blocks_peak"] == tm["kv_blocks_peak"] > 0
     assert tm["queue_wait_mean_s"] >= 0
-    # the round log's fields too (kv_blocks_cached: the prefix cache's)
+    # the round log's fields too, the prefix cache's equal round by round
     missing = {k for k in eng.round_log[0] if k not in teng.round_log[0]
                and not k.startswith(LATER_KEYS)}
-    assert missing == {"kv_blocks_cached"}, missing
+    assert missing == set(), missing
+    prefix_log = ("kv_blocks_cached", "prefix_cache_hit_blocks", "cow_copies",
+                  "prefix_cache_hit_rate")
+    assert ([[r[k] for k in prefix_log] for r in teng.round_log]
+            == [[r[k] for k in prefix_log] for r in eng.round_log])
 
 
 def test_greedy_streams_match_reference_under_preemption(small_pair):

@@ -32,7 +32,8 @@ def test_import_port_leaves_jax_out():
         "          'configs.granite_moe_3b_a800m', 'configs.mixtral_8x22b',\n"
         "          'configs.granite_8b', 'configs.qwen2_5_32b',\n"
         "          'configs.qwen3_32b', 'configs.paper_llama_pair',\n"
-        "          'configs.paper_gemma_pair'):\n"
+        "          'configs.paper_gemma_pair', 'serving.frontend',\n"
+        "          'serving.server', 'launch.serve'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
