@@ -99,7 +99,31 @@ Phases, each printing one JSON line:
              static SL 10 (44 query rows a KV head: two launches).  The
              kernel phase adds B1, B4 and B5 at granite-8b's heads (H 32
              / KV 8 / D 128).
-7. train   — training on the card (``repro_torch.training``), then a
+7. recurrent — the ssm and hybrid families (``RECURRENT_SERVES``):
+             mamba2-130m (24 layers, d 768, 24 SSD heads x 64, state 128,
+             chunk 256, vocab 50280 padded to 50304) at full width on the
+             dense ring with its ``draft()`` as the model drafter,
+             synchronous and pipelined (equal streams), and with the
+             damped n-gram drafter; recurrentgemma-2b (26 layers: 8 local
+             attention, 18 RG-LRU; d 2560, H 10 / KV 1 / D 256, window
+             2048, vocab 256000 padded to 256128) with its ``draft()`` (D
+             320) on the fp32 pool and the dense ring, weights drawn on a
+             card generator; each serve's kernels must launch and
+             ``dispatch`` must not synchronise; recurrentgemma-2b again
+             on the ring with rows of 2030-2040 + 48 tokens, which the
+             window 2048 masks and the 2064-slot ring wraps under; one
+             decode step, one verify pass and one commit re-advance of
+             each target timed against the weight bytes (the
+             re-advance's share of verify + re-advance printed), and
+             each serve's commits timed inside its rounds (their device
+             ms and share of the serve's wall); the dsde serves
+             profiled; then ``RECURRENT_CHECKS``: card ==
+             CPU greedy streams at reduced width (ssm on the ring, sync
+             and pipelined; a 5-layer hybrid on the pool, on a ring of 80
+             slots that wraps, and on a pool that forces preemption).
+             The kernel phase adds B1 and B5 at the hybrid's heads (D 256
+             and 320, ctx / W 256 and 2064) and B2 at V 256128.
+8. train   — training on the card (``repro_torch.training``), then a
              trained pair served through the DSDE round: the entry point
              ``repro_torch.launch.train --demo`` for 60 steps (its loss
              must fall and its checkpoint restore); smollm-135m at full
@@ -230,12 +254,15 @@ def attention_flop_s(dtype, int8_kv: bool = False) -> float:
     return TF32_FLOP_S / (2 if int8_kv else 3)
 
 
-def attended(kv_pos, q_pos) -> int:
+def attended(kv_pos, q_pos, window=None) -> int:
     """(query, slot) pairs a causal attention call computes: for each
-    row's query, the slots holding a position at or before it
-    (``kv_pos [B, S]`` per row, -1 empty; ``q_pos [B, T]``)."""
-    return int(((kv_pos[:, None, :] >= 0)
-                & (kv_pos[:, None, :] <= q_pos[:, :, None])).sum())
+    row's query, the slots holding a position at or before it (and, with
+    a window, within it) (``kv_pos [B, S]`` per row, -1 empty; ``q_pos
+    [B, T]``)."""
+    ok = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        ok = ok & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
+    return int(ok.sum())
 
 
 def paged_case(b, t, ctx, dtype, seed, heads=(9, 3, 64)):
@@ -292,7 +319,7 @@ def bound(nbytes, flops, flop_s):
                                         else "operations")
 
 
-def sdpa_ms(q, k, v, pos, q_pos, flush) -> float:
+def sdpa_ms(q, k, v, pos, q_pos, flush, window=None) -> float:
     """``F.scaled_dot_product_attention`` over an already gathered
     per-sequence view ``k``/``v [B, S, KV, D]`` with the same mask: a
     yardstick, never called by the port.  Only the call is timed."""
@@ -302,7 +329,10 @@ def sdpa_ms(q, k, v, pos, q_pos, flush) -> float:
     kh = k.to(q.dtype).repeat_interleave(g, dim=2).transpose(1, 2)
     vh = v.to(q.dtype).repeat_interleave(g, dim=2).transpose(1, 2)
     mask = ((pos[:, None, :] >= 0)
-            & (pos[:, None, :] <= q_pos[:, :, None]))[:, None]
+            & (pos[:, None, :] <= q_pos[:, :, None]))
+    if window is not None:
+        mask = mask & (q_pos[:, :, None] - pos[:, None, :] < window)
+    mask = mask[:, None]
     return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask), flush=flush)
 
@@ -405,15 +435,19 @@ def attention_rows(flush):
     return contract
 
 
-def kld_row(flush):
-    """B2 at the round's shape: t_logits[:, :K] of [B, K+1, V], B*K = 40."""
+def kld_row(flush, v=49280):
+    """B2 at the round's shape: t_logits[:, :K] of [B, K+1, V], B*K = 40;
+    V 49280 (smollm-135m's padded vocabulary), or ``v``
+    (recurrentgemma-2b's 256128), each launched twice for the same
+    bits."""
     import torch
     from repro_torch.kernels import kld_accept as kl
-    b, k, v = 4, 10, 49280
+    b, k = 4, 10
     g = torch.Generator(device="cpu").manual_seed(5)
     tl = (torch.randn(b, k + 1, v, generator=g) * 3).cuda()
     dl = (torch.randn(b, k, v, generator=g) * 3).cuda()
-    tok = torch.randint(0, 49152, (b, k), generator=g, dtype=torch.int32).cuda()
+    tok = torch.randint(0, v - 128, (b, k), generator=g,
+                        dtype=torch.int32).cuda()
     got = kl.fused_kld_accept_cuda(tl[:, :k], dl, tok)
     want = kl.kld_accept_plain(tl[:, :k], dl, tok)
     again = kl.fused_kld_accept_cuda(tl[:, :k], dl, tok)
@@ -725,6 +759,91 @@ def d128_rows(flush):
     return worst
 
 
+# recurrentgemma-2b's local attention (H 10 / KV 1 / D 256) and its
+# draft's (H 2 / KV 1 / D 320)
+WIDE_HEADS = ((10, 1, 256), (2, 1, 320))
+# the hybrid's attention window and its full-width ring (window + 16)
+HYBRID_WINDOW, HYBRID_RING = 2048, 2064
+
+
+def wide_rows(flush):
+    """B1 and B5 at the hybrid family's heads (``WIDE_HEADS``, the wide
+    CUDA-core kernel): draft step (T 1) and verify (T 11: G * T 110 query
+    rows a KV head at G 10, four launches of <= 32 rows a call), ctx / W
+    256 (full) and 2064 (B1: a full context, B5: a ring that has wrapped,
+    both under the window 2048 the serves attend with), fp32 and bf16;
+    B1's tolerances, each call launched twice for the same bits.  Bound:
+    bytes, and the operations of the (query, slot) pairs inside the
+    window at the card's peak for the operand type
+    (:func:`attention_flop_s`, as every attention row), though the wide
+    kernel runs on the CUDA cores.  SDPA over the same view and mask is
+    the library yardstick.  Returns each kernel's largest error."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ragged_attention as ra
+    from repro_torch.models.cache import gather_paged_kv, gather_paged_pos
+    tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
+    kernels = (
+        ("paged_ragged_verify_attention", "ctx",
+         lambda t, n, dt, sd, hd: paged_case(4, t, n, dt, sd, heads=hd),
+         pa.paged_ragged_verify_attention_cuda,
+         pa.paged_ragged_verify_attention_plain,
+         lambda a: (*gather_paged_kv(a[1], a[2], a[3]),
+                    gather_paged_pos(a[-1], a[-3]), a[-2])),
+        ("ragged_verify_attention", "W",
+         lambda t, n, dt, sd, hd: ring_case(4, t, n, dt, sd, heads=hd,
+                                            wrap=n == HYBRID_RING),
+         ra.ragged_verify_attention_cuda, ra.ragged_verify_attention_plain,
+         lambda a: (a[1], a[2], a[4], a[3])),
+    )
+    worst = {}
+    for name, size_key, case, kernel, plain, view in kernels:
+        for h, kv, d in WIDE_HEADS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for n in (256, HYBRID_RING):
+                    for t in (1, 11):
+                        args, nbytes, _ = case(t, n, dtype, t + n + d,
+                                               (h, kv, d))
+                        window = HYBRID_WINDOW if n == HYBRID_RING else None
+                        got = kernel(*args, window=window)
+                        want = plain(*args, window=window)
+                        again = kernel(*args, window=window)
+                        torch.cuda.synchronize()
+                        what = f"{name} D{d} {dtype} {size_key}={n} t={t}"
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{what}: two launches "
+                                                 "differ")
+                        diff = (got.float() - want.float()).abs()
+                        err = diff.max().item()
+                        atol, rtol = tol[dtype]
+                        if not bool((diff <= atol + rtol
+                                     * want.float().abs()).all()):
+                            raise AssertionError(f"{what}: max abs err {err}")
+                        worst[name] = max(worst.get(name, 0.0), err)
+                        k, v, pos, q_pos = view(args)
+                        flops = 4 * h * d * attended(pos, q_pos, window)
+                        bound_ms, bound_by = bound(nbytes, flops,
+                                                   attention_flop_s(dtype))
+                        emit({"phase": "kernel", "name": name,
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "B": 4, "T": t, "H": h, "KV": kv, "D": d,
+                              size_key: n, "window": window,
+                              "wrapped": size_key == "W" and n == HYBRID_RING,
+                              "GT": h // kv * t,
+                              "launches_per_call": len(pa.query_groups(
+                                  h, kv, t, d)),
+                              "max_abs_err": err, "atol": atol, "rtol": rtol,
+                              **kernel_ms(lambda: kernel(*args, window=window),
+                                          flush),
+                              "plain_ms": time_ms(
+                                  lambda: plain(*args, window=window),
+                                  flush=flush),
+                              "library_ms": sdpa_ms(args[0], k, v, pos, q_pos,
+                                                    flush, window),
+                              "bound_ms": bound_ms, "bound_by": bound_by})
+    return worst
+
+
 def kernel_phase(flush):
     """Every kernel's rows; first about 0.1 s of L2 flushes, so the
     card's clocks have left idle before the first timed call."""
@@ -738,6 +857,11 @@ def kernel_phase(flush):
     contract["ragged_verify_attention"] = ring_rows(flush)
     for name, err in d128_rows(flush).items():
         contract[name]["max_abs_err"] = max(contract[name]["max_abs_err"], err)
+    for name, err in wide_rows(flush).items():
+        contract[name]["max_abs_err"] = max(contract[name]["max_abs_err"], err)
+    wide_kld = kld_row(flush, v=256128)
+    contract["fused_kld_accept"]["max_abs_err"] = max(
+        contract["fused_kld_accept"]["max_abs_err"], wide_kld["max_abs_err"])
     floor_row(flush)
     return contract
 
@@ -823,17 +947,31 @@ PROFILED = ("serve", "serve-int8", "serve-ngram-int8", "serve-dense",
 
 
 def damped(params, alpha):
-    """``params`` with the residual branches' output projections
-    (``attn.wo``, and ``mlp.w_down`` or the experts' ``moe.w_down``)
-    scaled by ``alpha``: every layer still runs at full width, but the
-    token embedding stays large in the residual stream, so greedy streams
-    run in repeats of a token, which the n-gram drafter's lookup finds."""
+    """``params`` with the residual branches' output projections scaled
+    by ``alpha`` (``attn.wo``, ``mlp.w_down``, the experts'
+    ``moe.w_down``; an ssm layer's ``mixer.out_proj``; a hybrid layer's
+    ``temporal.wo`` or ``temporal.w_out``, in its groups and its tail):
+    every layer still runs at full width, but the token embedding stays
+    large in the residual stream, so greedy streams run in repeats of a
+    token, which the n-gram drafter's lookup finds."""
     if alpha == 1.0:
         return params
-    layers = dict(params["layers"])
-    layers["attn"] = dict(layers["attn"], wo=layers["attn"]["wo"] * alpha)
-    ffn = "moe" if "moe" in layers else "mlp"
-    layers[ffn] = dict(layers[ffn], w_down=layers[ffn]["w_down"] * alpha)
+    outputs = {"attn": ("wo",), "mlp": ("w_down",), "moe": ("w_down",),
+               "mixer": ("out_proj",), "temporal": ("wo", "w_out")}
+
+    def scale(layer):
+        return {sub: ({k: (v * alpha if k in outputs.get(sub, ()) else v)
+                       for k, v in leaf.items()} if isinstance(leaf, dict)
+                      else leaf)
+                for sub, leaf in layer.items()}
+    layers = params["layers"]
+    if "tail" in layers:              # hybrid: (rec x bpa, attn) groups
+        groups = layers.get("groups")
+        layers = {"groups": (None if groups is None else
+                             {k: scale(v) for k, v in groups.items()}),
+                  "tail": tuple(scale(t) for t in layers["tail"])}
+    else:
+        layers = scale(layers)
     return dict(params, layers=layers)
 
 
@@ -1579,8 +1717,12 @@ class FamilyServe(NamedTuple):
     one starts a round later, and an MoE block's capacity couples the
     rows of a call, so the reference's own pipelined streams part from
     its synchronous ones; ``FAMILY_CHECKS`` holds the card's pipelined
-    MoE streams to the CPU's); ``path``: the kernels that must launch
-    during it."""
+    MoE streams to the CPU's), or must equal them with ``equal``;
+    ``path``: the kernels that must launch during it.  The recurrent
+    phase's serves (``RECURRENT_SERVES``) are of this kind too; one of
+    them sets ``prompts`` (the prompt lengths, random tokens; None: the
+    8 of :func:`serve_prompts`), ``max_len`` and ``new`` (tokens a
+    request) for rows that outgrow the hybrid's window."""
     name: str
     arch: str
     drafter: str
@@ -1590,6 +1732,10 @@ class FamilyServe(NamedTuple):
     damp: float
     path: Tuple[str, ...]
     twin: Optional[str] = None
+    equal: bool = False
+    prompts: Optional[Tuple[int, ...]] = None
+    max_len: int = 256
+    new: int = 32
 
 
 B1_B2 = ("paged_ragged_verify_attention", "fused_kld_accept")
@@ -1632,34 +1778,50 @@ def count_query_launches():
     return seen, stop
 
 
-def family_forward(cfg, params) -> None:
+def family_forward(cfg, params, smi) -> dict:
     """One decode step (T 1) and one verify pass (T 11) of a full-width
-    target on the fp32 pool, B 4, 128 committed positions a row: wall ms
-    a call over 10 calls with a synchronise after them, and the attention
-    kernels' launches in one call (B1 cuts T 11 into two launches at D
-    128).  Bound: the target's weight bytes over 3.35 TB/s, which every
-    pass reads."""
+    target, B 4, 128 committed positions a row (on the fp32 pool; an ssm
+    target on its dense ring of state), and for a recurrent target one
+    commit re-advance (the masked second pass over the 11 verified
+    tokens, 3 accepted a row), work the attention families' round does
+    not have: wall ms a call over 10 calls with a synchronise after
+    them, and the attention kernels' launches in one call (T 11 is cut
+    into query groups: two at D 128 G 4, four at D 256 G 10).  Bound:
+    the target's weight bytes over 3.35 TB/s, which every pass reads.
+    Returns the row."""
     import torch
+    from repro_torch.kernels.paged_attention import query_groups
     from repro_torch.models import cache as cache_lib
-    from repro_torch.models.transformer import forward
+    from repro_torch.models.transformer import (commit, forward,
+                                                has_recurrent_state)
     from repro_torch.models.weights import count_params
 
     b, ctx, bs = 4, 128, 16
-    cache = cache_lib.paged_cache_struct(cfg, b, 256, b * 256 // bs, bs,
-                                         device="cuda")
-    cache["block_table"][:, :] = torch.arange(
-        b * 256 // bs, dtype=torch.int32, device="cuda").reshape(b, -1)
-    cache["kv_pos"][:b * 256 // bs] = torch.arange(
-        256, dtype=torch.int32, device="cuda").reshape(-1, bs).repeat(b, 1)
+    if cache_lib.supports_paged(cfg):
+        cache = cache_lib.paged_cache_struct(cfg, b, 256, b * 256 // bs, bs,
+                                             device="cuda")
+        cache["block_table"][:, :] = torch.arange(
+            b * 256 // bs, dtype=torch.int32, device="cuda").reshape(b, -1)
+        cache["kv_pos"][:b * 256 // bs] = torch.arange(
+            256, dtype=torch.int32, device="cuda").reshape(-1, bs).repeat(b, 1)
+    else:
+        cache = cache_lib.cache_struct(cfg, b, 256, device="cuda")
     cache["length"] = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
     weight_ms = 1e3 * count_params(cfg) * 4 / HBM_BYTES_S
     row = {"phase": "family-forward", "arch": cfg.name, "B": b, "ctx": ctx,
-           "params": count_params(cfg), "weight_bound_ms": weight_ms}
-    for t in (1, 11):
-        tok = torch.ones((b, t), dtype=torch.int32, device="cuda")
-
-        def call():
-            return forward(params, cfg, tok, cache=cache, mode="decode")
+           "params": count_params(cfg), "weight_bound_ms": weight_ms,
+           "nvidia_smi": smi}
+    tok = torch.ones((b, 11), dtype=torch.int32, device="cuda")
+    calls = {
+        "T1": lambda: forward(params, cfg, tok[:, :1], cache=cache,
+                              mode="decode"),
+        "T11": lambda: forward(params, cfg, tok, cache=cache, mode="decode"),
+    }
+    if has_recurrent_state(cfg):
+        _, verified = forward(params, cfg, tok, cache=cache, mode="decode")
+        n3 = torch.full((b,), 3, dtype=torch.int32, device="cuda")
+        calls["commit"] = lambda: commit(params, cfg, tok, cache, verified, n3)
+    for key, call in calls.items():
         for _ in range(2):
             call()
         torch.cuda.synchronize()
@@ -1674,31 +1836,68 @@ def family_forward(cfg, params) -> None:
             call()
         torch.cuda.synchronize()
         ms = 1e3 * (time.monotonic() - t0) / 10
-        row[f"T{t}"] = {"ms": ms, "attention_calls": len(seen),
-                        "attention_launches": sum(seen),
-                        "weight_bound_share": weight_ms / ms}
+        row[key] = {"ms": ms, "attention_calls": len(seen),
+                    "attention_launches": sum(seen),
+                    "weight_bound_share": weight_ms / ms}
+    if "commit" in row:
+        row["readvance_share_of_verify_plus_readvance"] = (
+            row["commit"]["ms"] / (row["T11"]["ms"] + row["commit"]["ms"]))
     emit(row)
-    if row["T11"]["attention_launches"] != (
-            cfg.num_layers * (2 if cfg.resolved_head_dim == 128 else 1)):
+    want = (0 if cfg.attention_free else
+            cache_lib.paged_kv_layers(cfg) * len(query_groups(
+                cfg.num_heads, cfg.num_kv_heads, 11, cfg.resolved_head_dim)))
+    if row["T11"]["attention_launches"] != want:
         raise AssertionError(f"{cfg.name}: verify attention launches "
-                             f"{row['T11']}")
+                             f"{row['T11']}, want {want}")
+    return row
 
 
-def family_serves(smi):
-    """The full-width serves of ``FAMILY_SERVES``, each target built once
-    and freed before the next; then ``moe-serve`` again under the
-    profiler.  Returns the launches summed over the serves."""
+def time_commits():
+    """Brackets each target commit of the serve's rounds
+    (``spec_decode.commit``: a recurrent target's masked re-advance) with
+    CUDA events; returns a function that restores it and, once the run
+    has synchronised, gives the device ms the stream spent from each
+    commit's first operation to its last, summed, and the commits."""
+    import torch
+    from repro_torch.core import spec_decode as sd
+    pairs, orig = [], sd.commit
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args)
+        end.record()
+        pairs.append((start, end))
+        return out
+    sd.commit = timed
+
+    def stop():
+        sd.commit = orig
+        return sum(a.elapsed_time(b) for a, b in pairs), len(pairs)
+    return stop
+
+
+def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
+    """The full-width ``serves``, each target built once and freed before
+    the next; then the ``profiled_names`` serves again under the
+    profiler.  A recurrent target's commits are timed inside the serve
+    (:func:`time_commits`).  Returns the launches summed over the
+    serves."""
     import gc
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.transformer import has_recurrent_state
     from repro_torch.models.weights import init_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
     total = {k: 0 for k in read_launches()}
     streams = {}
-    for arch in dict.fromkeys(sv.arch for sv in FAMILY_SERVES):
+    for arch in dict.fromkeys(sv.arch for sv in serves):
         cfg = get_config(arch)
         t0 = time.monotonic()
         pt = init_params(cfg, seed=0, device="cuda", rng_device="cuda")
@@ -1708,11 +1907,11 @@ def family_serves(smi):
         emit({"phase": "family-init", "arch": arch,
               "seconds": time.monotonic() - t0,
               "memory_gib": torch.cuda.memory_allocated() / 2 ** 30})
-        family_forward(cfg, pt)
-        profiled = None
-        for sv in (sv for sv in FAMILY_SERVES if sv.arch == arch):
+        family_forward(cfg, pt, smi)
+        profiled = []
+        for sv in (sv for sv in serves if sv.arch == arch):
             model = sv.drafter == "model"
-            serving = ServingConfig(max_batch_size=4, max_seq_len=256,
+            serving = ServingConfig(max_batch_size=4, max_seq_len=sv.max_len,
                                     pipelined=sv.pipelined,
                                     paged_kv=sv.nblocks is not None,
                                     kv_block_size=16,
@@ -1726,21 +1925,32 @@ def family_serves(smi):
                                      SpecDecodeConfig(drafter=sv.drafter),
                                      serving, seed=0, device="cuda")
 
-            reqs = [Request(i, prompt=p, max_new_tokens=32) for i, p in
-                    enumerate(serve_prompts(cfg.vocab_size, sv.drafter))]
+            rng = np.random.RandomState(0)
+            prompts = (serve_prompts(cfg.vocab_size, sv.drafter)
+                       if sv.prompts is None else
+                       [rng.randint(0, cfg.vocab_size, size=n).tolist()
+                        for n in sv.prompts])
+            reqs = [Request(i, prompt=p, max_new_tokens=sv.new)
+                    for i, p in enumerate(prompts)]
             engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
             eng = engine()
             syncs = count_syncs(eng)
             reset_launches()
             torch.cuda.synchronize()
+            stop_commits = (time_commits() if has_recurrent_state(cfg)
+                            else None)
             t1 = time.monotonic()
-            m = eng.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t1
+            try:
+                m = eng.run(reqs)
+            finally:
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t1
+                commits = stop_commits() if stop_commits else None
             launches = read_launches()
             streams[sv.name] = [r.output for r in reqs]
             proposing = sum(1 for r in eng.round_log if r["proposed"] > 0)
-            row = {"phase": sv.name, "arch": cfg.name,
+            round_ms = 1e3 * wall / max(m["rounds"], 1)
+            row = {"phase": sv.name, "arch": cfg.name, "family": cfg.family,
                    "layers": cfg.num_layers, "drafter": sv.drafter,
                    "draft_arch": cfg.draft().name if model else None,
                    "kv_quant": sv.kv_quant,
@@ -1753,22 +1963,36 @@ def family_serves(smi):
                    "proposing_rounds": proposing,
                    "mean_acceptance": m["mean_acceptance"],
                    "wall_s": wall, "tokens_per_s": m["tokens_emitted"] / wall,
+                   "mean_round_ms": round_ms,
                    "host_blocked_s": m["host_blocked_s"],
                    "dispatch_syncs": sum(syncs.values()),
                    "dispatch_sync_sources": dict(syncs),
                    "draft_steps": m["draft_steps"],
                    "kv_pool_bytes": m["kv_pool_bytes"],
+                   "max_tokens_a_row": max(len(r.prompt) + len(r.output)
+                                           for r in reqs),
                    "launches": launches, "nvidia_smi": smi}
-            if sv.twin is not None:             # printed only
+            if cfg.family == "hybrid" and sv.nblocks is None:
+                row["ring_slots"] = cache_lib.cache_window(
+                    eng.state.target_cache)
+            if commits is not None:
+                # the target's re-advance in this serve's own rounds
+                row["readvance_device_ms"], row["commits"] = commits
+                row["readvance_share_of_wall"] = (
+                    commits[0] / (1e3 * wall))
+            if sv.twin is not None:     # printed; required with ``equal``
                 row["equal_to_" + sv.twin] = streams[sv.name] == streams[sv.twin]
                 row["requests_equal_to_" + sv.twin] = sum(
                     a == b for a, b in zip(streams[sv.name], streams[sv.twin]))
             emit(row)
+            if sv.equal and streams[sv.name] != streams[sv.twin]:
+                raise AssertionError(f"{sv.name}: greedy streams differ from "
+                                     f"{sv.twin}'s")
             if min(launches[k] for k in sv.path) <= 0:
                 raise AssertionError(f"{sv.name}: a kernel of the path never "
                                      f"ran: {launches}")
-            if m["requests_finished"] != 8 or any(len(r.output) != 32
-                                                  for r in reqs):
+            if m["requests_finished"] != len(reqs) or any(
+                    len(r.output) != sv.new for r in reqs):
                 raise AssertionError(f"{sv.name} did not finish: {m}")
             if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
                 raise AssertionError(f"{sv.name}: a token outside the "
@@ -1778,13 +2002,20 @@ def family_serves(smi):
                                      f"{dict(syncs)}")
             if sv.drafter == "ngram" and proposing == 0:
                 raise AssertionError(f"{sv.name}: no round proposed a token")
+            if sv.prompts is not None and not (
+                    row["ring_slots"] == HYBRID_RING
+                    < row["max_tokens_a_row"]):
+                raise AssertionError(f"{sv.name}: rows of "
+                                     f"{row['max_tokens_a_row']} tokens on "
+                                     f"a {row['ring_slots']}-slot ring, want "
+                                     f"more than {HYBRID_RING} slots' worth")
             for k in total:
                 total[k] += launches[k]
-            if sv.name == "moe-serve":
-                profiled = (sv.name, engine, reqs)
+            if sv.name in profiled_names:
+                profiled.append((sv.name, engine, reqs))
             del target, eng
-        if profiled is not None:
-            profile_phase(*profiled)
+        for args in profiled:
+            profile_phase(*args)
         del pt, pd, profiled
         gc.collect()
         torch.cuda.empty_cache()
@@ -1925,6 +2156,125 @@ def families_phase(smi):
     launches = family_serves(smi)
     family_check_phase()
     emit({"phase": "families-total", "seconds": time.monotonic() - t0})
+    return launches
+
+
+# -- recurrent phase -----------------------------------------------------
+
+RECURRENT_SERVES = (
+    FamilyServe("ssm-serve", "mamba2-130m", "model", "none", None, False,
+                1.0, ("fused_kld_accept",)),
+    FamilyServe("ssm-serve-pipe", "mamba2-130m", "model", "none", None, True,
+                1.0, ("fused_kld_accept",), twin="ssm-serve", equal=True),
+    FamilyServe("ssm-serve-ngram", "mamba2-130m", "ngram", "none", None,
+                False, NGRAM_DAMP, ("ngram_suffix_propose",)),
+    FamilyServe("hybrid-serve", "recurrentgemma-2b", "model", "none", 32,
+                False, 1.0, B1_B2),
+    FamilyServe("hybrid-serve-dense", "recurrentgemma-2b", "model", "none",
+                None, False, 1.0,
+                ("ragged_verify_attention", "fused_kld_accept")),
+    # rows of 2030-2040 + 48 tokens on the 2064-slot ring: the window-2048
+    # mask bites and the ring wraps
+    FamilyServe("hybrid-serve-window", "recurrentgemma-2b", "model", "none",
+                None, False, 1.0,
+                ("ragged_verify_attention", "fused_kld_accept"),
+                prompts=(2030, 2036, 2040), max_len=2112, new=48),
+)
+RECURRENT_PROFILED = ("ssm-serve", "hybrid-serve")
+
+
+class RecurrentCheck(NamedTuple):
+    """One reduced-width card == CPU check of a recurrent family:
+    ``arch``'s ``reduced()`` at ``layers`` (None: its own 2), its
+    ``draft()`` as the model drafter, dsde, on the pool (``nblocks``
+    blocks of ``bs``) or the ring (``nblocks`` None)."""
+    name: str
+    arch: str
+    layers: Optional[int]
+    nblocks: Optional[int]
+    pipelined: bool = False
+    bs: int = 16
+    max_len: int = 128
+    new: int = 24
+    prompt: int = 30
+
+
+RECURRENT_CHECKS = (
+    RecurrentCheck("ssm-ring", "mamba2-130m", None, None),
+    RecurrentCheck("ssm-ring-pipe", "mamba2-130m", None, None, True),
+    # 5 layers: one (rec, rec, attn) group and a tail of two (the reduced
+    # 2-layer stack has no attention layer)
+    RecurrentCheck("hybrid5-pool", "recurrentgemma-2b", 5, 16),
+    # window 64: a ring of 80 slots that rows of 30-40 + 56 tokens wrap
+    RecurrentCheck("hybrid5-ring-wraps", "recurrentgemma-2b", 5, None,
+                   new=56),
+    # 8 blocks of 8 for two rows of 9-12 + 24 tokens (5 blocks each once
+    # grown): forced preemption
+    RecurrentCheck("hybrid5-pool-preempt", "recurrentgemma-2b", 5, 8, bs=8,
+                   max_len=64, prompt=9),
+)
+
+
+def recurrent_check_phase() -> None:
+    """``RECURRENT_CHECKS`` on the card (kernels) and on the CPU (plain
+    versions): equal greedy streams; prompts of ``prompt`` + 2i tokens
+    (request i)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    for chk in RECURRENT_CHECKS:
+        cfg = get_config(chk.arch).reduced()
+        if chk.layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=chk.layers)
+        pt = init_params(cfg, seed=2, device="cpu")
+        pd = init_params(cfg.draft(), seed=3, device="cpu")
+        outs, info = {}, {}
+        for device in ("cuda", "cpu"):
+            rs = [Request(i, prompt=list(range(3 + i, 3 + chk.prompt + 2 * i)),
+                          max_new_tokens=chk.new) for i in range(4)]
+            eng = ServingEngine(
+                pt, cfg, pd, cfg.draft(), SpecDecodeConfig(),
+                ServingConfig(max_batch_size=2, max_seq_len=chk.max_len,
+                              paged_kv=chk.nblocks is not None,
+                              kv_block_size=chk.bs,
+                              num_kv_blocks=chk.nblocks,
+                              pipelined=chk.pipelined),
+                device=device)
+            m = eng.run(rs)
+            outs[device] = [r.output for r in rs]
+            info[device] = (m["preemptions"],
+                            max(len(r.prompt) + len(r.output) for r in rs))
+        ring = (None if chk.nblocks is not None or cfg.family != "hybrid"
+                else min(chk.max_len, cfg.rglru.local_attention_window + 16))
+        emit({"phase": "recurrent-check",
+              "what": "reduced-width greedy streams, card vs CPU",
+              "check": chk.name, "arch": cfg.name, "layers": cfg.num_layers,
+              "layout": "paged" if chk.nblocks is not None else "dense",
+              "pipelined": chk.pipelined, "ring_slots": ring,
+              "preemptions": info["cuda"][0], "max_tokens": info["cuda"][1],
+              "equal": outs["cuda"] == outs["cpu"]})
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"recurrent check {chk.name}: card and CPU "
+                                 f"streams differ: {outs}")
+        if chk.name.endswith("preempt") and info["cuda"][0] < 1:
+            raise AssertionError(f"recurrent check {chk.name}: no preemption")
+        if ring is not None and info["cuda"][1] <= ring:
+            raise AssertionError(f"recurrent check {chk.name}: rows of "
+                                 f"{info['cuda'][1]} tokens never wrap a "
+                                 f"{ring}-slot ring")
+
+
+def recurrent_phase(smi):
+    """The full-width serves and the reduced-width checks of the
+    recurrent families; returns the serves' launches."""
+    t0 = time.monotonic()
+    launches = family_serves(smi, RECURRENT_SERVES, RECURRENT_PROFILED)
+    recurrent_check_phase()
+    emit({"phase": "recurrent-total", "seconds": time.monotonic() - t0})
     return launches
 
 
@@ -2314,8 +2664,8 @@ def train_phase(smi):
 # the device kernels of the port's CUDA sources, by name; the attention
 # kernels' names carry their addressing policy (pv::TableAddr for B1 and
 # B4, pv::RingAddr for B5) as the first template argument
-PORT_KERNELS = ("pv::verify_kernel", "pv::merge_kernel", "kld_accept_kernel",
-                "ngram_match_kernel")
+PORT_KERNELS = ("pv::verify_kernel", "pv::wide_kernel", "pv::merge_kernel",
+                "kld_accept_kernel", "ngram_match_kernel")
 
 
 def profile_phase(serve, engine, reqs) -> None:
@@ -2458,7 +2808,8 @@ def main() -> int:
     contract = kernel_phase(flush)
     del flush
     launches = serve_phase()
-    for phase in (frontdoor_phase, families_phase, train_phase):
+    for phase in (frontdoor_phase, families_phase, recurrent_phase,
+                  train_phase):
         for kernel, n in phase(smi).items():
             launches[kernel] += n
 

@@ -20,6 +20,8 @@ _ALIAS = {
     "qwen3-32b": "qwen3_32b",
     "paper-llama-pair": "paper_llama_pair",
     "paper-gemma-pair": "paper_gemma_pair",
+    "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

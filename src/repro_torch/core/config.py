@@ -16,7 +16,7 @@ from typing import Optional
 
 # the model families the port runs (of the reference's dense, moe, ssm,
 # hybrid, vlm and audio)
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -33,13 +33,35 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block configuration."""
+    state_size: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk_size: int = 256
+    conv_width: int = 4
+    # number of SSD heads = expand * d_model // head_dim (derived)
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU block configuration."""
+    lru_width: int = 2560
+    conv_width: int = 4
+    # recurrent blocks per attention block: 2 is [rec, rec, attn] repeating
+    blocks_per_attention: int = 2
+    local_attention_window: int = 2048
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description.  The port runs the dense and MoE
-    families; the fields of the other families (SSM, RG-LRU, M-RoPE,
-    encoder-decoder, modality front ends) come with their slices."""
+    """Architecture description.  The port runs the dense, MoE, SSM
+    (Mamba-2) and hybrid (RG-LRU + local attention) families; the fields
+    of the others (M-RoPE, encoder-decoder, modality front ends) come with
+    their slices."""
 
     name: str
-    family: str                      # dense | moe
+    family: str                      # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -56,6 +78,8 @@ class ModelConfig:
     # query heads padded to this count (the extra heads' wo rows are zero)
     q_head_pad: Optional[int] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     source: str = ""
@@ -63,6 +87,16 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if long-context decode is natively tractable."""
+        return (self.family in ("ssm", "hybrid")
+                or self.attention_window is not None)
 
     def padded_vocab(self, multiple: int = 2048) -> int:
         """Vocab padded to a multiple with at least one spare row serving
@@ -72,7 +106,8 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Small variant of the same architecture (<= 2 layers, d_model
-        <= 256, <= 4 experts), identical to the reference's
+        <= 256, <= 4 experts, SSM state <= 32, RG-LRU width d_model and
+        window 64), identical to the reference's
         ``reduced()``."""
         d_model = min(self.d_model, 256)
         num_heads = min(self.num_heads, 4)
@@ -96,6 +131,13 @@ class ModelConfig:
                 top_k=min(self.moe.top_k, 2),
                 expert_d_ff=min(self.moe.expert_d_ff, 256),
             )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, state_size=min(self.ssm.state_size, 32),
+                head_dim=32, chunk_size=32)
+        if self.rglru is not None:
+            kw["rglru"] = dataclasses.replace(
+                self.rglru, lru_width=d_model, local_attention_window=64)
         if self.attention_window is not None:
             kw["attention_window"] = min(self.attention_window, 64)
         return dataclasses.replace(self, **kw)
@@ -103,7 +145,8 @@ class ModelConfig:
     def draft(self) -> "ModelConfig":
         """The same-family draft (about 1/4 of the target's depth and
         width, same vocabulary), identical to the reference's
-        ``draft()``.  The draft of an MoE target is dense."""
+        ``draft()``.  The draft of an MoE target is dense; an SSM or
+        hybrid target's draft keeps the family."""
         d_model = max(128, self.d_model // 4)
         num_heads = max(2, self.num_heads // 4)
         kw = dict(
@@ -119,6 +162,10 @@ class ModelConfig:
             kw["moe"] = None
             kw["family"] = "dense"
             kw["d_ff"] = max(256, self.moe.expert_d_ff)
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, head_dim=32)
+        if self.rglru is not None:
+            kw["rglru"] = dataclasses.replace(self.rglru, lru_width=d_model)
         return dataclasses.replace(self, **kw)
 
 

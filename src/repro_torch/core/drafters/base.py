@@ -108,11 +108,13 @@ class Drafter:
         drafts with the target itself."""
         raise NotImplementedError
 
-    def commit(self, tokens: torch.Tensor, snapshot: State, drafted: State,
-               n_committed: torch.Tensor) -> State:
+    def commit(self, params_d, tokens: torch.Tensor, snapshot: State,
+               drafted: State, n_committed: torch.Tensor) -> State:
         """Commit ``n_committed[b]`` of the round's ``tokens [B, K+1]``
         (pending + proposals).  ``snapshot`` is the pre-round cache,
-        ``drafted`` the one :meth:`propose` returned."""
+        ``drafted`` the one :meth:`propose` returned, ``params_d`` the
+        draft params (a recurrent draft model re-advances from the
+        snapshot)."""
         return snapshot
 
     def reset_rows(self, cache: State, rows: torch.Tensor) -> State:

@@ -30,7 +30,10 @@ def autoregressive_draft_loop(params, cfg: ModelConfig, cache: dict,
     """K+1 single-token decode steps of ``params`` against ``cache`` (the
     last step only writes the last draft token's KV, so the cache is
     complete on total acceptance).  Row validity ``j < sl_i`` gives the
-    ragged SL inside the bucket.  Returns (draft_tokens [B,K],
+    ragged SL inside the bucket.  ``cache`` itself is left as it was but
+    for in-place K/V writes past its lengths: each step's forward returns
+    new recurrent tensors, so a recurrent draft's commit re-advances from
+    the untouched pre-round state.  Returns (draft_tokens [B,K],
     draft_logits [B,K,V], drafted_cache, eff_sl [B])."""
     b = pending.shape[0]
     dev = pending.device
@@ -130,5 +133,6 @@ class ModelDrafter(Drafter):
         return DraftProposal(tokens=toks, logits=logits, cache=cache,
                              eff_sl=eff)
 
-    def commit(self, tokens, snapshot, drafted, n_committed):
-        return commit_model(snapshot, drafted, n_committed)
+    def commit(self, params_d, tokens, snapshot, drafted, n_committed):
+        return commit_model(params_d, self.cfg_d, tokens, snapshot, drafted,
+                            n_committed)

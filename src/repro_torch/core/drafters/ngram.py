@@ -74,7 +74,7 @@ class NGramDrafter(Drafter):
         return DraftProposal(tokens=toks, logits=logits, cache=draft_cache,
                              eff_sl=cnt)
 
-    def commit(self, tokens, snapshot, drafted, n_committed):
+    def commit(self, params_d, tokens, snapshot, drafted, n_committed):
         buf, ln = snapshot["tokens"], snapshot["length"]
         b, h = buf.shape
         t = tokens.shape[1]

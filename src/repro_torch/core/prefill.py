@@ -45,13 +45,30 @@ def prefill_rows(params, cfg: ModelConfig, tokens: torch.Tensor,
     return rows, _last_logits(logits, prompt_lens)
 
 
+def _scatter_recurrent(out: dict, big: dict, rows: dict,
+                       idx: torch.Tensor) -> None:
+    """The recurrent rows (``ssd``, ``lru``, ``conv`` ``[layers, batch,
+    ...]``) of a prefilled group into NEW tensors at the slots ``idx``
+    (never in place: a round keeps the pre-round cache as its commit
+    snapshot).  The group's rows start from zero state, so a slot that
+    was preempted and readmitted starts from its prompt, never from the
+    old occupant's state."""
+    for key in cache_lib.RECURRENT_KEYS:
+        if key in big:
+            out[key] = big[key].index_copy(1, idx, rows[key].to(big[key].dtype))
+
+
 def set_slots(big: dict, rows: dict, idx: torch.Tensor) -> dict:
     """Scatter a :func:`prefill_rows` group into the batched ring at the
-    R slots ``idx``: the rings and ``kv_pos`` in place, ``length`` into
-    a new tensor (a round keeps the pre-round dict as its snapshot)."""
+    R slots ``idx``: the rings and ``kv_pos`` in place, ``length`` and
+    the recurrent rows into new tensors (a round keeps the pre-round
+    dict as its snapshot)."""
     idx = idx.long()
     out = dict(big)
+    _scatter_recurrent(out, big, rows, idx)
     for key, val in big.items():
+        if key in cache_lib.RECURRENT_KEYS:
+            continue
         if key == "length":
             out[key] = val.clone()
             out[key][idx] = rows[key]
@@ -72,12 +89,13 @@ def prefill_paged_rows(params, cfg: ModelConfig, pool_k: torch.Tensor,
     """Prefill R right-padded prompts ``tokens [R, S]`` straight into
     their allocated blocks (``table_rows [R, max_blocks]``; the pools,
     and the scale pools ``k_scale``/``v_scale`` of an int8 pool, are
-    written in place).  Returns (cache view with per-row ``length``,
+    written in place; a hybrid stack's recurrent rows are fresh rows of
+    the view).  Returns (cache view with per-row ``length``,
     last-token logits [R, V])."""
     mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
             < prompt_lens[:, None])
     view = cache_lib.paged_prefill_view(pool_k, pool_v, kv_pos, table_rows,
-                                        k_scale, v_scale)
+                                        k_scale, v_scale, cfg=cfg)
     logits, view = forward(params, cfg, tokens, cache=view, mode="prefill",
                            input_mask=mask)
     view["length"] = prompt_lens.to(torch.int32)
@@ -121,10 +139,13 @@ def prefill_paged_tail(params, cfg: ModelConfig, pool_k: torch.Tensor,
 def scatter_paged_rows(big: dict, rows: dict, idx: torch.Tensor) -> dict:
     """Fold a :func:`prefill_paged_rows` or :func:`prefill_paged_tail`
     result into the batched cache:
-    the pools are the same tensors, per-row ``length`` is scattered at
-    ``idx``.  Block tables are the engine's to write."""
+    the pools are the same tensors, per-row ``length`` and the hybrid
+    family's recurrent rows (``lru``, ``conv``) are scattered at ``idx``
+    into new tensors.  Block tables are the engine's to write."""
     out = dict(big)
+    idx = idx.long()
     length = big["length"].clone()
-    length[idx.long()] = rows["length"]
+    length[idx] = rows["length"]
     out["length"] = length
+    _scatter_recurrent(out, big, rows, idx)
     return out

@@ -11,7 +11,10 @@ dense ring or the block-paged pool alike.
   4. post-hoc     — KL per proposed position (the fused KLD kernel on
                     CUDA) -> policy.observe;
   5. commit       — both caches advance by 1 + n_accepted (length
-                    arithmetic; the pools already hold the K/V);
+                    arithmetic: the pools already hold the K/V; a
+                    recurrent model re-advances its state from the
+                    pre-round snapshot over the verified tokens, the
+                    rejected steps masked);
   6. termination  — EOS / token budget truncation, ``done`` raised
                     device-side;
   7. predict      — policy.predict (+ SL_cap) for the next round.
@@ -151,9 +154,10 @@ def spec_decode_round_impl(params_t, params_d, cfg_t: ModelConfig,
 
     # --- 5. commit ------------------------------------------------------------
     n_committed = (1 + rej.num_accepted) * live.to(torch.int32)
-    t_cache = commit(state.target_cache, t_cache_v, n_committed)
-    d_cache = (drafter.commit(verify_tokens, state.draft_cache, drafted_cache,
-                              n_committed)
+    t_cache = commit(params_t, cfg_t, verify_tokens, state.target_cache,
+                     t_cache_v, n_committed)
+    d_cache = (drafter.commit(params_d, verify_tokens, state.draft_cache,
+                              drafted_cache, n_committed)
                if k > 0 else state.draft_cache)
 
     # --- 6. device-side termination -------------------------------------------

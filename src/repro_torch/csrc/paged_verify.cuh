@@ -90,6 +90,11 @@
 //   operands alike, so fragments load as 8-byte words and the softmax
 //   probabilities feed PV straight from the QK^T accumulators.
 //
+// * Wide heads.  D 256 and 320 (recurrentgemma-2b's local attention and
+//   its draft) take `wide_kernel`, a separate CUDA-core kernel at the end
+//   of this file with the same grid, splits, partials and merge; the
+//   tensor-core body keeps MT * D <= 256 and its bits at D <= 128.
+//
 // Shared memory (bytes, `Layout::kBytes`): the stage ring (or, after the
 // sweep, the warps' merge buffers, whichever is larger), q in operand form,
 // the rows' positions, two stages of table entries (the ring: the warps'
@@ -783,6 +788,224 @@ int launch_mt(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Wide heads (D 256 and 320, fp32 or bf16 storage): recurrentgemma-2b's
+// attention layers (H 10 / KV 1 / D 256) and its draft's (H 2 / KV 1 /
+// D 320).  The tensor-core body above keeps MT * D <= 256 accumulators a
+// thread (acc[MT][D/8][4]) and so stops at D 128 (one row tile at 256, none
+// at 320); these head dims take a separate, simple CUDA-core kernel, and the
+// bits of D <= 128 are untouched.
+//
+// Same function, grid (B, KV, S), split ranges, partial format and merge as
+// `verify_kernel`, so `merge_kernel` combines its splits.  A block has D
+// threads; thread c owns head-dim column c of the PV accumulator for every
+// query row of the launch (at most kWideRows = 32: the wrapper's query
+// groups cut G * T into launches of <= 32 rows).  A stage is kWideTile = 32
+// logical slots (the pool's table order, or the ring's slots); their
+// positions are read first, and a stage with no slot valid for any query of
+// the call is skipped whole (kv_pos-first, as B5's ring skip; no K/V read).
+// A live stage's K and V rows are loaded (converted to fp32) into shared
+// memory, K rows padded to D + 1 floats so the 32 slots a warp reads sit in
+// 32 banks; each (row, slot) score is an fp32 dot product over D (fmaf, in
+// column order: no tensor-core rounding, so fp32 is exact to fp32 sums);
+// then one warp per row runs the online softmax over the stage, and thread c
+// folds the stage's probabilities into column c of every row.  No atomics:
+// two launches give the same bits.
+//
+// Shared memory at D 320: q 32 x 320, K 32 x 321, V 32 x 320, P 32 x 33
+// floats, about 127 KB; at D 256 about 102 KB (opted in above 48 KB).
+constexpr int kWideRows = 32;            // query rows a launch
+constexpr int kWideTile = 32;            // slots a stage
+
+template <int D>
+struct WideLayout {
+  static constexpr int kQ = kWideRows * D;
+  static constexpr int kKRow = D + 1;
+  static constexpr int kK = kWideTile * kKRow;
+  static constexpr int kV = kWideTile * D;
+  static constexpr int kPRow = kWideTile + 1;
+  static constexpr int kP = kWideRows * kPRow;
+  static constexpr int kFloats = kQ + kK + kV + kP + 3 * kWideRows;
+  static constexpr int kBytes = 4 * kFloats + 4 * (kWideRows + 2 * kWideTile);
+  static_assert(D % 32 == 0, "a block is D threads, whole warps");
+};
+
+template <class Addr, class T, int D>
+__global__ void __launch_bounds__(D)
+wide_kernel(const Args a) {
+  using L = WideLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);      // [rows][D]
+  float* k_s = q_s + L::kQ;                         // [tile][D + 1]
+  float* v_s = k_s + L::kK;                         // [tile][D]
+  float* p_s = v_s + L::kV;                         // [rows][tile + 1]
+  float* m_s = p_s + L::kP;                         // [rows]
+  float* l_s = m_s + kWideRows;
+  float* al_s = l_s + kWideRows;
+  int* qp_s = reinterpret_cast<int*>(al_s + kWideRows);
+  int* pos_s = qp_s + kWideRows;                    // [tile], -1 = not valid
+  int* row_s = pos_s + kWideTile;                   // storage row, -1 = none
+
+  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
+  const int c = threadIdx.x, lane = c & 31, warp = c >> 5;
+  const int grp = a.n_h / a.n_kv;
+  const int rows = grp * a.n_t;
+  const int bs = 1 << a.bs_log2;
+  const int per = (a.maxb + a.splits - 1) / a.splits;
+  const int e_begin = min(split * per, a.maxb);
+  const int e_end = min(e_begin + per, a.maxb);
+  const int s_end = e_end << a.bs_log2;
+  const T* q = static_cast<const T*>(a.q);
+  const T* pk = static_cast<const T*>(a.pk);
+  const T* pvv = static_cast<const T*>(a.pv);
+
+  for (int r = 0; r < rows; ++r)
+    q_s[r * D + c] =
+        to_f(q[((size_t)(b * a.n_t + r / grp) * a.n_h + kvh * grp + r % grp) * D + c]);
+  if (c < kWideRows) {
+    qp_s[c] = c < rows ? a.q_pos[b * a.n_t + c / grp] : -1;
+    m_s[c] = kNegInf;
+    l_s[c] = 0.f;
+  }
+  __syncthreads();
+  int qp_min = 0x7fffffff, qp_max = -1;
+  for (int t = 0; t < a.n_t; ++t) {
+    qp_min = min(qp_min, qp_s[t * grp]);
+    qp_max = max(qp_max, qp_s[t * grp]);
+  }
+
+  float acc[kWideRows];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) acc[r] = 0.f;
+
+  for (int s0 = e_begin << a.bs_log2; s0 < s_end; s0 += kWideTile) {
+    bool live = false;
+    if (c < kWideTile) {
+      const int ls = s0 + c;
+      int row = -1, p = -1;
+      if (ls < s_end) {
+        if constexpr (Addr::kRing) {
+          if (ls < a.ring_w) row = b * a.ring_w + ls;
+        } else {
+          const int e = a.table[(size_t)b * a.maxb + (ls >> a.bs_log2)];
+          if (e >= 0) row = e * bs + (ls & (bs - 1));
+        }
+        if (row >= 0) p = a.kv_pos[row];
+      }
+      live = p >= 0 && p <= qp_max && (a.window <= 0 || p > qp_min - a.window);
+      pos_s[c] = live ? p : -1;
+      row_s[c] = live ? row : -1;
+    }
+    if (!__syncthreads_or(live)) continue;          // block-uniform
+
+#pragma unroll 4
+    for (int s = 0; s < kWideTile; ++s) {
+      const int row = row_s[s];
+      float kx = 0.f, vx = 0.f;
+      if (row >= 0) {
+        const size_t off = ((size_t)row * a.n_kv + kvh) * D + c;
+        kx = to_f(pk[off]);
+        vx = to_f(pvv[off]);
+      }
+      k_s[s * L::kKRow + c] = kx;
+      v_s[s * D + c] = vx;
+    }
+    __syncthreads();
+
+    // scores: (row, slot) pairs, a warp's 32 pairs share a row
+    for (int i = c; i < rows * kWideTile; i += D) {
+      const int r = i / kWideTile, s = i % kWideTile;
+      const int p = pos_s[s], qp = qp_s[r];
+      float sc = kNegInf;
+      if (p >= 0 && p <= qp && (a.window <= 0 || qp - p < a.window)) {
+        const float* qr = q_s + r * D;
+        const float* kr = k_s + s * L::kKRow;
+        float dot = 0.f;
+#pragma unroll 8
+        for (int k = 0; k < D; ++k) dot = fmaf(qr[k], kr[k], dot);
+        sc = dot * a.scale;
+      }
+      p_s[r * L::kPRow + s] = sc;
+    }
+    __syncthreads();
+
+    // online softmax, one warp a row, lane = slot; a masked slot is kNegInf
+    for (int r = warp; r < rows; r += D / 32) {
+      const float sc = p_s[r * L::kPRow + lane];
+      float mx = sc;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float pr = sc > kNegInf ? expf(sc - m_new) : 0.f;
+      float sum = pr;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      p_s[r * L::kPRow + lane] = pr;
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        al_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r) {
+      if (r < rows) {
+        float o = acc[r] * al_s[r];
+        const float* pr = p_s + r * L::kPRow;
+#pragma unroll 8
+        for (int s = 0; s < kWideTile; ++s) o = fmaf(pr[s], v_s[s * D + c], o);
+        acc[r] = o;
+      }
+    }
+    __syncthreads();                                // the stage is free again
+  }
+
+  T* out = static_cast<T*>(a.out);
+  const size_t parts = (size_t)a.n_b * a.n_kv * a.splits * rows;
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    if (r >= rows) continue;
+    if (a.splits == 1) {
+      store(&out[((size_t)(b * a.n_t + r / grp) * a.n_h + kvh * grp + r % grp) * D + c],
+            acc[r] / fmaxf(l_s[r], 1e-30f));
+    } else {
+      const size_t p = ((size_t)(b * a.n_kv + kvh) * a.splits + split) * rows + r;
+      a.part[p * D + c] = acc[r];
+      if (c == 0) {
+        a.part[parts * D + p] = m_s[r];
+        a.part[parts * (D + 1) + p] = l_s[r];
+      }
+    }
+  }
+}
+
+template <class Addr, class T, int D>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  using L = WideLayout<D>;
+  auto kernel = wide_kernel<Addr, T, D>;
+  static unsigned opted = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!(opted >> (dev & 31) & 1u)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    opted |= 1u << (dev & 31);
+  }
+  kernel<<<dim3(a.n_b, a.n_kv, a.splits), D, L::kBytes, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return (int)e;
+  const int rows = (a.n_h / a.n_kv) * a.n_t;
+  merge_kernel<Addr, T><<<dim3(rows, a.n_kv, a.n_b), D, 0, stream>>>(a, D);
+  return (int)cudaGetLastError();
+}
+
 template <class Addr, class Q, class KT, int D>
 int launch_d(const Args& a, int mt, cudaStream_t stream) {
   if (mt == 1) return launch_mt<Addr, Q, KT, D, 1>(a, stream);
@@ -796,8 +1019,9 @@ int launch_d(const Args& a, int mt, cudaStream_t stream) {
 
 // Launches on `stream` (the split kernel and, for S > 1, the merge);
 // returns cudaGetLastError() after the last launch.  Takes D 32, 64 or 128,
-// G*T <= 64 rows (<= 32 at D 128), BS a power of two <= 32 (RingAddr:
-// units of 16 slots, MAXB = ceil(W / 16)), S >= 1.
+// G*T <= 64 rows (<= 32 at D 128), and, with fp32 or bf16 storage, D 256
+// or 320 at G*T <= 32 rows (`wide_kernel`); BS a power of two <= 32
+// (RingAddr: units of 16 slots, MAXB = ceil(W / 16)), S >= 1.
 template <class Addr, class Q, class KT>
 int launch(const Args& a, int d, cudaStream_t stream) {
   const int rows = (a.n_h / a.n_kv) * a.n_t;
@@ -806,6 +1030,13 @@ int launch(const Args& a, int d, cudaStream_t stream) {
   if (Addr::kRing && ((1 << a.bs_log2) != RingAddr::kChunk || a.ring_w < 0
                       || a.maxb != (a.ring_w + RingAddr::kChunk - 1) / RingAddr::kChunk))
     return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<Q, KT>::value) {
+    if (d == 256 || d == 320) {
+      if (rows > kWideRows) return (int)cudaErrorInvalidValue;
+      return d == 256 ? launch_wide<Addr, Q, 256>(a, stream)
+                      : launch_wide<Addr, Q, 320>(a, stream);
+    }
+  }
   const int mt = (rows + 15) / 16;
   if (d == 32) return launch_d<Addr, Q, KT, 32>(a, mt, stream);
   if (d == 64) return launch_d<Addr, Q, KT, 64>(a, mt, stream);

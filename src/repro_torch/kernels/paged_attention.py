@@ -109,24 +109,34 @@ def split_scratch(b: int, t: int, h: int, kv: int, d: int, splits: int,
     return buf.data_ptr()
 
 
+# query rows (G * T) one launch takes a KV head, by head dim: the
+# tensor-core body's M tile (64 rows, 32 at D 128) and, at D 256 and 320,
+# the wide CUDA-core kernel's 32 (csrc/paged_verify.cuh)
+ROWS_PER_LAUNCH = {32: 64, 64: 64, 128: 32, 256: 32, 320: 32}
+
+
 def check_verify_shape(h: int, kv: int, t: int, d: int, bs: int) -> None:
-    """What the paged kernels take: D 32, 64 or 128, G * T <= 64 query
-    rows per KV head (<= 32 at D 128), a block size that is a power of
-    two <= 32.  Raises ValueError on anything else."""
+    """What one launch of the paged kernels takes: D 32, 64, 128, 256 or
+    320 (the int8 pool's kernel stops at 128), G * T query rows per KV
+    head within :data:`ROWS_PER_LAUNCH` (64; 32 at D 128 and above), a
+    block size that is a power of two <= 32.  Raises ValueError on
+    anything else."""
     rows = (h // kv) * t
-    if (d not in (32, 64, 128) or rows > (32 if d == 128 else 64)
+    if (d not in ROWS_PER_LAUNCH or rows > ROWS_PER_LAUNCH[d]
             or not 0 < bs <= 32 or bs & (bs - 1)):
-        raise ValueError(f"paged verify kernel takes D 32/64/128, G*T <= 64 "
-                         f"(<= 32 at D 128), block size a power of two <= 32; "
-                         f"got D {d}, G*T {rows}, block size {bs}")
+        raise ValueError(f"paged verify kernel takes D 32/64/128/256/320, "
+                         f"G*T <= 64 (<= 32 at D >= 128), block size a "
+                         f"power of two <= 32; got D {d}, G*T {rows}, block "
+                         f"size {bs}")
 
 
 def query_groups(h: int, kv: int, t: int, d: int):
     """The verify kernels' launches over the T query positions:
     consecutive positions [begin, end) whose G * (end - begin) rows fit
-    one launch (:func:`check_verify_shape`: 64 rows a KV head, 32 at D
-    128); one group at the serves' shapes."""
-    step = max(1, (32 if d == 128 else 64) // max(1, h // kv))
+    one launch (:data:`ROWS_PER_LAUNCH`: 64 rows a KV head, 32 at D 128
+    and above); one group at smollm's shapes, four for recurrentgemma-2b's
+    T-11 verify pass (G 10: 3 positions a launch)."""
+    step = max(1, ROWS_PER_LAUNCH.get(d, 64) // max(1, h // kv))
     return [(i, min(i + step, t)) for i in range(0, t, step)]
 
 

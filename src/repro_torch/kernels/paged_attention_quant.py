@@ -100,6 +100,9 @@ def paged_ragged_verify_attention_quant_cuda(
     n, bs, kv, d2 = pool_k.shape
     maxb = block_table.shape[1]
     dev = q.device
+    if d > 128:
+        # the reference has no int8 pool for the hybrid family's wide heads
+        raise ValueError(f"int8 paged attention kernel takes D <= 128, got {d}")
     if dev.type != "cuda":
         raise ValueError(f"int8 paged attention kernel needs CUDA tensors, got {dev}")
     if q.dtype not in _DTYPES:

@@ -1,5 +1,5 @@
-"""The KV caches of the port (``repro.models.cache``): the dense ring
-and the block-paged pool.
+"""The caches of the port (``repro.models.cache``): the dense KV ring,
+the block-paged KV pool, and the recurrent families' per-slot state.
 
 A **dense ring** cache (``paged_kv=False``, the reference's default) is a
 dict of tensors:
@@ -37,6 +37,21 @@ overwritten by the next write at the same position or masked by
 tensor, because a round keeps the pre-round cache dict as its commit
 snapshot.
 
+Recurrent state (the ``ssm`` and ``hybrid`` families) is O(1) a
+sequence and stays dense per slot in both layouts:
+
+* ``ssm`` (attention-free, no ``kv_pos``): ``ssd [L, B, H, P, N]`` fp32
+  and the conv cache ``conv [L, B, W-1, conv_dim]``; it has no paged
+  layout (the reference's ``supports_paged`` is false for it);
+* ``hybrid``: K/V rings or pools for the attention layers only (layer
+  axis = attention index), the ring ``min(max_len, window + RING_SLACK)``
+  wide, plus ``lru [n_rec, B, lru_width]`` fp32 and ``conv [n_rec, B,
+  cw-1, lru_width]``; no int8 pool (``supports_kv_quant``).
+
+These leaves are never written in place: the model returns new tensors
+for them, because the round's commit re-advances from the pre-round
+cache (``models/transformer.py``, ``commit``).
+
 The pools and ``kv_pos`` hold ONE block more than the allocator hands
 out: block ``num_blocks`` is the drop target.  The reference drops a
 write by scattering it to the out-of-range flat slot ``num_blocks * bs``
@@ -52,6 +67,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.config import FAMILIES, ModelConfig
+from repro_torch.models.ssm import ssm_dims
 
 CacheT = Dict[str, Any]
 
@@ -72,6 +88,36 @@ def _kv_window(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
+def _local_window(cfg: ModelConfig, max_len: int) -> int:
+    """The hybrid family's ring: its local attention window plus slack."""
+    return min(max_len, cfg.rglru.local_attention_window + RING_SLACK)
+
+
+# the per-slot recurrent leaves (never written in place)
+RECURRENT_KEYS = ("ssd", "lru", "conv")
+
+
+def hybrid_layer_is_attention(cfg: ModelConfig, i: int) -> bool:
+    """RecurrentGemma's 1:2 pattern: (rec, rec, attn) repeating."""
+    bpa = cfg.rglru.blocks_per_attention
+    return i % (bpa + 1) == bpa
+
+
+def hybrid_layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_attention, n_recurrent) layers of a hybrid stack: the layer
+    axes of its K/V and of its recurrent rows."""
+    n_attn = sum(1 for i in range(cfg.num_layers)
+                 if hybrid_layer_is_attention(cfg, i))
+    return n_attn, cfg.num_layers - n_attn
+
+
+def paged_kv_layers(cfg: ModelConfig) -> int:
+    """Layer-axis size of the K/V rings or pools."""
+    if cfg.family == "hybrid":
+        return hybrid_layer_counts(cfg)[0]
+    return cfg.num_layers
+
+
 def eff_kv_heads(cfg: ModelConfig) -> int:
     """KV heads the cache stores: ``kv_head_pad`` when set (each real
     head replicated), else ``num_kv_heads``."""
@@ -83,20 +129,47 @@ def kv_buf_shape(cfg: ModelConfig, batch: int, window: int,
     return (layers, batch, window, eff_kv_heads(cfg), cfg.resolved_head_dim)
 
 
+def recurrent_rows(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                   device="cpu") -> CacheT:
+    """Fresh (zero) per-slot recurrent leaves of ``cfg``: ssd + conv for
+    ssm, lru + conv for hybrid, none for the attention families."""
+    z = dict(device=device)
+    if cfg.family == "ssm":
+        _, h, dc, n = ssm_dims(cfg)
+        return {"ssd": torch.zeros((cfg.num_layers, batch, h,
+                                    cfg.ssm.head_dim, n),
+                                   dtype=torch.float32, **z),
+                "conv": torch.zeros((cfg.num_layers, batch,
+                                     cfg.ssm.conv_width - 1, dc),
+                                    dtype=dtype, **z)}
+    if cfg.family == "hybrid":
+        _, n_rec = hybrid_layer_counts(cfg)
+        w = cfg.rglru.lru_width
+        return {"lru": torch.zeros((n_rec, batch, w), dtype=torch.float32, **z),
+                "conv": torch.zeros((n_rec, batch, cfg.rglru.conv_width - 1, w),
+                                    dtype=dtype, **z)}
+    return {}
+
+
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                  dtype=torch.float32, device="cpu") -> CacheT:
     """Fresh dense-ring cache: zero rings, every slot empty, every length
-    0 (the dense and MoE families' leaves of the reference's
-    ``cache_struct``)."""
+    0, zero recurrent rows (the reference's ``cache_struct`` for the
+    dense, MoE, SSM and hybrid families)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no dense ring in the port")
-    w = _kv_window(cfg, max_len)
-    shape = kv_buf_shape(cfg, batch, w, cfg.num_layers)
-    return {"length": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "kv_pos": torch.full((batch, w), -1, dtype=torch.int32,
-                                 device=device)}
+    cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    cache.update(recurrent_rows(cfg, batch, dtype, device))
+    if cfg.family == "ssm":
+        return cache
+    w = (_local_window(cfg, max_len) if cfg.family == "hybrid"
+         else _kv_window(cfg, max_len))
+    shape = kv_buf_shape(cfg, batch, w, paged_kv_layers(cfg))
+    cache.update(k=torch.zeros(shape, dtype=dtype, device=device),
+                 v=torch.zeros(shape, dtype=dtype, device=device),
+                 kv_pos=torch.full((batch, w), -1, dtype=torch.int32,
+                                   device=device))
+    return cache
 
 
 def cache_window(cache: CacheT) -> int:
@@ -153,9 +226,9 @@ def write_pos(kv_pos: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The port's paged plane carries every family it runs (the
-    reference's carries dense, moe, vlm and hybrid)."""
-    return cfg.family in FAMILIES
+    """Families whose attention KV can live in the shared block pool (the
+    reference's list: ssm is attention-free)."""
+    return cfg.family in ("dense", "moe", "vlm", "hybrid")
 
 
 def max_blocks_per_seq(max_len: int, block_size: int) -> int:
@@ -176,7 +249,7 @@ def is_quantized(cache: CacheT) -> bool:
 
 def supports_kv_quant(cfg: ModelConfig) -> bool:
     """The families whose paged cache is a pure attention pool (the
-    reference's list; the port carries dense and moe so far)."""
+    reference's list: not hybrid, whose recurrent rows stay fp)."""
     return cfg.family in ("dense", "moe", "vlm")
 
 
@@ -208,11 +281,12 @@ def fake_quantize_kv(x: torch.Tensor) -> torch.Tensor:
 
 def kv_block_bytes(cfg: ModelConfig, block_size: int, kv_quant: str,
                    dtype=torch.float32) -> int:
-    """Device bytes one pool block costs across all layers (K + V, plus
-    the scales of an int8 pool)."""
-    elems = cfg.num_layers * block_size * eff_kv_heads(cfg) * cfg.resolved_head_dim
+    """Device bytes one pool block costs across all paged layers (K + V,
+    plus the scales of an int8 pool)."""
+    layers = paged_kv_layers(cfg)
+    elems = layers * block_size * eff_kv_heads(cfg) * cfg.resolved_head_dim
     if kv_quant == "int8":
-        scales = cfg.num_layers * block_size * eff_kv_heads(cfg)
+        scales = layers * block_size * eff_kv_heads(cfg)
         return 2 * (elems * 1 + scales * 4)
     if kv_quant == "none":
         return 2 * elems * torch.tensor([], dtype=dtype).element_size()
@@ -233,8 +307,9 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                        kv_quant: str = "none") -> CacheT:
     """Fresh paged cache: zero pools of ``num_blocks`` blocks plus the
     drop block, every slot empty, every table entry unallocated, every
-    length 0.  ``kv_quant="int8"`` stores the pools as int8 and adds the
-    fp32 scale pools, drop block included."""
+    length 0 (a hybrid stack: pools of its attention layers, plus zero
+    dense recurrent rows).  ``kv_quant="int8"`` stores the pools as int8
+    and adds the fp32 scale pools, drop block included."""
     if not supports_paged(cfg):
         raise ValueError(f"family {cfg.family!r} has no paged KV layout")
     if kv_quant not in KV_QUANT_MODES:
@@ -242,8 +317,8 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     if kv_quant != "none" and not supports_kv_quant(cfg):
         raise ValueError(f"family {cfg.family!r} has no quantized KV layout")
     maxb = max_blocks_per_seq(max_len, block_size)
-    shape = (cfg.num_layers, num_blocks + 1, block_size, eff_kv_heads(cfg),
-             cfg.resolved_head_dim)
+    shape = (paged_kv_layers(cfg), num_blocks + 1, block_size,
+             eff_kv_heads(cfg), cfg.resolved_head_dim)
     i32 = dict(dtype=torch.int32, device=device)
     pool_dtype = torch.int8 if kv_quant == "int8" else dtype
     cache = {"length": torch.zeros((batch,), **i32),
@@ -255,6 +330,7 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
         for name in ("k_scale", "v_scale"):
             cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
                                       device=device)
+    cache.update(recurrent_rows(cfg, batch, dtype, device))
     return cache
 
 
@@ -262,7 +338,8 @@ def paged_prefill_view(pool_k: torch.Tensor, pool_v: torch.Tensor,
                        kv_pos: torch.Tensor, table_rows: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None,
-                       lengths: Optional[torch.Tensor] = None) -> CacheT:
+                       lengths: Optional[torch.Tensor] = None,
+                       cfg: Optional[ModelConfig] = None) -> CacheT:
     """Batch-R cache view over the shared pools for prefilling a group
     of requests straight into their allocated blocks: the pool leaves
     (and the scale pools of an int8 pool) ARE the live pools (writes
@@ -278,6 +355,8 @@ def paged_prefill_view(pool_k: torch.Tensor, pool_v: torch.Tensor,
             "block_table": table_rows}
     if k_scale is not None:
         view["k_scale"], view["v_scale"] = k_scale, v_scale
+    if cfg is not None:
+        view.update(recurrent_rows(cfg, rows, pool_k.dtype, pool_k.device))
     return view
 
 

@@ -1,0 +1,202 @@
+"""Mamba-2 (SSD, state-space duality) mixer of the port
+(``repro.models.ssm``).  [arXiv:2405.21060]
+
+Plain PyTorch: the reference runs these in jnp and ``lax.scan``, not in
+Pallas, so there is no kernel to port.  Two forms, as in the reference:
+
+* :func:`ssd_chunked` — the matmul ("attention-dual") form for train and
+  prefill: the intra-chunk quadratic term plus the inter-chunk state carry
+  (a Python loop over the chunks), with ``h0`` continuation and the last
+  chunk zero-padded;
+* :func:`ssd_recurrent` — the token recurrence for decode and verify (a
+  Python loop over the short token axis).
+
+A per-step ``update_mask`` turns masked steps into exact identities on
+the state (``dt = 0``: decay 1, no input) in both forms; that is how the
+speculative round commits only the accepted tokens (the masked
+re-advance, DESIGN.md §4) and how a right-padded prefill stops at each
+row's prompt.  :func:`mamba_mixer` also recomputes the conv cache at the
+accepted prefix under a mask.
+
+State: ``ssd [B, H, P, N]`` fp32 (heads, head dim, state), conv cache
+``[B, W-1, conv_dim]``.  Every state this module returns is a new tensor:
+the round keeps the pre-round cache as its commit snapshot.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.models.layers import rmsnorm
+
+
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, SSD heads, conv channels, state size)."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    num_heads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.state_size
+    return d_inner, num_heads, conv_dim, s.state_size
+
+
+def ssm_shapes(cfg: ModelConfig, normal, zeros, ones) -> dict:
+    """One Mamba-2 mixer's parameters (the reference's ``ssm_specs``),
+    built by the caller's ``normal(*shape, scale=None)`` / ``zeros`` /
+    ``ones`` leaf makers: ``wxbc`` projects x | B | C jointly (they are
+    convolved together), ``conv_w [W, conv_dim]`` at stddev 0.5."""
+    d = cfg.d_model
+    di, h, dc, _ = ssm_dims(cfg)
+    return {"wz": normal(d, di), "wxbc": normal(d, dc), "wdt": normal(d, h),
+            "dt_bias": zeros(h), "A_log": ones(h), "D": ones(h),
+            "conv_w": normal(cfg.ssm.conv_width, dc, scale=0.5),
+            "conv_b": zeros(dc), "gnorm": zeros(di), "out_proj": normal(di, d)}
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  cache: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv: x [B,S,C], w [W,C].  Returns (y, new
+    cache), the cache holding the trailing W-1 inputs."""
+    width = w.shape[0]
+    if cache is None:
+        cache = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    xp = torch.cat([cache.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = w[0] * xp[:, 0:s]
+    for i in range(1, width):
+        y = y + w[i] * xp[:, i:i + s]
+    new_cache = xp[:, xp.shape[1] - (width - 1):] if width > 1 else cache
+    return y + b, new_cache
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a [..., q] -> [..., q, q]: [i, j] = sum_{k=j+1..i} a_k below the
+    diagonal, -inf above it."""
+    cs = torch.cumsum(a, dim=-1)
+    ss = cs[..., :, None] - cs[..., None, :]
+    q = a.shape[-1]
+    tri = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return ss.masked_fill(~tri, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD.  x [b,s,h,p], dt [b,s,h] (after softplus), A [h]
+    (< 0), B, C [b,s,n] (one group).  Returns (y [b,s,h,p], h_final
+    [b,h,p,n] fp32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    xd = (x * dt[..., None]).float()                          # dt-scaled input
+    a = (dt * A).float()                                      # [b,sp,h]
+    xc = xd.reshape(b, nc, chunk, h, p)
+    ac = a.reshape(b, nc, chunk, h).permute(0, 3, 1, 2)       # [b,h,nc,q]
+    Bc = B.reshape(b, nc, chunk, n).float()
+    Cc = C.reshape(b, nc, chunk, n).float()
+
+    a_cs = torch.cumsum(ac, dim=-1)                           # [b,h,nc,q]
+    L = torch.exp(_segsum(ac))                                # [b,h,nc,q,q]
+    # intra-chunk (quadratic, attention-dual) term
+    cb = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    y_diag = torch.einsum("bcqk,bhcqk,bckhp->bcqhp", cb, L, xc)
+    # per-chunk input -> state contribution
+    decay_in = torch.exp(a_cs[..., -1:] - a_cs)               # [b,h,nc,q]
+    chunk_states = torch.einsum("bcqn,bhcq,bcqhp->bchpn", Bc, decay_in, xc)
+    chunk_decay = torch.exp(a_cs[..., -1])                    # [b,h,nc]
+    out_decay = torch.exp(a_cs)                               # [b,h,nc,q]
+
+    hprev = (x.new_zeros((b, h, p, n), dtype=torch.float32) if h0 is None
+             else h0.float())
+    y_offs = []
+    for c in range(nc):
+        y_offs.append(torch.einsum("bqn,bhpn,bhq->bqhp", Cc[:, c], hprev,
+                                   out_decay[:, :, c]))
+        hprev = chunk_decay[:, :, c, None, None] * hprev + chunk_states[:, c]
+    y_off = torch.stack(y_offs, dim=1)                        # [b,nc,q,h,p]
+    y = (y_diag + y_off).reshape(b, nc * chunk, h, p)[:, :s]
+    return y.to(x.dtype), hprev
+
+
+def ssd_recurrent(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, h0: torch.Tensor,
+                  update_mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-recurrent SSD for decode/verify.  x [b,t,h,p], dt [b,t,h],
+    B, C [b,t,n], h0 [b,h,p,n].  Steps whose ``update_mask [b,t]`` is 0
+    leave the state untouched (dt := 0)."""
+    if update_mask is not None:
+        dt = dt * update_mask[..., None]
+    af = torch.exp(dt * A)                                    # [b,t,h]
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    hs = h0.float()
+    ys = []
+    for j in range(x.shape[1]):
+        # h' = a h + (dt x) B^T ; y = C h'
+        upd = (xf[:, j] * dt[:, j, :, None])[..., None] * Bf[:, j, None, None, :]
+        hs = af[:, j, :, None, None] * hs + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, j], hs))
+    return torch.stack(ys, dim=1).to(x.dtype), hs
+
+
+def mamba_mixer(p: dict, cfg: ModelConfig, u: torch.Tensor,
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                update_mask: Optional[torch.Tensor] = None,
+                use_chunked: bool = True
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The Mamba-2 block (the caller adds the pre-norm residual).
+    u [B,S,d] -> y [B,S,d].  ``state`` carries ``{"ssd": [B,H,P,N],
+    "conv": [B,W-1,conv_dim]}`` across calls (None: stateless train)."""
+    s = cfg.ssm
+    di, h, dc, n = ssm_dims(cfg)
+    bsz, t, d = u.shape
+    flat = u.reshape(bsz * t, d)
+    z = (flat @ p["wz"]).reshape(bsz, t, di)
+    xbc_in = (flat @ p["wxbc"]).reshape(bsz, t, dc)
+    dt_raw = (flat @ p["wdt"]).reshape(bsz, t, h)
+
+    conv_cache = state["conv"] if state is not None else None
+    xbc, new_conv = causal_conv1d(xbc_in, p["conv_w"], p["conv_b"], conv_cache)
+    xbc = F.silu(xbc)
+    x, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    x = x.reshape(bsz, t, h, s.head_dim)
+
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    if update_mask is not None:
+        # masked steps are exact identities on the state in BOTH forms
+        dt = dt * update_mask[..., None]
+    A = -torch.exp(p["A_log"].float())
+
+    h0 = state["ssd"] if state is not None else None
+    if use_chunked:
+        y, hf = ssd_chunked(x, dt, A, B, C, s.chunk_size, h0)
+    else:
+        if h0 is None:
+            h0 = u.new_zeros((bsz, h, s.head_dim, n), dtype=torch.float32)
+        y, hf = ssd_recurrent(x, dt, A, B, C, h0, None)
+
+    y = y + p["D"].to(y.dtype)[:, None] * x                   # skip
+    y = y.reshape(bsz, t, di)
+    y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
+    out = (y.reshape(bsz * t, di) @ p["out_proj"]).reshape(bsz, t, d)
+    if state is None:
+        return out, None
+    if update_mask is not None:
+        # the conv cache freezes past the accepted prefix too: the window
+        # ending at each row's accepted count, from the unmasked inputs
+        w = p["conv_w"].shape[0]
+        hist = torch.cat([conv_cache.to(xbc_in.dtype), xbc_in], dim=1)
+        n_acc = update_mask.sum(dim=1).long()                 # [B]
+        idx = n_acc[:, None] + torch.arange(w - 1, device=u.device)[None]
+        new_conv = torch.gather(hist, 1, idx[..., None].expand(-1, -1, dc))
+    return out, {"ssd": hf, "conv": new_conv}

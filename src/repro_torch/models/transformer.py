@@ -1,5 +1,6 @@
-"""The dense- and MoE-family transformer of the port
-(``repro.models.transformer``).
+"""Model assembly of the port (``repro.models.transformer``): the
+dense, MoE, SSM (Mamba-2) and hybrid (RG-LRU + local attention)
+families.
 
 ``forward(params, cfg, tokens, cache=..., mode=...)`` has the
 reference's three modes:
@@ -31,9 +32,19 @@ attends through :func:`paged_ragged_attention_quant`, and prefill
 attends over the fake-quantized fresh K/V, the values any later read of
 the stored pool reconstructs (the reference's order).
 
+An SSM layer is the Mamba-2 mixer (``models/ssm.py``); the ssm cache
+has no K/V.  A hybrid stack runs RecurrentGemma's (rec, rec, attn)
+groups, then a tail of recurrent layers (``models/rglru.py``); its
+attention layers are local (window ``rglru.local_attention_window``) and
+index the K/V ring or pool by their attention index, not their layer
+index.  A prefill over right-padded prompts masks the recurrent steps of
+the padding (``update_mask``), as the reference does.
+
 The pool writes happen in place (see ``models/cache.py``); the returned
-cache dict shares the pool tensors with the one passed in.  ``commit``
-is length arithmetic on the verified cache.
+cache dict shares the pool tensors with the one passed in, but holds new
+recurrent tensors.  ``commit`` is length arithmetic on the verified
+cache for the attention families, and the reference's masked re-advance
+from the pre-round snapshot for the recurrent ones.
 """
 from __future__ import annotations
 
@@ -50,7 +61,9 @@ from repro_torch.models import cache as cache_lib
 from repro_torch.models.layers import (attend, attn_output, mlp_apply,
                                        qkv_project, rmsnorm, rope_angles)
 from repro_torch.models.moe import moe_apply
-from repro_torch.models.weights import Params
+from repro_torch.models.rglru import rglru_block
+from repro_torch.models.ssm import mamba_mixer
+from repro_torch.models.weights import Params, map_params
 
 
 # at this many tokens the reference's train mode attends blockwise
@@ -81,10 +94,10 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                    mode: str, positions: torch.Tensor, rope,
                    input_mask: Optional[torch.Tensor],
                    cache: Optional[cache_lib.CacheT],
-                   slots: Optional[torch.Tensor]) -> torch.Tensor:
+                   slots: Optional[torch.Tensor],
+                   window: Optional[int]) -> torch.Tensor:
     q, k, v = qkv_project(p, cfg, x, rope)
     b, t = x.shape[:2]
-    window = cfg.attention_window
     quant = cache is not None and cache_lib.is_quantized(cache)
     ring = cache is not None and not cache_lib.is_paged(cache)
     if quant:
@@ -135,7 +148,7 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
     residual.  Returns (x, the MoE block's aux; empty for dense)."""
     x = x + _attn_sublayer(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
                            layer, mode, positions, rope, input_mask, cache,
-                           slots)
+                           slots, cfg.attention_window)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         h, aux = moe_apply(p["moe"], cfg.moe, h)
@@ -143,29 +156,100 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
     return x + mlp_apply(p["mlp"], h), {}
 
 
+def _ssm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               state: Optional[dict], update_mask: Optional[torch.Tensor],
+               mode: str) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One Mamba-2 layer (pre-norm, residual): the chunked form in train
+    and prefill, the token recurrence in decode."""
+    h, new_state = mamba_mixer(p["mixer"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps),
+                               state=state, update_mask=update_mask,
+                               use_chunked=mode in ("train", "prefill"))
+    return x + h, new_state
+
+
+def _rec_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               state: Optional[dict], update_mask: Optional[torch.Tensor],
+               mode: str) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One RG-LRU layer of a hybrid stack: the recurrent block, then the
+    MLP, each pre-norm and residual (the scan in train and prefill, the
+    step recurrence in decode)."""
+    h, new_state = rglru_block(p["temporal"], cfg,
+                               rmsnorm(x, p["ln1"], cfg.norm_eps),
+                               state=state, update_mask=update_mask,
+                               sequential=mode == "decode")
+    x = x + h
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), new_state
+
+
+def _local_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      attn_index: int, mode: str, positions: torch.Tensor,
+                      rope, input_mask: Optional[torch.Tensor],
+                      cache: Optional[cache_lib.CacheT],
+                      slots: Optional[torch.Tensor]) -> torch.Tensor:
+    """One local-attention layer of a hybrid stack, whose K/V live at
+    ``attn_index`` of the cache's layer axis (attention layers only)."""
+    x = x + _attn_sublayer(p["temporal"], cfg,
+                           rmsnorm(x, p["ln1"], cfg.norm_eps), attn_index,
+                           mode, positions, rope, input_mask, cache, slots,
+                           cfg.rglru.local_attention_window)
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+
+
+def _run(fn, remat: bool, *args):
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def _hybrid_layers(params: Params, cfg: ModelConfig):
+    """``(kind, params, index)`` of every layer of a hybrid stack in
+    order: ``kind`` "rec" or "attn"; ``index`` the layer's place on the
+    cache's recurrent or attention layer axis.  The groups' leaves are
+    ``[ngroups, bpa, ...]`` (rec) and ``[ngroups, ...]`` (attn), the
+    tail's unstacked."""
+    bpa = cfg.rglru.blocks_per_attention
+    ngroups, tail = divmod(cfg.num_layers, bpa + 1)
+    lp = params["layers"]
+    groups = lp.get("groups")
+    out, n_rec = [], 0
+    for g in range(ngroups):
+        for j in range(bpa):
+            out.append(("rec", map_params(lambda a: a[g, j], groups["rec"]),
+                        n_rec))
+            n_rec += 1
+        out.append(("attn", map_params(lambda a: a[g], groups["attn"]), g))
+    for j in range(tail):
+        out.append(("rec", lp["tail"][j], n_rec))
+        n_rec += 1
+    return out
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache: Optional[cache_lib.CacheT] = None, mode: str = "train",
             input_mask: Optional[torch.Tensor] = None,
             write_mask: Optional[torch.Tensor] = None,
+            update_mask: Optional[torch.Tensor] = None,
             remat: bool = False, with_aux: bool = False):
     """Returns (logits [B, T, Vp] float32, cache), and the MoE blocks'
     aux losses averaged over the layers as a third item with
-    ``with_aux`` (the reference's ``aux``; empty for dense).
-    ``write_mask [B, T]`` (decode, paged pool) drops the KV writes of
-    masked positions, so a short-SL sequence never writes outside its
-    allocated blocks; a ring ignores it, as in the reference.  ``remat``
-    applies to train mode only, which raises ``NotImplementedError`` at
-    T >= 2048."""
+    ``with_aux`` (the reference's ``aux``; empty for the other
+    families).  ``write_mask [B, T]`` (decode, paged pool) drops the KV
+    writes of masked positions, so a short-SL sequence never writes
+    outside its allocated blocks; a ring ignores it, as in the reference.
+    ``update_mask [B, T]`` (recurrent families) makes the masked steps
+    identities on the recurrent state; a prefill over right-padded
+    prompts sets it from ``input_mask``, as the reference does.  The
+    returned cache holds NEW recurrent tensors (``ssd``, ``lru``,
+    ``conv``): the one passed in keeps its state.  ``remat`` applies to
+    train mode only, which raises ``NotImplementedError`` at T >= 2048."""
     assert mode in ("train", "prefill", "decode")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port runs the {' and '.join(FAMILIES)} families, not "
+            f"the port runs the {', '.join(FAMILIES)} families, not "
             f"family {cfg.family!r} (ROADMAP A7)")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
     x = params["embed"][tokens.long()]
     b, t = x.shape[:2]
-    if mode == "train" and t >= BLOCKWISE_THRESHOLD:
+    if mode == "train" and t >= BLOCKWISE_THRESHOLD and not cfg.attention_free:
         raise NotImplementedError(
             f"train mode at {t} >= {BLOCKWISE_THRESHOLD} tokens attends "
             "blockwise in the reference (models/flash.py flash_attend), "
@@ -176,48 +260,96 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = cache["length"][:, None] + ar
     else:
         positions = ar.expand(b, t)
+    if (mode == "prefill" and input_mask is not None and update_mask is None
+            and has_recurrent_state(cfg)):
+        # right-padded ragged prompts: the recurrent state must not
+        # advance over the padding (attention masks it by kv validity)
+        update_mask = input_mask.float()
     # per-call quantities every layer shares: RoPE angles, write slots
-    rope = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = (None if cfg.attention_free else
+            rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta))
     slots = None
     valid = input_mask if mode == "prefill" else None
-    if cache is not None and not cache_lib.is_paged(cache):
+    if cache is not None and "kv_pos" in cache and not cache_lib.is_paged(cache):
         slots = cache_lib.ring_slots(positions, cache_lib.cache_window(cache))
         cache_lib.write_pos(cache["kv_pos"], positions, slots, valid=valid)
-    elif cache is not None:
+    elif cache is not None and "kv_pos" in cache:
         slots = cache_lib.write_slots(
             positions, cache["block_table"], cache["kv_pos"].shape[1],
             cache["kv_pos"].shape[0],
             keep=write_mask if mode == "decode" else None)
         cache_lib.write_pos_paged(cache["kv_pos"], positions, slots,
                                   valid=valid)
+    remat = remat and mode == "train"
+    new_state = {}
     aux: dict = {}
-    for i in range(cfg.num_layers):
-        args = (_layer(params, i), cfg, x, i, mode, positions, rope,
-                input_mask, cache, slots)
-        x, aux_i = (checkpoint(_block, *args, use_reentrant=False)
-                    if remat and mode == "train" else _block(*args))
-        aux = {k: aux.get(k, 0.0) + a for k, a in aux_i.items()}
+    if cfg.family == "ssm":
+        states = []
+        for i in range(cfg.num_layers):
+            st = (None if cache is None else
+                  {k: cache[k][i] for k in ("ssd", "conv")})
+            x, st = _run(_ssm_block, remat, _layer(params, i), cfg, x, st,
+                         update_mask, mode)
+            states.append(st)
+        if cache is not None:
+            new_state = {k: torch.stack([st[k] for st in states])
+                         for k in ("ssd", "conv")}
+    elif cfg.family == "hybrid":
+        states = []
+        for kind, p, idx in _hybrid_layers(params, cfg):
+            if kind == "attn":
+                x = _run(_local_attn_block, remat, p, cfg, x, idx, mode,
+                         positions, rope, input_mask, cache, slots)
+                continue
+            st = (None if cache is None else
+                  {k: cache[k][idx] for k in ("lru", "conv")})
+            x, st = _run(_rec_block, remat, p, cfg, x, st, update_mask, mode)
+            states.append(st)
+        if cache is not None and states:
+            new_state = {k: torch.stack([st[k] for st in states])
+                         for k in ("lru", "conv")}
+    else:
+        for i in range(cfg.num_layers):
+            x, aux_i = _run(_block, remat, _layer(params, i), cfg, x, i,
+                            mode, positions, rope, input_mask, cache, slots)
+            aux = {k: aux.get(k, 0.0) + a for k, a in aux_i.items()}
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()
-    out = (logits, None if cache is None else dict(cache))
+    out = (logits, None if cache is None else dict(cache, **new_state))
     if not with_aux:
         return out
     return out + ({k: a / cfg.num_layers for k, a in aux.items()},)
 
 
-def commit(snapshot: cache_lib.CacheT, verified: cache_lib.CacheT,
+def commit(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           snapshot: cache_lib.CacheT, verified: cache_lib.CacheT,
            n_committed: torch.Tensor) -> cache_lib.CacheT:
-    """Commit ``n_committed[b]`` of the tokens just verified: the ring
-    or pool already holds their K/V, so this is ``length`` arithmetic
-    (stale speculative slots are overwritten or masked, DESIGN.md §4)."""
-    return cache_lib.commit_length(verified,
-                                   snapshot["length"] + n_committed.to(torch.int32))
+    """Commit ``n_committed[b]`` of the ``tokens [B, T]`` just verified.
+
+    Attention families: the ring or pool already holds their K/V, so this
+    is ``length`` arithmetic (stale speculative slots are overwritten or
+    masked, DESIGN.md §4).  Recurrent families: a masked re-advance from
+    ``snapshot``, the pre-round cache (the reference's): a second decode
+    pass over the T tokens whose ``update_mask`` makes the rejected steps
+    identities, so the state holds exactly the accepted prefix.  Its K/V
+    writes are kept to the accepted positions (``write_mask``): on a pool
+    they land where the verify pass wrote the same bits, the rest on the
+    drop block; a ring rewrites slots of the round's own positions."""
+    new_len = snapshot["length"] + n_committed.to(torch.int32)
+    if not has_recurrent_state(cfg):
+        return cache_lib.commit_length(verified, new_len)
+    t = tokens.shape[1]
+    accepted = (torch.arange(t, device=tokens.device)[None]
+                < n_committed[:, None])
+    _, advanced = forward(params, cfg, tokens, cache=snapshot, mode="decode",
+                          update_mask=accepted.float(), write_mask=accepted)
+    return cache_lib.commit_length(advanced, new_len)
 
 
 def has_recurrent_state(cfg: ModelConfig) -> bool:
     """Whether the family keeps per-slot recurrent state that the block
-    pool cannot recover (the reference's ssm and hybrid families; none
-    of the port's): the engine turns prefix caching off for such a
-    stack, as the reference does."""
+    pool cannot recover (ssm and hybrid): the engine turns prefix caching
+    off for such a stack, and ``commit`` re-advances it, as the
+    reference does."""
     return cfg.family in ("ssm", "hybrid")

@@ -22,12 +22,14 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.config import FAMILIES, ModelConfig
+from repro_torch.models.rglru import rglru_shapes
+from repro_torch.models.ssm import ssm_shapes
 
 Params = Dict[str, Any]
 
@@ -37,49 +39,125 @@ VOCAB_PAD_MULTIPLE = 128
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested ``{name: (shape, init, scale)}`` for the dense and MoE
-    families.  ``scale`` is the normal init's stddev: 0.02 for the
-    embedding, the untied LM head and the router, else the reference's
-    fan-in rule ``1/sqrt(shape[0])`` on the STACKED shape, whose leading
-    axis is the layer count."""
+    """Nested ``{name: (shape, init, scale)}`` of ``cfg``'s parameters.
+    ``scale`` is the normal init's stddev: 0.02 for the embedding, the
+    untied LM head, the router and the RG-LRU gates, 0.5 for the conv
+    filters, else the reference's fan-in rule ``1/sqrt(shape[0])`` on the
+    STACKED shape, whose leading axis is the layer count (the group count
+    in a hybrid stack's groups)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port runs the {' and '.join(FAMILIES)} families, not "
+            f"the port runs the {', '.join(FAMILIES)} families, not "
             f"{cfg.family!r}")
-    d, kv = cfg.d_model, cfg.num_kv_heads
-    h = cfg.q_head_pad or cfg.num_heads
-    hd, f, n = cfg.resolved_head_dim, cfg.d_ff, cfg.num_layers
     vp = cfg.padded_vocab(VOCAB_PAD_MULTIPLE)
+    shapes = {"embed": Spec((vp, cfg.d_model), "normal", 0.02),
+              "final_norm": _zeros(cfg.d_model)}
+    if cfg.family == "hybrid":
+        shapes["layers"] = _hybrid_shapes(cfg)
+    else:
+        shapes["layers"] = _resolve(_stack(_layer_shapes(cfg),
+                                           cfg.num_layers))
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = Spec((cfg.d_model, vp), "normal", 0.02)
+    return shapes
 
-    def normal(*shape, scale=None):
-        return (shape, "normal",
-                scale if scale is not None else 1.0 / math.sqrt(max(shape[0], 1)))
 
-    def zeros(*shape):
-        return (shape, "zeros", None)
+class Spec(NamedTuple):
+    """One parameter's shape and init: ``init`` "normal" (stddev
+    ``scale``), "zeros" or "ones".  A leaf of :func:`param_shapes`'s
+    tree (never taken for a tuple subtree)."""
+    shape: Tuple[int, ...]
+    init: str
+    scale: Optional[float]
 
-    attn = {"wq": normal(n, d, h, hd), "wk": normal(n, d, kv, hd),
-            "wv": normal(n, d, kv, hd), "wo": normal(n, h, hd, d)}
+
+def _normal(*shape, scale=None):
+    return Spec(shape, "normal", scale)
+
+
+def _zeros(*shape):
+    return Spec(shape, "zeros", None)
+
+
+def _ones(*shape):
+    return Spec(shape, "ones", None)
+
+
+def _stack(tree, n: int):
+    """``tree``'s leaves with a leading ``[n]`` axis (the reference's
+    ``_stack_specs``: an explicit scale stays, a fan-in one is read off
+    the stacked shape)."""
+    return map_params(lambda leaf: leaf._replace(shape=(n,) + leaf.shape), tree)
+
+
+def _resolve(tree):
+    """The fan-in stddev ``1/sqrt(shape[0])`` of every normal leaf whose
+    scale is not explicit."""
+    return map_params(
+        lambda leaf: (leaf if leaf.init != "normal" or leaf.scale is not None
+                      else leaf._replace(
+                          scale=1.0 / math.sqrt(max(leaf.shape[0], 1)))),
+        tree)
+
+
+def _attention_shapes(cfg: ModelConfig) -> dict:
+    d, kv = cfg.d_model, cfg.num_kv_heads
+    h, hd = cfg.q_head_pad or cfg.num_heads, cfg.resolved_head_dim
+    attn = {"wq": _normal(d, h, hd), "wk": _normal(d, kv, hd),
+            "wv": _normal(d, kv, hd), "wo": _normal(h, hd, d)}
     if cfg.qkv_bias:
-        attn.update(bq=zeros(n, h, hd), bk=zeros(n, kv, hd),
-                    bv=zeros(n, kv, hd))
+        attn.update(bq=_zeros(h, hd), bk=_zeros(kv, hd), bv=_zeros(kv, hd))
     if cfg.qk_norm:
-        attn.update(q_norm=zeros(n, hd), k_norm=zeros(n, hd))
-    layers = {"ln1": zeros(n, d), "attn": attn, "ln2": zeros(n, d)}
+        attn.update(q_norm=_zeros(hd), k_norm=_zeros(hd))
+    return attn
+
+
+def _mlp_shapes(d: int, f: int) -> dict:
+    return {"w_gate": _normal(d, f), "w_up": _normal(d, f),
+            "w_down": _normal(f, d)}
+
+
+def _layer_shapes(cfg: ModelConfig) -> dict:
+    """One layer of a homogeneous stack (dense, MoE, SSM), unstacked."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln": _zeros(d),
+                "mixer": ssm_shapes(cfg, _normal, _zeros, _ones)}
+    layers = {"ln1": _zeros(d), "attn": _attention_shapes(cfg),
+              "ln2": _zeros(d)}
     if cfg.family == "moe":
         e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
-        layers["moe"] = {"router": normal(n, d, e, scale=0.02),
-                         "w_gate": normal(n, e, d, fe),
-                         "w_up": normal(n, e, d, fe),
-                         "w_down": normal(n, e, fe, d)}
+        layers["moe"] = {"router": _normal(d, e, scale=0.02),
+                         "w_gate": _normal(e, d, fe),
+                         "w_up": _normal(e, d, fe),
+                         "w_down": _normal(e, fe, d)}
     else:
-        layers["mlp"] = {"w_gate": normal(n, d, f), "w_up": normal(n, d, f),
-                         "w_down": normal(n, f, d)}
-    shapes = {"embed": ((vp, d), "normal", 0.02), "final_norm": zeros(d),
-              "layers": layers}
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = ((d, vp), "normal", 0.02)
-    return shapes
+        layers["mlp"] = _mlp_shapes(d, cfg.d_ff)
+    return layers
+
+
+def _hybrid_layer_shapes(cfg: ModelConfig, attention: bool) -> dict:
+    temporal = (_attention_shapes(cfg) if attention else
+                rglru_shapes(cfg, _normal, _zeros, _ones))
+    return {"ln1": _zeros(cfg.d_model), "temporal": temporal,
+            "ln2": _zeros(cfg.d_model),
+            "mlp": _mlp_shapes(cfg.d_model, cfg.d_ff)}
+
+
+def _hybrid_shapes(cfg: ModelConfig) -> dict:
+    """The hybrid stack's tree (the reference's ``model_specs``): the
+    ``(rec x bpa, attn)`` groups stacked over a leading ``[ngroups]``
+    axis (``groups``: ``rec`` leaves ``[ngroups, bpa, ...]``, ``attn``
+    leaves ``[ngroups, ...]``; None without a whole group), then the
+    remainder of recurrent layers unstacked (``tail``: a tuple of
+    per-layer dicts)."""
+    bpa = cfg.rglru.blocks_per_attention
+    ngroups, tail = divmod(cfg.num_layers, bpa + 1)
+    group = {"rec": _stack(_hybrid_layer_shapes(cfg, False), bpa),
+             "attn": _hybrid_layer_shapes(cfg, True)}
+    return {"groups": _resolve(_stack(group, ngroups)) if ngroups else None,
+            "tail": tuple(_resolve(_hybrid_layer_shapes(cfg, False))
+                          for _ in range(tail))}
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -101,10 +179,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     device = resolve_device(device)
     gen = torch.Generator(device=resolve_device(rng_device)).manual_seed(seed)
 
-    def make(leaf: Tuple) -> torch.Tensor:
+    def make(leaf: Spec) -> torch.Tensor:
         shape, init, scale = leaf
-        if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
+        if init in ("zeros", "ones"):
+            fill = torch.zeros if init == "zeros" else torch.ones
+            return fill(shape, dtype=dtype, device=device)
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)
         return t.mul_(scale).to(device=device, dtype=dtype)
@@ -113,10 +192,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 
 
 def map_params(fn, *trees: Params) -> Params:
-    """Leafwise ``fn`` over parameter trees of the same structure."""
+    """Leafwise ``fn`` over parameter trees of the same structure: nested
+    dicts and tuples (a hybrid stack's ``tail``), with None as an empty
+    subtree (its ``groups`` when it has no whole group)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: map_params(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple) and not isinstance(first, Spec):
+        return tuple(map_params(fn, *sub) for sub in zip(*trees))
+    if first is None:
+        return None
     return fn(*trees)
 
 
@@ -132,24 +217,45 @@ def from_reference(tree, device="cuda", dtype=torch.float32) -> Params:
 
 def param_leaves(tree, prefix: Tuple[str, ...] = ()
                  ) -> List[Tuple[Tuple[str, ...], Any]]:
-    """``(key path, leaf)`` pairs of a nested dict in the reference's
-    leaf order: jax flattens a dict by its sorted keys, so reductions
-    over leaves and checkpoint manifests follow the same order."""
+    """``(key path, leaf)`` pairs of a nested dict / tuple tree in the
+    reference's leaf order: jax flattens a dict by its sorted keys and a
+    tuple in order (its keys are the indices), and None holds no leaf,
+    so reductions over leaves and checkpoint manifests follow the same
+    order."""
     if isinstance(tree, dict):
         return [pair for k in sorted(tree)
                 for pair in param_leaves(tree[k], prefix + (str(k),))]
+    if isinstance(tree, tuple) and not isinstance(tree, Spec):
+        return [pair for i, sub in enumerate(tree)
+                for pair in param_leaves(sub, prefix + (str(i),))]
+    if tree is None:
+        return []
     return [(prefix, tree)]
 
 
+def _tuples(node):
+    """A dict whose keys are exactly "0" .. "n-1" back to the tuple it
+    was flattened from (the reference's trees key no dict by digits)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _tuples(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+        return tuple(node[str(i)] for i in range(len(node)))
+    return node
+
+
 def unflatten_params(pairs) -> Params:
-    """The nested dict of ``(key path, leaf)`` pairs."""
+    """The nested tree of ``(key path, leaf)`` pairs; index-keyed levels
+    come back as tuples.  A subtree that held no leaf (a hybrid stack's
+    ``groups`` of None, an empty ``tail``) has no path and comes back
+    absent; the model reads both with defaults."""
     tree: Dict[str, Any] = {}
     for path, leaf in pairs:
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = leaf
-    return tree
+    return _tuples(tree)
 
 
 def read_checkpoint(fname: str) -> Dict[str, Any]:

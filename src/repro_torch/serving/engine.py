@@ -126,9 +126,15 @@ class ServingEngine:
         self.paged = serving.paged_kv
         # only a drafter that mirrors the pool stores KV of its own
         pooled = [cfg_target] + ([cfg_draft] if drafter.mirrors_kv() else [])
-        for cfg in pooled:
-            if self.paged and not cache_lib.supports_paged(cfg):
-                raise ValueError(f"family {cfg.family!r} has no paged layout")
+        # the reference's gates and messages: an attention-free (ssm)
+        # target has no paged layout, a hybrid one no int8 pool
+        if self.paged and not all(cache_lib.supports_paged(cfg)
+                                  for cfg in pooled):
+            raise ValueError(
+                "paged_kv=True but family pair "
+                f"({cfg_target.family}, "
+                f"{cfg_draft.family if cfg_draft else None}) has no paged "
+                "KV layout (supported: dense/moe/vlm/hybrid)")
         self.kv_quant = serving.kv_quant
         if self.kv_quant not in cache_lib.KV_QUANT_MODES:
             raise ValueError(f"unknown kv_quant mode {self.kv_quant!r}")
@@ -139,7 +145,8 @@ class ServingEngine:
             raise ValueError(f"kv_quant={self.kv_quant!r} but family pair "
                              f"({cfg_target.family}, "
                              f"{cfg_draft.family if cfg_draft else None}) "
-                             "has no quantized paged layout")
+                             "has no quantized paged layout (supported: "
+                             "dense/moe/vlm)")
         to_dev = lambda t: t.to(self.device)   # noqa: E731
         self.pt = map_params(to_dev, params_target)
         self.pd = (map_params(to_dev, params_draft)

@@ -71,7 +71,8 @@ def adamw_update(params: Params, grads: Params, state: AdamWState,
         v = b2 * v + (1 - b2) * g.square()
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
             + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        # a list, not a tuple: map_params walks into tuples
+        return [(p.float() - lr * delta).to(p.dtype), m, v]
 
     out = map_params(upd, params, grads, state.mu, state.nu)
 

@@ -43,12 +43,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -ll.mean()
 
 
+# the families the port trains (the serving port also runs ssm and hybrid)
+TRAIN_FAMILIES = ("dense", "moe")
+
+
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross entropy, plus for the MoE family the router's load-balance
     loss x ``load_balance_weight`` and its z-loss x 1e-3, as in the
-    reference; returns (loss, detached metrics)."""
+    reference; returns (loss, detached metrics).  Training runs the
+    dense and MoE families; the recurrent ones (ssm, hybrid) serve but do
+    not train yet, and raise."""
+    if cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"training runs the {' and '.join(TRAIN_FAMILIES)} families, not "
+            f"family {cfg.family!r} (ROADMAP A7: training the recurrent "
+            "families)")
     logits, _, aux = forward(params, cfg, tokens, mode="train", remat=remat,
                              with_aux=True)
     loss = cross_entropy(logits, labels, cfg.vocab_size)

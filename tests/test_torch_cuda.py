@@ -930,3 +930,124 @@ def test_warm_tail_prefill_matches_plain(cuda, kv_quant):
 def _to(params, device):
     from repro_torch.models.weights import map_params
     return map_params(lambda t: t.to(device), params)
+
+
+# --------------------------------------------------------------------------
+# B1 and B5 at recurrentgemma-2b's head dims (D 256 and 320, the wide
+# CUDA-core kernel of csrc/paged_verify.cuh)
+# --------------------------------------------------------------------------
+
+# (H, KV, D): the target's local attention (G 10) and its draft's (G 2)
+WIDE_HEADS = [(10, 1, 256), (2, 1, 320)]
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("heads", WIDE_HEADS)
+# T 1 (G*T 10 / 2) and T 11 (110 / 22 query rows a KV head: four launches
+# of <= 32 rows at G 10), over 2 sequences with the helper's holes
+@pytest.mark.parametrize("t", [1, 11])
+@pytest.mark.parametrize("window", [None, 12])
+def test_paged_attention_wide_heads_match_plain(cuda, t, heads, dtype, atol,
+                                                rtol, window):
+    h, kv, d = heads
+    args = _paged(3, t, h, kv, d, 40, 16, 8, dtype, cuda, seed=d + t)
+    got = pa.paged_ragged_verify_attention_cuda(*args, window=window)
+    again = pa.paged_ragged_verify_attention_cuda(*args, window=window)
+    want = pa.paged_ragged_verify_attention_plain(*args, window=window)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    groups = pa.query_groups(h, kv, t, d)
+    assert all((h // kv) * (hi - lo) <= 32 for lo, hi in groups)
+    if (h // kv) * t > 32:
+        assert len(groups) > 1
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("heads", WIDE_HEADS)
+@pytest.mark.parametrize("t", [1, 11])
+@pytest.mark.parametrize("splits", [None, 1, 5])
+def test_ragged_attention_wide_heads_on_a_wrapped_window_ring(cuda, splits, t,
+                                                              heads, dtype,
+                                                              atol, rtol):
+    """The hybrid's ring at full width: W 2064 (window 2048 + 16 slack),
+    rows that have run past W, window 2048; forced splits too."""
+    h, kv, d = heads
+    args = _ring(2, t, h, kv, d, 2064, dtype, cuda, seed=d + t, wrap=True)
+    kw = dict(window=2048, splits=splits)
+    got = ra.ragged_verify_attention_cuda(*args, **kw)
+    again = ra.ragged_verify_attention_cuda(*args, **kw)
+    want = ra.ragged_verify_attention_plain(*args, window=2048)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("heads", WIDE_HEADS)
+def test_wide_heads_forced_splits_on_the_pool(cuda, heads):
+    h, kv, d = heads
+    args = _paged(3, 11, h, kv, d, 40, 16, 8, torch.float32, cuda, seed=7)
+    want = pa.paged_ragged_verify_attention_plain(*args)
+    for splits in (1, 2, 7, 11):
+        got = pa.paged_ragged_verify_attention_cuda(*args, splits=splits)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_int8_kernel_refuses_wide_heads(cuda):
+    """B4 stays at D <= 128: the reference has no int8 pool for the
+    hybrid family, whose heads are the wide ones."""
+    q, pk, pv, table, q_pos, kv_pos = _paged(2, 1, 2, 1, 256, 12, 16, 4,
+                                             torch.float32, cuda)
+    (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+    with pytest.raises(ValueError):
+        pq.paged_ragged_verify_attention_quant_cuda(q, pk, pv, ks, vs, table,
+                                                    q_pos, kv_pos)
+
+
+# --------------------------------------------------------------------------
+# the recurrent families on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,layers,paged", [("mamba2-130m", None, False),
+                                               ("recurrentgemma-2b", 5, False),
+                                               ("recurrentgemma-2b", 5, True)])
+def test_recurrent_commit_leaves_the_snapshot(cuda, arch, layers, paged):
+    """A verify pass and the masked re-advance commit on CUDA tensors
+    leave the pre-round cache's recurrent rows as they were, and the
+    committed state equals the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.transformer import commit, forward
+    from repro_torch.models.weights import init_params
+    cfg = get_config(arch).reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = init_params(cfg, seed=0, device="cpu")
+    b, s = 2, 9
+    toks = torch.arange(b * (s + 4), dtype=torch.int32).reshape(b, -1) % 97
+
+    def run(device):
+        p = _to(params, device)
+        if paged:
+            c = cache_lib.paged_cache_struct(cfg, b, 64, 16, 8, device=device)
+            c["block_table"] = torch.arange(16, dtype=torch.int32,
+                                            device=device).reshape(b, 8)
+        else:
+            c = cache_lib.cache_struct(cfg, b, 64, device=device)
+        tk = toks.to(device)
+        _, c = forward(p, cfg, tk[:, :s], cache=c, mode="prefill")
+        c["length"] = torch.full((b,), s, dtype=torch.int32, device=device)
+        before = {k: c[k].clone() for k in cache_lib.RECURRENT_KEYS if k in c}
+        _, v = forward(p, cfg, tk[:, s:], cache=c, mode="decode")
+        n = torch.tensor([1, 3], dtype=torch.int32, device=device)
+        out = commit(p, cfg, tk[:, s:], c, v, n)
+        for k, val in before.items():
+            assert torch.equal(c[k], val), k
+        return {k: out[k].cpu() for k in before}
+
+    got, want = run(cuda), run("cpu")
+    # fp32 rounding of the state's own scale: the random reduced models
+    # drive the SSD state to ~1e4
+    for k in want:
+        torch.testing.assert_close(
+            got[k], want[k], rtol=0,
+            atol=1e-4 + 1e-5 * float(want[k].abs().max()))

@@ -124,7 +124,8 @@ def test_decode_matches_train_forward(model):
     snap = c
     dl, c2 = forward(tparams, tcfg, toks[:, s:], cache=c, mode="decode")
     torch.testing.assert_close(dl, full[:, s:], atol=2e-3, rtol=1e-3)
-    c3 = commit(snap, c2, torch.full((b,), 2, dtype=torch.int32))
+    c3 = commit(tparams, tcfg, toks[:, s:], snap, c2,
+                torch.full((b,), 2, dtype=torch.int32))
     assert c3["length"].tolist() == [s + 2, s + 2]
     dl3, _ = forward(tparams, tcfg, toks[:, s + 2:s + 4], cache=c3,
                      mode="decode")

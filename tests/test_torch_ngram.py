@@ -178,7 +178,7 @@ def test_ngram_drafter_propose_commit_match_reference():
         n_com = np.minimum(1 + np.asarray(rp.eff_sl), [2, 6, 1, 3]).astype(np.int32)
         rc = rd.commit(None, jnp.asarray(verify), rc, rp.cache,
                        jnp.asarray(n_com))
-        tc = td.commit(torch.from_numpy(verify), tc, tp.cache,
+        tc = td.commit(None, torch.from_numpy(verify), tc, tp.cache,
                        torch.from_numpy(n_com))
         for key in ("tokens", "length"):
             np.testing.assert_array_equal(tc[key].numpy(), np.asarray(rc[key]))

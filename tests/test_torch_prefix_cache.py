@@ -31,6 +31,7 @@ from repro_torch.core.config import ServingConfig as TServing
 from repro_torch.core.config import SpecDecodeConfig as TSpec
 from repro_torch.models import cache as t_cache
 from repro_torch.models.weights import from_reference
+from repro_torch.models.weights import init_params as init_params_port
 from repro_torch.serving import engine as t_engine_mod
 from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Request as TRequest
@@ -532,10 +533,11 @@ def test_warm_admission_prefills_only_the_tail(small_pair, monkeypatch):
         assert sorted(tails) == [1, 13] and sorted(total) == [32, 45]
 
 
-def test_prefix_caching_gated_like_reference(small_pair, monkeypatch):
+def test_prefix_caching_gated_like_reference(small_pair):
     """Off on the dense ring; off for a family with recurrent state (the
-    reference's gate; the port has no such family, so the gate is
-    exercised through ``has_recurrent_state``); on otherwise."""
+    reference's gate, on a real hybrid stack: recurrentgemma-2b reduced
+    at 5 layers, with its hybrid draft mirroring the pool); on
+    otherwise."""
     _, _, _, tcfg, tpt, tpd = small_pair
 
     def engine():
@@ -552,9 +554,11 @@ def test_prefix_caching_gated_like_reference(small_pair, monkeypatch):
     paged = True
     assert engine().prefix_caching
     assert not t_engine_mod.has_recurrent_state(tcfg)
-    assert t_engine_mod.has_recurrent_state(
-        dataclasses.replace(tcfg, family="hybrid"))
-    monkeypatch.setattr(t_engine_mod, "has_recurrent_state",
-                        lambda cfg: cfg is tcfg)
-    eng = engine()
+    hcfg = dataclasses.replace(t_get_config("recurrentgemma-2b").reduced(),
+                               num_layers=5)
+    assert t_engine_mod.has_recurrent_state(hcfg)
+    hp = init_params_port(hcfg, seed=0, device="cpu")
+    eng = TEngine(hp, hcfg, hp, hcfg, TSpec(), TServing(
+        max_batch_size=2, max_seq_len=128, paged_kv=True,
+        prefix_caching=True), device="cpu")
     assert not eng.prefix_caching and not eng.scheduler.prefix_cache

@@ -70,14 +70,16 @@ def test_split_plan_reads_shapes_only():
 
 @pytest.mark.parametrize("d,rows,bs", [(48, 3, 16), (64, 65, 16),
                                        (128, 33, 16), (64, 3, 12),
-                                       (64, 3, 64)])
+                                       (64, 3, 64), (256, 33, 16),
+                                       (320, 40, 16), (192, 3, 16)])
 def test_kernel_shape_limits_raise(d, rows, bs):
     with pytest.raises(ValueError):
         pa.check_verify_shape(rows, 1, 1, d, bs)
 
 
 @pytest.mark.parametrize("d,rows,bs", [(64, 33, 16), (128, 32, 8),
-                                       (32, 64, 32), (64, 1, 1)])
+                                       (32, 64, 32), (64, 1, 1),
+                                       (256, 32, 16), (320, 22, 16)])
 def test_kernel_shape_limits_accept(d, rows, bs):
     pa.check_verify_shape(rows, 1, 1, d, bs)
 
@@ -196,7 +198,9 @@ def test_ring_query_groups_cover_t(h, kv, t, d):
 
 
 @pytest.mark.parametrize("h,kv,t,d", [(9, 3, 22, 64), (4, 1, 17, 64),
-                                      (32, 4, 11, 128), (9, 3, 11, 64)])
+                                      (32, 4, 11, 128), (9, 3, 11, 64),
+                                      (10, 1, 11, 256), (2, 1, 11, 320),
+                                      (10, 1, 1, 256)])
 def test_paged_query_groups_cover_t(h, kv, t, d):
     """B1's and B4's launches over T (smollm at SL 21, the reduced smollm
     at SL 16, a D-128 target with G 8, the serves' verify pass): they
@@ -221,7 +225,7 @@ def test_paged_query_groups_cover_t(h, kv, t, d):
     out = pa.launch_query_groups(q, q_pos, groups, range(len(groups)), launch)
     assert torch.equal(out, q + q_pos[:, :, None, None])
     assert seen == [(hi - lo, s) for s, (lo, hi) in enumerate(groups)]
-    if (h // kv) * t > (32 if d == 128 else 64):
+    if (h // kv) * t > pa.ROWS_PER_LAUNCH[d]:
         assert len(groups) > 1
         with pytest.raises(ValueError):
             pa.check_verify_shape(h, kv, t, d, 16)
@@ -317,3 +321,19 @@ def test_ring_live_slots_criterion():
     live = ra.live_slots(q_pos, kv_pos, window=6)
     assert live[0].tolist() == [True] * 16 + [False] * 24
     assert live[1].tolist() == [False] * 16 + [True] * 16 + [False] * 8
+
+
+def test_int8_kernel_head_dims_stop_at_128():
+    """B4's wrapper takes D up to 128 only (the reference has no int8 pool
+    for the hybrid family, whose heads are 256 and 320 wide); B1 and B5
+    take both wide dims."""
+    for d in (256, 320):
+        pa.check_verify_shape(2, 1, 1, d, 16)
+        q = torch.zeros(1, 1, 2, d)
+        pool = torch.zeros(3, 16, 1, d, dtype=torch.int8)
+        scale = torch.ones(3, 16, 1)
+        idx = torch.zeros(1, 1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="D <= 128"):
+            pq.paged_ragged_verify_attention_quant_cuda(
+                q, pool, pool, scale, scale, idx, idx,
+                torch.zeros(3, 16, dtype=torch.int32))
