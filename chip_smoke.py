@@ -123,7 +123,35 @@ Phases, each printing one JSON line:
              slots that wraps, and on a pool that forces preemption).
              The kernel phase adds B1 and B5 at the hybrid's heads (D 256
              and 320, ctx / W 256 and 2064) and B2 at V 256128.
-8. train   — training on the card (``repro_torch.training``), then a
+8. multimodal — the vlm and audio families (``MULTIMODAL_SERVES``):
+             qwen2-vl-2b (28 layers, d 1536, H 12 / KV 2 / D 128, qkv
+             bias, M-RoPE, vocab 151936 padded to 152064) at full width
+             on the fp32 pool, the int8 pool, the dense ring and the
+             pipelined pool (streams equal to the pool's), its draft
+             over one KV head (``serve_draft``: the reference's own
+             draft, H 3 over KV 2, cannot group its heads);
+             seamless-m4t-medium (12 encoder + 12 decoder layers, d
+             1024, 16 MHA heads of D 64, vocab 256206 padded to 256256)
+             on the ring with its ``draft()``, served as the reference's
+             engine serves it, with an empty encoder context; each
+             target's decode step and verify pass timed against the
+             weight bytes it reads; vlm-serve and audio-serve profiled;
+             the vision stub at full width (a 16 x 16 patch grid and 32
+             text tokens, B 4, M-RoPE positions, prefilled into the pool,
+             then T 1 and T 11 decode steps through B1); the
+             encoder-conditioned round (B 4 x 128 frames encoded into the
+             target ring of ``init_round_state(enc_len=128)``, a 16-token
+             prompt, 8 ``spec_decode_round`` calls driven directly; the
+             encode, a decode step and a verify pass timed against the
+             weights each reads); then ``MULTIMODAL_CHECKS``, card == CPU
+             at reduced width (streams on the pool, int8 pool, ring,
+             pipelined pool and the audio ring; the image path's and the
+             encoder-conditioned round's logits within 1e-4 and tokens
+             equal).  The kernel phase adds B1, B4 and B5 at the vlm's
+             heads (H 12 / KV 2 / D 128, and the draft's H 3 / KV 1), B5
+             at the audio decoder's (H 16 / KV 16 / D 64, and H 4 / KV
+             4), and B2 at V 152064 and 256256.
+9. train   — training on the card (``repro_torch.training``), then a
              trained pair served through the DSDE round: the entry point
              ``repro_torch.launch.train --demo`` for 60 steps (its loss
              must fall and its checkpoint restore); smollm-135m at full
@@ -144,12 +172,26 @@ Phases, each printing one JSON line:
              synchronise, the model drafter must accept well on code and
              better than on dialogue, and the CPU (plain kernels) must
              emit the card's streams for the pool dsde and n-gram serves.
+             Then the other families (``FAMILY_TRAINS``): qwen2-vl-2b,
+             seamless-m4t-medium (with 128 encoder frames a row) and
+             mamba2-130m at full width, recurrentgemma-2b reduced, 10
+             steps of B 4 x S 512 each (the loss must fall), and each
+             one's first step card == CPU at the reduced width; the
+             blockwise attention (``flash_attend``) against ``attend`` at
+             smollm's heads, T 2048 and 4096 (forward + backward ms, peak
+             memory, differences); smollm-135m at B 2 x S 2048 for 5
+             steps through it.
 
 It ends with the script's seconds so far, the kernels line, the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits
 non-zero; without CUDA, or without the port beside it, it prints no
 result.
+
+    python3 chip_smoke.py --only multimodal,flash
+
+runs only the named phases (``ONLY``) after the build, with no result
+line.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -684,8 +726,11 @@ def ring_rows(flush):
 D128_HEADS = (32, 8, 128)
 
 
-def d128_rows(flush):
-    """B1, B4 and B5 at granite-8b's head shape (H 32, KV 8, D 128):
+def d128_rows(flush, heads=D128_HEADS, names=None, ctxs=(256, 2048),
+              tag="d128"):
+    """B1, B4 and B5 (or those of ``names``) at ``heads`` (H, KV, D),
+    ctx / W in ``ctxs``; by default at granite-8b's head shape (H 32, KV
+    8, D 128):
     draft step (T 1) and verify (T 11: G * T 44 query rows a KV head, past
     one launch's 32 at D 128, so the wrapper makes two launches a call),
     over ctx / W 256 and 2048 (full contexts and rings), fp32 and bf16;
@@ -700,7 +745,7 @@ def d128_rows(flush):
                                           gather_paged_kv_quant,
                                           gather_paged_pos)
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
-    h, kv, d = D128_HEADS
+    h, kv, d = heads
     # (name, case, kernel, plain, SDPA inputs: k, v, kv_pos view, q_pos)
     kernels = (
         ("paged_ragged_verify_attention", paged_case,
@@ -719,30 +764,31 @@ def d128_rows(flush):
     )
     worst = {}
     for name, case, kernel, plain, view in kernels:
+        if names is not None and name not in names:
+            continue
         for dtype in (torch.float32, torch.bfloat16):
-            for ctx in (256, 2048):
+            for ctx in ctxs:
                 for t in (1, 11):
                     args, nbytes, flops = case(4, t, ctx, dtype, seed=t + ctx,
-                                               heads=D128_HEADS)
+                                               heads=heads)
                     got = kernel(*args)
                     want = plain(*args)
                     again = kernel(*args)
                     torch.cuda.synchronize()
+                    what = f"{name} {heads} {dtype} ctx={ctx} t={t}"
                     if not torch.equal(got, again):
-                        raise AssertionError(f"{name} D128 {dtype} ctx={ctx} "
-                                             f"t={t}: two launches differ")
+                        raise AssertionError(f"{what}: two launches differ")
                     diff = (got.float() - want.float()).abs()
                     err = diff.max().item()
                     atol, rtol = tol[dtype]
                     if not bool((diff <= atol + rtol * want.float().abs()).all()):
-                        raise AssertionError(f"{name} D128 {dtype} ctx={ctx} "
-                                             f"t={t}: max abs err {err}")
+                        raise AssertionError(f"{what}: max abs err {err}")
                     worst[name] = max(worst.get(name, 0.0), err)
                     bound_ms, bound_by = bound(
                         nbytes, flops,
                         attention_flop_s(dtype, case is quant_case))
                     k, v, pos, q_pos = view(args)
-                    emit({"phase": "kernel", "name": name,
+                    emit({"phase": "kernel", "name": name, "shape": tag,
                           "dtype": str(dtype).replace("torch.", ""), "B": 4,
                           "T": t, "H": h, "KV": kv, "D": d,
                           ("W" if name == "ragged_verify_attention"
@@ -844,6 +890,40 @@ def wide_rows(flush):
     return worst
 
 
+# the multimodal families' attention shapes: (tag, (H, KV, D), kernels).
+# qwen2-vl-2b's target (G 6 at D 128: a T 11 verify is three launches of
+# <= 5 positions) on the pool, the int8 pool and the ring, and its served
+# draft (H 3 / KV 1, :func:`serve_draft`) on the pool; seamless-m4t-medium's
+# decoder self-attention (MHA, G 1 at D 64) and its draft's on the ring
+MULTIMODAL_HEADS = (
+    ("vlm", (12, 2, 128), ("paged_ragged_verify_attention",
+                           "paged_ragged_verify_attention_quant",
+                           "ragged_verify_attention")),
+    ("vlm-draft", (3, 1, 128), ("paged_ragged_verify_attention",)),
+    ("audio", (16, 16, 64), ("ragged_verify_attention",)),
+    ("audio-draft", (4, 4, 64), ("ragged_verify_attention",)),
+)
+# qwen2-vl-2b's and seamless-m4t-medium's padded vocabularies
+MULTIMODAL_VOCABS = (152064, 256256)
+
+
+def multimodal_rows(flush):
+    """B1, B4 and B5 at the multimodal families' heads
+    (``MULTIMODAL_HEADS``, ctx / W 256: the serves' rows), fp32 and bf16,
+    T 1 and 11, each against its plain version, launched twice for the
+    same bits, timed against its bound and SDPA over the gathered view;
+    then B2 at their vocabularies.  Returns each kernel's largest
+    error."""
+    worst = {}
+    for tag, heads, names in MULTIMODAL_HEADS:
+        for name, err in d128_rows(flush, heads, names, (256,), tag).items():
+            worst[name] = max(worst.get(name, 0.0), err)
+    for v in MULTIMODAL_VOCABS:
+        worst["fused_kld_accept"] = max(worst.get("fused_kld_accept", 0.0),
+                                        kld_row(flush, v=v)["max_abs_err"])
+    return worst
+
+
 def kernel_phase(flush):
     """Every kernel's rows; first about 0.1 s of L2 flushes, so the
     card's clocks have left idle before the first timed call."""
@@ -862,6 +942,8 @@ def kernel_phase(flush):
     wide_kld = kld_row(flush, v=256128)
     contract["fused_kld_accept"]["max_abs_err"] = max(
         contract["fused_kld_accept"]["max_abs_err"], wide_kld["max_abs_err"])
+    for name, err in multimodal_rows(flush).items():
+        contract[name]["max_abs_err"] = max(contract[name]["max_abs_err"], err)
     floor_row(flush)
     return contract
 
@@ -1755,6 +1837,28 @@ FAMILY_SERVES = (
 )
 
 
+def serve_draft(cfg):
+    """The model drafter's config for ``cfg``'s full-width serve: its
+    ``draft()``, unless that draft's query heads do not group over its KV
+    heads (qwen2-vl-2b's: H 3 over KV 2, on which the reference's own
+    forward raises too), then the same draft over one KV head."""
+    import dataclasses
+    d = cfg.draft()
+    if d.num_heads % d.num_kv_heads:
+        d = dataclasses.replace(d, num_kv_heads=1)
+    return d
+
+
+def decoder_params(cfg) -> int:
+    """The parameters a decode or verify pass reads: all of ``cfg``'s but
+    an encoder-decoder's encoder (``enc_layers``, ``enc_norm``)."""
+    import math
+    from repro_torch.models.weights import param_leaves, param_shapes
+    return sum(math.prod(leaf[0]) for path, leaf in
+               param_leaves(param_shapes(cfg))
+               if path[0] not in ("enc_layers", "enc_norm"))
+
+
 def count_query_launches():
     """Counts the attention kernels' launches over query groups (B1, B4
     and B5 cut T into groups of at most 32 query rows a KV head at D
@@ -1807,10 +1911,10 @@ def family_forward(cfg, params, smi) -> dict:
     else:
         cache = cache_lib.cache_struct(cfg, b, 256, device="cuda")
     cache["length"] = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
-    weight_ms = 1e3 * count_params(cfg) * 4 / HBM_BYTES_S
+    weight_ms = 1e3 * decoder_params(cfg) * 4 / HBM_BYTES_S
     row = {"phase": "family-forward", "arch": cfg.name, "B": b, "ctx": ctx,
-           "params": count_params(cfg), "weight_bound_ms": weight_ms,
-           "nvidia_smi": smi}
+           "params": count_params(cfg), "params_read": decoder_params(cfg),
+           "weight_bound_ms": weight_ms, "nvidia_smi": smi}
     tok = torch.ones((b, 11), dtype=torch.int32, device="cuda")
     calls = {
         "T1": lambda: forward(params, cfg, tok[:, :1], cache=cache,
@@ -1899,10 +2003,10 @@ def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
     streams = {}
     for arch in dict.fromkeys(sv.arch for sv in serves):
         cfg = get_config(arch)
+        dcfg = serve_draft(cfg)
         t0 = time.monotonic()
         pt = init_params(cfg, seed=0, device="cuda", rng_device="cuda")
-        pd = init_params(cfg.draft(), seed=1, device="cuda",
-                         rng_device="cuda")
+        pd = init_params(dcfg, seed=1, device="cuda", rng_device="cuda")
         torch.cuda.synchronize()
         emit({"phase": "family-init", "arch": arch,
               "seconds": time.monotonic() - t0,
@@ -1921,7 +2025,7 @@ def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
 
             def engine(target=target, model=model, sv=sv, serving=serving):
                 return ServingEngine(target, cfg, pd if model else None,
-                                     cfg.draft() if model else None,
+                                     dcfg if model else None,
                                      SpecDecodeConfig(drafter=sv.drafter),
                                      serving, seed=0, device="cuda")
 
@@ -1952,7 +2056,9 @@ def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
             round_ms = 1e3 * wall / max(m["rounds"], 1)
             row = {"phase": sv.name, "arch": cfg.name, "family": cfg.family,
                    "layers": cfg.num_layers, "drafter": sv.drafter,
-                   "draft_arch": cfg.draft().name if model else None,
+                   "draft_arch": dcfg.name if model else None,
+                   "draft_heads": ((dcfg.num_heads, dcfg.num_kv_heads)
+                                   if model else None),
                    "kv_quant": sv.kv_quant,
                    "paged_kv": sv.nblocks is not None,
                    "pipelined": sv.pipelined, "residual_scale": sv.damp,
@@ -2278,6 +2384,356 @@ def recurrent_phase(smi):
     return launches
 
 
+# -- multimodal phase ----------------------------------------------------
+
+MULTIMODAL_SERVES = (
+    FamilyServe("vlm-serve", "qwen2-vl-2b", "model", "none", 32, False, 1.0,
+                B1_B2),
+    FamilyServe("vlm-serve-int8", "qwen2-vl-2b", "model", "int8", 32, False,
+                1.0, ("paged_ragged_verify_attention_quant",
+                      "fused_kld_accept")),
+    FamilyServe("vlm-serve-dense", "qwen2-vl-2b", "model", "none", None,
+                False, 1.0, ("ragged_verify_attention", "fused_kld_accept")),
+    FamilyServe("vlm-serve-pipe", "qwen2-vl-2b", "model", "none", 32, True,
+                1.0, B1_B2, twin="vlm-serve", equal=True),
+    # the reference's engine serves audio on the ring with an empty
+    # encoder context (one cross slot, never valid)
+    FamilyServe("audio-serve", "seamless-m4t-medium", "model", "none", None,
+                False, 1.0, ("ragged_verify_attention", "fused_kld_accept")),
+)
+MULTIMODAL_PROFILED = ("vlm-serve", "audio-serve")
+# the vision stub's image (a GRID x GRID patch grid) and text prompt
+GRID, IMAGE_TEXT = 16, 32
+# the encoder-conditioned round: frames, decoder prompt, rounds
+ENC_FRAMES, ENC_PROMPT, ENC_ROUNDS = 128, 16, 8
+
+
+def vision_inputs(cfg, params, b, grid, text, device, seed=0):
+    """(embeds [B, grid^2 + text, d], rope_positions [B, T, 3]) of the
+    vision stub: seeded patch embeddings, then the embeddings of a text
+    prompt; M-RoPE positions in Qwen2-VL's layout, patches at (0, h, w),
+    text from the largest + 1, equal in all three streams."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    patches = torch.randn(b, grid * grid, cfg.d_model, generator=g) * 0.02
+    text_ids = torch.randint(0, cfg.vocab_size, (b, text), generator=g)
+    emb = torch.cat([patches.to(device),
+                     params["embed"][text_ids.to(device)]], 1)
+    hh, ww = torch.meshgrid(torch.arange(grid), torch.arange(grid),
+                            indexing="ij")
+    img = torch.stack([torch.zeros(grid * grid, dtype=torch.long),
+                       hh.reshape(-1), ww.reshape(-1)], -1)
+    txt = (img.max() + 1 + torch.arange(text))[:, None].expand(text, 3)
+    pos = torch.cat([img, txt])[None].expand(b, -1, -1)
+    return emb, pos.to(torch.int32).to(device).contiguous()
+
+
+def vlm_image(cfg, params, device, b=4, grid=GRID, text=IMAGE_TEXT):
+    """Prefill the vision stub's image + text into a fresh fp32 pool
+    through ``forward(embeds=, rope_positions=)``, then a T 1 and a T 11
+    decode step off the pool (B1 on the card).  Returns (prefill logits
+    at each row's last position, T 1 logits, T 11 logits, the cache's
+    length)."""
+    import torch
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.transformer import forward
+    bs, max_len = 16, 512
+    maxb = max_len // bs
+    cache = cache_lib.paged_cache_struct(cfg, b, max_len, b * maxb, bs,
+                                         device=device)
+    cache["block_table"][:] = torch.arange(
+        b * maxb, dtype=torch.int32, device=device).reshape(b, maxb)
+    emb, pos = vision_inputs(cfg, params, b, grid, text, device)
+    t = emb.shape[1]
+    logits, cache = forward(params, cfg, None, cache=cache, mode="prefill",
+                            embeds=emb, rope_positions=pos)
+    cache["length"] = torch.full((b,), t, dtype=torch.int32, device=device)
+    nxt = logits[:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    d1, _ = forward(params, cfg, nxt[:, None], cache=cache, mode="decode")
+    toks = torch.arange(11, dtype=torch.int32, device=device)[None] + nxt[:, None]
+    d11, _ = forward(params, cfg, toks % cfg.vocab_size, cache=cache,
+                     mode="decode")
+    return logits[:, -1], d1, d11, t
+
+
+def encdec_state(cfg, pt, pd, dcfg, device, b=4, frames=ENC_FRAMES,
+                 prompt=ENC_PROMPT, rounds=ENC_ROUNDS, seed=0):
+    """An encoder-conditioned round state: ``init_round_state(enc_len=
+    frames)``, seeded frames through ``encode`` and ``build_cross_cache``
+    into the target's ring (the draft keeps its one empty cross slot), a
+    seeded ``prompt``-token decoder prompt prefilled into both rings.
+    Returns (state, drafter, spec, frame embeds, prefill logits)."""
+    import torch
+    from repro_torch.core.config import SpecDecodeConfig
+    from repro_torch.core.drafters import build_drafter
+    from repro_torch.core.spec_decode import init_round_state
+    from repro_torch.models.transformer import (build_cross_cache, encode,
+                                                forward)
+    g = torch.Generator().manual_seed(seed)
+    emb = (torch.randn(b, frames, cfg.d_model, generator=g) * 0.3).to(device)
+    toks = torch.randint(0, cfg.vocab_size, (b, prompt), generator=g,
+                         dtype=torch.int32).to(device)
+    spec = SpecDecodeConfig()
+    drafter = build_drafter(spec, cfg, dcfg)
+    st = init_round_state(cfg, dcfg, spec, b,
+                          prompt + rounds * (spec.sl_max + 1) + 16,
+                          drafter=drafter, device=device, enc_len=frames)
+    ck, cv = build_cross_cache(pt, cfg, encode(pt, cfg, emb))
+    tc = dict(st.target_cache, cross_k=ck, cross_v=cv,
+              enc_valid=torch.ones((b, frames), dtype=torch.bool,
+                                   device=device))
+    logits, tc = forward(pt, cfg, toks, cache=tc, mode="prefill")
+    _, dc = forward(pd, dcfg, toks, cache=st.draft_cache, mode="prefill")
+    for c in (tc, dc):
+        c["length"] = torch.full((b,), prompt, dtype=torch.int32,
+                                 device=device)
+    pend = logits[:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    return (st._replace(target_cache=tc, draft_cache=dc, pending=pend),
+            drafter, spec, emb, logits)
+
+
+def encdec_rounds(cfg, pt, pd, dcfg, device, rounds=ENC_ROUNDS):
+    """``rounds`` ``spec_decode_round`` calls over :func:`encdec_state`,
+    each at the bucket K of the state's largest next SL.  Returns (the
+    emitted tokens of each row, the prefill logits, the round state)."""
+    import torch
+    from repro_torch.core.spec_decode import spec_decode_round
+    st, drafter, spec, _, logits = encdec_state(cfg, pt, pd, dcfg, device)
+    b = st.pending.shape[0]
+    active = torch.ones((b,), dtype=torch.bool, device=device)
+    rows = [[] for _ in range(b)]
+    for _ in range(rounds):
+        k = int(st.sl_next.max())
+        st, out = spec_decode_round(pt, pd, cfg, drafter, spec, k, st, active)
+        em, n = out.emitted.cpu(), out.num_emitted.cpu()
+        for i in range(b):
+            rows[i] += em[i, :int(n[i])].tolist()
+    return rows, logits, st
+
+
+def wall_ms(fn, n=10) -> float:
+    """Wall ms a call of ``fn`` over ``n`` calls, after two warm calls,
+    with a synchronise before and after."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.monotonic() - t0) / n
+
+
+def vlm_image_phase(smi) -> None:
+    """qwen2-vl-2b at full width: the vision stub's 16 x 16 patch grid and
+    a 32-token text prompt, B 4, prefilled into the fp32 pool with
+    M-RoPE positions, then T 1 and T 11 decode steps through B1 (which
+    must launch); every logit finite.  Timed: the prefill and each
+    decode step, against the weight bytes each reads."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params
+    cfg = get_config("qwen2-vl-2b")
+    pt = init_params(cfg, seed=0, device="cuda", rng_device="cuda")
+    reset_launches()
+    last, d1, d11, t = vlm_image(cfg, pt, "cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    weight_ms = 1e3 * decoder_params(cfg) * 4 / HBM_BYTES_S
+    ms = wall_ms(lambda: vlm_image(cfg, pt, "cuda"), n=3)
+    row = {"phase": "vlm-image", "arch": cfg.name, "B": 4,
+           "patches": GRID * GRID, "text": IMAGE_TEXT, "prefill_tokens": t,
+           "mrope_sections": list(cfg.mrope_sections),
+           "prefill_plus_two_decodes_ms": ms, "weight_bound_ms": weight_ms,
+           "finite": all(bool(x.isfinite().all()) for x in (last, d1, d11)),
+           "B1_launches": launches["paged_ragged_verify_attention"],
+           "nvidia_smi": smi}
+    emit(row)
+    if not row["finite"] or row["B1_launches"] <= 0:
+        raise AssertionError(f"vlm-image: {row}")
+    del pt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def audio_encdec_phase(smi):
+    """seamless-m4t-medium at full width, its ``draft()`` as the model
+    drafter: seeded frames (B 4 x 128) encoded into the target's cross
+    cache of a round state from ``init_round_state(enc_len=128)``, a
+    16-token decoder prompt prefilled, then 8 ``spec_decode_round`` calls
+    driven directly (B5 and B2 must launch; every token in the
+    vocabulary).  Timed: the encode, a decode step (T 1) and a verify
+    pass (T 11) of the target, each against the weight bytes it reads
+    (the encoder's, the decoder's).  Returns the rounds' launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import encode, forward
+    from repro_torch.models.weights import count_params, init_params
+    cfg = get_config("seamless-m4t-medium")
+    dcfg = serve_draft(cfg)
+    pt = init_params(cfg, seed=0, device="cuda", rng_device="cuda")
+    pd = init_params(dcfg, seed=1, device="cuda", rng_device="cuda")
+    rows, _, _ = encdec_rounds(cfg, pt, pd, dcfg, "cuda")     # warm
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rows, logits, st = encdec_rounds(cfg, pt, pd, dcfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    st0, _, _, emb, _ = encdec_state(cfg, pt, pd, dcfg, "cuda")
+    tc = st0.target_cache
+    tok = torch.ones((4, 11), dtype=torch.int32, device="cuda")
+    dec_params = decoder_params(cfg)
+    enc_params = count_params(cfg) - dec_params
+    timed = {
+        "encode": (lambda: encode(pt, cfg, emb), enc_params),
+        "T1": (lambda: forward(pt, cfg, tok[:, :1], cache=tc, mode="decode"),
+               dec_params),
+        "T11": (lambda: forward(pt, cfg, tok, cache=tc, mode="decode"),
+                dec_params),
+    }
+    row = {"phase": "audio-encdec", "arch": cfg.name, "draft": dcfg.name,
+           "B": 4, "frames": ENC_FRAMES, "prompt": ENC_PROMPT,
+           "rounds": ENC_ROUNDS, "rounds_wall_s": wall,
+           "tokens": sum(len(r) for r in rows),
+           "lengths": st.target_cache["length"].tolist(),
+           "launches": launches, "nvidia_smi": smi}
+    for key, (fn, n) in timed.items():
+        ms = wall_ms(fn)
+        bound = 1e3 * n * 4 / HBM_BYTES_S
+        row[key] = {"ms": ms, "params_read": n, "weight_bound_ms": bound,
+                    "weight_bound_share": bound / ms}
+    emit(row)
+    if not (launches["ragged_verify_attention"] > 0
+            and launches["fused_kld_accept"] > 0):
+        raise AssertionError(f"audio-encdec: a kernel never ran: {launches}")
+    if not (bool(logits.isfinite().all()) and all(
+            0 <= t < cfg.vocab_size for r in rows for t in r)
+            and row["tokens"] >= 4 * ENC_ROUNDS):
+        raise AssertionError(f"audio-encdec: {row}")
+    del pt, pd, st, st0, tc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class MultimodalCheck(NamedTuple):
+    """One reduced-width card == CPU check of a multimodal serve:
+    ``arch``'s ``reduced()`` with its ``draft()`` as the model drafter,
+    dsde, on the pool (``nblocks`` blocks of 16, ``kv_quant``) or the ring
+    (``nblocks`` None), synchronous or ``pipelined``."""
+    name: str
+    arch: str
+    nblocks: Optional[int]
+    kv_quant: str = "none"
+    pipelined: bool = False
+
+
+MULTIMODAL_CHECKS = (
+    MultimodalCheck("vlm-pool", "qwen2-vl-2b", 16),
+    MultimodalCheck("vlm-int8", "qwen2-vl-2b", 16, "int8"),
+    MultimodalCheck("vlm-ring", "qwen2-vl-2b", None),
+    MultimodalCheck("vlm-pool-pipe", "qwen2-vl-2b", 16, pipelined=True),
+    MultimodalCheck("audio-ring", "seamless-m4t-medium", None),
+)
+# card == CPU logits of the reduced image prefill and decode steps and
+# of the encoder-conditioned prefill (the CPU tests' bound for the port
+# against the reference), on the reduced init scaled by CONDITIONED: at
+# its own scale (layer weights of std 0.71) attention saturates and the
+# card's and the CPU's orders of fp32 sums part by up to 1.9e-4 in the
+# image path's T 11 logits (PR 22's first card run)
+MULTIMODAL_LOGIT_ATOL = 1e-4
+CONDITIONED = 0.2
+
+
+def multimodal_check_phase() -> None:
+    """``MULTIMODAL_CHECKS`` on the card (kernels) and on the CPU (plain
+    versions): equal greedy streams; then the reduced vlm-image path
+    (logits within ``MULTIMODAL_LOGIT_ATOL``) and the reduced
+    encoder-conditioned rounds (equal tokens, prefill logits within the
+    same bound), both on the init scaled by ``CONDITIONED``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params, map_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    for chk in MULTIMODAL_CHECKS:
+        cfg = get_config(chk.arch).reduced()
+        pt = init_params(cfg, seed=2, device="cpu")
+        pd = init_params(cfg.draft(), seed=3, device="cpu")
+        outs = {}
+        for device in ("cuda", "cpu"):
+            rs = [Request(i, prompt=list(range(3 + i, 33 + 2 * i)),
+                          max_new_tokens=24) for i in range(4)]
+            eng = ServingEngine(
+                pt, cfg, pd, cfg.draft(), SpecDecodeConfig(),
+                ServingConfig(max_batch_size=2, max_seq_len=128,
+                              paged_kv=chk.nblocks is not None,
+                              kv_block_size=16, num_kv_blocks=chk.nblocks,
+                              kv_quant=chk.kv_quant,
+                              pipelined=chk.pipelined),
+                device=device)
+            eng.run(rs)
+            outs[device] = [r.output for r in rs]
+        emit({"phase": "multimodal-check",
+              "what": "reduced-width greedy streams, card vs CPU",
+              "check": chk.name, "arch": cfg.name,
+              "layout": "paged" if chk.nblocks is not None else "dense",
+              "kv_quant": chk.kv_quant, "pipelined": chk.pipelined,
+              "equal": outs["cuda"] == outs["cpu"]})
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"multimodal check {chk.name}: card and CPU "
+                                 f"streams differ: {outs}")
+    cfg = get_config("qwen2-vl-2b").reduced()
+    pt = map_params(lambda a: a * CONDITIONED,
+                    init_params(cfg, seed=2, device="cpu"))
+    got = vlm_image(cfg, map_params(lambda a: a.cuda(), pt), "cuda", grid=4,
+                    text=8)
+    want = vlm_image(cfg, pt, "cpu", grid=4, text=8)
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(got[:3], want[:3])]
+    emit({"phase": "multimodal-check", "check": "vlm-image",
+          "what": "reduced-width image prefill + T 1 / T 11 logits, card vs "
+                  "CPU", "max_abs_err": errs, "atol": MULTIMODAL_LOGIT_ATOL})
+    if max(errs) > MULTIMODAL_LOGIT_ATOL:
+        raise AssertionError(f"vlm-image check: card and CPU logits part: "
+                             f"{errs}")
+    cfg = get_config("seamless-m4t-medium").reduced()
+    pt, pd = (map_params(lambda a: a * CONDITIONED,
+                         init_params(c, seed=sd, device="cpu"))
+              for c, sd in ((cfg, 2), (cfg.draft(), 3)))
+    runs = {dev: encdec_rounds(cfg, map_params(lambda a: a.to(dev), pt),
+                               map_params(lambda a: a.to(dev), pd),
+                               cfg.draft(), dev) for dev in ("cuda", "cpu")}
+    err = float((runs["cuda"][1].cpu() - runs["cpu"][1]).abs().max())
+    same = runs["cuda"][0] == runs["cpu"][0]
+    emit({"phase": "multimodal-check", "check": "audio-encdec",
+          "what": "reduced-width encoder-conditioned rounds, card vs CPU",
+          "equal": same, "tokens": sum(len(r) for r in runs["cpu"][0]),
+          "prefill_max_abs_err": err, "atol": MULTIMODAL_LOGIT_ATOL})
+    if not same or err > MULTIMODAL_LOGIT_ATOL:
+        raise AssertionError(f"audio-encdec check: card and CPU part: {err}, "
+                             f"{runs['cuda'][0]} vs {runs['cpu'][0]}")
+
+
+def multimodal_phase(smi):
+    """The full-width serves of the vlm and audio families, the vision
+    stub's image prefill, the encoder-conditioned round, and the
+    reduced-width checks; returns the serves' and rounds' launches."""
+    t0 = time.monotonic()
+    launches = family_serves(smi, MULTIMODAL_SERVES, MULTIMODAL_PROFILED)
+    vlm_image_phase(smi)
+    for kernel, n in audio_encdec_phase(smi).items():
+        launches[kernel] += n
+    multimodal_check_phase()
+    emit({"phase": "multimodal-total", "seconds": time.monotonic() - t0})
+    return launches
+
+
 # -- train phase ---------------------------------------------------------
 # The reference's benchmark pair (benchmarks/common.py): four Markov
 # corpora over 512 tokens, from predictable ("code") to not ("dialogue"),
@@ -2399,11 +2855,14 @@ def train_demo(smi) -> None:
         raise AssertionError("train-demo: the checkpoint did not restore")
 
 
-def train_full_width(stream, smi) -> None:
+def train_full_width(stream, smi, b=8, s=512, steps=20, skip=3,
+                     must_fall=True) -> None:
     """smollm-135m at full width (30 layers, d 576, vocab 49280): 20 steps
-    of B 8 x S 512 with remat through ``train_loop``.  A step's time is
-    the host clock between two batch requests, each after a
-    synchronise; the first 3 steps are left out."""
+    of B 8 x S 512 with remat through ``train_loop`` (or ``steps`` of B
+    ``b`` x S ``s``: at S 2048 the attention is blockwise, and the losses
+    need only be finite).  A step's time is the host clock between two
+    batch requests, each after a synchronise; the first ``skip`` steps
+    are left out."""
     import contextlib
     import io
     import torch
@@ -2413,7 +2872,6 @@ def train_full_width(stream, smi) -> None:
     from repro_torch.training.data import lm_batches
     from repro_torch.training.train import train_loop
     cfg = get_config("smollm-135m")
-    b, s, steps, skip = 8, 512, 20, 3
     marks = []
 
     def timed(batches):
@@ -2447,9 +2905,11 @@ def train_full_width(stream, smi) -> None:
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "model_flop_share_fp32": 6 * n_params * tokens / step_s / FP32_FLOP_S,
           "losses": losses, "seconds": seconds, "tf32": False,
-          "nvidia_smi": smi})
-    if len(losses) != steps or not finite(losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"train-full-width: the loss did not fall: {losses}")
+          "blockwise_attention": s >= 2048, "nvidia_smi": smi})
+    if len(losses) != steps or not finite(losses) or (
+            must_fall and losses[-1] >= losses[0]):
+        raise AssertionError(f"train-full-width S {s}: the loss did not fall "
+                             f"or is not finite: {losses}")
     del params
     torch.cuda.empty_cache()
 
@@ -2504,6 +2964,192 @@ def train_step_check(stream) -> None:
             raise AssertionError(f"train-check (remat={remat}, microbatches="
                                  f"{micro}): card and CPU part: {rel}, "
                                  f"{param_err}")
+
+
+# full-width train steps of the other families (arch, reduced, encoder
+# frames a row): qwen2-vl-2b on tokens, seamless-m4t-medium with encoder
+# frames, mamba2-130m; recurrentgemma-2b only reduced (at fp32 with AdamW
+# its 2.7e9 parameters need about 43 GB before activations)
+FAMILY_TRAINS = (("qwen2-vl-2b", False, None), ("seamless-m4t-medium", False, 128),
+                 ("mamba2-130m", False, None), ("recurrentgemma-2b", True, None))
+FAMILY_TRAIN_SHAPE = dict(b=4, s=512, steps=10, skip=3)
+
+
+def family_batches(stream, cfg, b, s, frames, device, seed=0):
+    """Seeded train batches of ``cfg``: next-token pairs cut from
+    ``stream`` (the pair's mixed Markov stream over 512 tokens, which
+    every vocabulary holds), and for an encoder-decoder ``frames`` seeded
+    encoder frames a row (None otherwise).  Yields (tokens, labels,
+    encoder_embeds)."""
+    import torch
+    from repro_torch.training.data import lm_batches
+    g = torch.Generator().manual_seed(seed)
+    for toks, labs in lm_batches(stream, b, s, seed=seed, epochs=100):
+        enc = (None if frames is None else
+               (torch.randn(b, frames, cfg.d_model, generator=g) * 0.3
+                ).to(device))
+        yield (torch.from_numpy(toks).to(device),
+               torch.from_numpy(labs).to(device), enc)
+
+
+def family_train(stream, arch, reduced, frames, smi, b=4, s=512, steps=10,
+                 skip=3):
+    """``train_step`` (remat) for ``steps`` steps of B ``b`` x S ``s`` on
+    the card from the port's seeded init (drawn on the card at full
+    width), the demo's lr 3e-3 and clip 5.0 after 3 warm-up steps: every
+    loss finite and the mean of the last three below the first (at lr
+    3e-4 a 256k vocabulary's loss moves less in 10 steps than from batch
+    to batch); ms a step past the first ``skip``, tokens/s and peak
+    memory."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.models.weights import init_params, param_leaves
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.train import train_step
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    opt = OptimizerConfig(learning_rate=3e-3, warmup_steps=3,
+                          total_steps=steps, grad_clip=5.0)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device="cuda",
+                         rng_device="cpu" if reduced else "cuda")
+    st = init_adamw(params)
+    n_params = sum(t.numel() for _, t in param_leaves(params))
+    losses, marks = [], []
+    t0 = time.monotonic()
+    for i, (toks, labs, enc) in enumerate(family_batches(stream, cfg, b, s,
+                                                         frames, "cuda")):
+        if i == steps:
+            break
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        params, st, m = train_step(params, st, toks, labs, cfg=cfg,
+                                   opt_cfg=opt, remat=True,
+                                   encoder_embeds=enc)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    marks.append(time.monotonic())
+    step_s = (marks[steps] - marks[skip]) / (steps - skip)
+    row = {"phase": "train-family", "arch": cfg.name, "family": cfg.family,
+           "reduced": reduced, "params": n_params, "batch": b, "seq_len": s,
+           "encoder_frames": frames, "remat": True, "steps": steps,
+           "ms_per_step": 1e3 * step_s, "steps_timed": steps - skip,
+           "tokens_per_s": b * s / step_s,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses, "seconds": time.monotonic() - t0, "tf32": False,
+           "nvidia_smi": smi}
+    emit(row)
+    if not finite(losses) or sum(losses[-3:]) / 3 >= losses[0]:
+        raise AssertionError(f"train-family {cfg.name}: the loss did not "
+                             f"fall: {losses}")
+    del params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_train_check(stream, arch, frames) -> None:
+    """The first ``train_step`` of ``arch``'s reduced config on the card
+    and on the CPU from one seeded init scaled by ``CONDITIONED`` (B 4 x
+    S 64, lr 1e-5): the loss within 1e-4 relative, the grad norm within
+    ``CHECK_GRAD_NORM_RTOL`` and the new params within 1e-4.  At the
+    init's own scale seamless-m4t-medium's grad norm parts by 4.2e-3
+    (PR 22's third card run), its encoder's gradients carrying the
+    saturated cross-attention's rounding (as between the port and the
+    reference on the CPU: ``tests/test_torch_training.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.models.weights import (init_params, map_params,
+                                            param_leaves)
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.train import train_step
+    cfg = get_config(arch).reduced()
+    toks, labs, enc = next(family_batches(stream, cfg, 4, 64, frames and 16,
+                                          "cpu"))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = map_params(lambda a: a * CONDITIONED,
+                       init_params(cfg, seed=0, device=device))
+        p, _, m = train_step(p, init_adamw(p), toks.to(device),
+                             labs.to(device), cfg=cfg,
+                             opt_cfg=OptimizerConfig(**CHECK_OPT), remat=True,
+                             encoder_embeds=None if enc is None
+                             else enc.to(device))
+        runs[device] = (p, {k: float(v) for k, v in m.items()})
+    rel = {k: abs(runs["cuda"][1][k] / runs["cpu"][1][k] - 1)
+           for k in ("loss", "grad_norm")}
+    param_err = max(float((a.cpu() - c).abs().max()) for (_, a), (_, c) in
+                    zip(param_leaves(runs["cuda"][0]),
+                        param_leaves(runs["cpu"][0])))
+    emit({"phase": "train-family-check", "arch": cfg.name,
+          "what": "first train_step card vs CPU, reduced width, 4 x 64",
+          "rel_err_loss": rel["loss"], "rel_err_grad_norm": rel["grad_norm"],
+          "max_abs_err_params": param_err,
+          "grad_norm_rtol": CHECK_GRAD_NORM_RTOL})
+    if not (rel["loss"] <= 1e-4 and rel["grad_norm"] <= CHECK_GRAD_NORM_RTOL
+            and param_err <= 1e-4):
+        raise AssertionError(f"train-family-check {cfg.name}: card and CPU "
+                             f"part: {rel}, {param_err}")
+
+
+# smollm-135m's attention heads (H 9 / KV 3 / D 64) for the flash rows
+FLASH_HEADS = (9, 3, 64)
+
+
+def flash_rows(smi) -> None:
+    """``flash_attend`` (blockwise, tiles of 512, the custom backward)
+    against the quadratic ``attend`` at smollm-135m's heads, B 2, T 2048
+    and 4096, causal: forward + backward ms (wall, over 3 calls), the
+    peak memory each call allocates above its inputs, and the output's
+    and each gradient's largest difference (within 1e-4)."""
+    import torch
+    from repro_torch.models.flash import flash_attend
+    from repro_torch.models.layers import attend
+    h, kv, d = FLASH_HEADS
+    for t in (2048, 4096):
+        g = torch.Generator(device="cuda").manual_seed(t)
+        q, k, v, dout = (torch.randn(2, t, n, d, generator=g, device="cuda")
+                         for n in (h, kv, kv, h))
+        pos = torch.arange(t, device="cuda")[None].expand(2, t)
+        valid = torch.ones((2, t), dtype=torch.bool, device="cuda")
+        fns = {"flash": lambda q_, k_, v_: flash_attend(q_, k_, v_),
+               "attend": lambda q_, k_, v_: attend(
+                   q_, k_, v_, q_pos=pos, kv_pos=pos, kv_valid=valid)}
+        res, row = {}, {"phase": "flash", "B": 2, "T": t, "H": h, "KV": kv,
+                        "D": d, "causal": True, "nvidia_smi": smi}
+        for name, fn in fns.items():
+            def call():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                out = fn(*leaves)
+                return (out.detach(),) + torch.autograd.grad(out, leaves,
+                                                              dout)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res[name] = call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            row[name] = {"fwd_bwd_ms": wall_ms(call, n=3),
+                         "peak_extra_gib": peak / 2 ** 30}
+        row["max_abs_diff"] = {n: float((a - b).abs().max()) for n, a, b in
+                               zip(("out", "dq", "dk", "dv"), res["flash"],
+                                   res["attend"])}
+        emit(row)
+        if max(row["max_abs_diff"].values()) > 1e-4:
+            raise AssertionError(f"flash T {t}: flash and attend part: {row}")
+
+
+def family_train_phase(smi, stream=None) -> None:
+    """The other families' training (``FAMILY_TRAINS``: full-width steps,
+    card == CPU first steps at the reduced width) on ``stream`` (default:
+    :func:`mixed_stream`), then the flash rows."""
+    if stream is None:
+        stream = mixed_stream()
+    for arch, reduced, frames in FAMILY_TRAINS:
+        family_train(stream, arch, reduced, frames, smi, **FAMILY_TRAIN_SHAPE)
+        family_train_check(stream, arch, frames)
+    flash_rows(smi)
 
 
 def train_pair(stream, smi):
@@ -2654,6 +3300,9 @@ def train_phase(smi):
           "seconds": time.monotonic() - t1})
     train_full_width(stream, smi)
     train_step_check(stream)
+    family_train_phase(smi, stream)
+    train_full_width(stream, smi, b=2, s=2048, steps=5, skip=2,
+                     must_fall=False)
     pair = train_pair(stream, smi)
     launches, streams = pair_serves(pair, smi)
     pair_card_equal_cpu(pair, streams)
@@ -2774,6 +3423,23 @@ def ab_phase(parent: Path) -> None:
                   "kernels": parse_ptxas(log.stdout + log.stderr)})
 
 
+# ``--only NAME[,NAME]``: these phases alone, after the build, with no
+# result line (a short run while a phase is being written)
+ONLY = {
+    "kernels": lambda smi: kernel_phase(torch_flush()),
+    "multimodal-kernels": lambda smi: multimodal_rows(torch_flush()),
+    "multimodal": multimodal_phase,
+    "multimodal-checks": lambda smi: multimodal_check_phase(),
+    "train-family": family_train_phase,
+    "flash": flash_rows,
+}
+
+
+def torch_flush():
+    import torch
+    return torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -2803,13 +3469,17 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         ab_phase(Path(sys.argv[2]).resolve())
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        for name in sys.argv[2].split(","):
+            ONLY[name](smi)
+        return 0
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     contract = kernel_phase(flush)
     del flush
     launches = serve_phase()
     for phase in (frontdoor_phase, families_phase, recurrent_phase,
-                  train_phase):
+                  multimodal_phase, train_phase):
         for kernel, n in phase(smi).items():
             launches[kernel] += n
 

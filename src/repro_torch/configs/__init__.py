@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Only the architectures the port runs are registered; each module under
-``repro_torch/configs/`` exports ``CONFIG`` with the same values as its
-twin in the reference.
+The reference's architectures, in the reference's order; each module
+under ``repro_torch/configs/`` exports ``CONFIG`` with the same values
+as its twin in the reference.
 """
 from __future__ import annotations
 
@@ -12,21 +12,23 @@ from typing import List
 from repro_torch.core.config import ModelConfig
 
 _ALIAS = {
-    "smollm-135m": "smollm_135m",
-    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
-    "mixtral-8x22b": "mixtral_8x22b",
-    "granite-8b": "granite_8b",
-    "qwen2.5-32b": "qwen2_5_32b",
     "qwen3-32b": "qwen3_32b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "mamba2-130m": "mamba2_130m",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "granite-8b": "granite_8b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "smollm-135m": "smollm_135m",
     "paper-llama-pair": "paper_llama_pair",
     "paper-gemma-pair": "paper_gemma_pair",
-    "mamba2-130m": "mamba2_130m",
-    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 
 def list_archs() -> List[str]:
-    return sorted(_ALIAS)
+    return list(_ALIAS)
 
 
 def get_config(arch: str) -> ModelConfig:

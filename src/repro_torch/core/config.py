@@ -2,8 +2,9 @@
 
 A copy of the parts of ``repro.core.config`` the port runs (the port
 imports nothing of the JAX package): the architecture description with
-its mixture-of-experts block, the speculation config, the serving
-config and the training configs (optimizer, trainer).  Field names, defaults and
+its mixture-of-experts, SSM and RG-LRU blocks, M-RoPE and the
+encoder-decoder fields, the speculation config, the serving config and
+the training configs (optimizer, trainer).  Field names, defaults and
 ``reduced()`` are kept identical, so a config built here describes the
 same model and the same schedule as its twin in the reference.
 """
@@ -11,12 +12,11 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
-# the model families the port runs (of the reference's dense, moe, ssm,
-# hybrid, vlm and audio)
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the model families the port runs: all of the reference's
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclass(frozen=True)
@@ -55,13 +55,15 @@ class RGLRUConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description.  The port runs the dense, MoE, SSM
-    (Mamba-2) and hybrid (RG-LRU + local attention) families; the fields
-    of the others (M-RoPE, encoder-decoder, modality front ends) come with
-    their slices."""
+    """Architecture description of every family the port runs: dense,
+    MoE, SSM (Mamba-2), hybrid (RG-LRU + local attention), vlm (M-RoPE
+    over ``[B, T, 3]`` positions, patch embeddings from the stubbed
+    vision front end) and audio (an encoder-decoder whose decoder
+    cross-attends to the encoded frames of the stubbed audio front
+    end)."""
 
     name: str
-    family: str                      # dense | moe | ssm | hybrid
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -72,6 +74,8 @@ class ModelConfig:
     qk_norm: bool = False            # qwen3
     qkv_bias: bool = False           # qwen2.5
     rope_theta: float = 10000.0
+    # qwen2-vl's M-RoPE: (temporal, height, width) sections of head_dim/2
+    mrope_sections: Optional[Tuple[int, int, int]] = None
     attention_window: Optional[int] = None
     # physical KV heads in the cache replicated up to this count (exact)
     kv_head_pad: Optional[int] = None
@@ -80,8 +84,14 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    # encoder-decoder (audio): the bidirectional encoder's depth
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
+    # modality front-end stub: its embeddings [B, S, frontend_dim] come
+    # in place of token ids
+    frontend_dim: Optional[int] = None
     source: str = ""
 
     @property
@@ -105,10 +115,10 @@ class ModelConfig:
         return ((self.vocab_size + multiple) // multiple) * multiple
 
     def reduced(self) -> "ModelConfig":
-        """Small variant of the same architecture (<= 2 layers, d_model
-        <= 256, <= 4 experts, SSM state <= 32, RG-LRU width d_model and
-        window 64), identical to the reference's
-        ``reduced()``."""
+        """Small variant of the same architecture (<= 2 layers and <= 2
+        encoder layers, d_model <= 256, <= 4 experts, SSM state <= 32,
+        RG-LRU width d_model and window 64, M-RoPE sections re-cut to the
+        reduced head dim), identical to the reference's ``reduced()``."""
         d_model = min(self.d_model, 256)
         num_heads = min(self.num_heads, 4)
         head_dim = max(d_model // num_heads, 16)
@@ -138,15 +148,25 @@ class ModelConfig:
         if self.rglru is not None:
             kw["rglru"] = dataclasses.replace(
                 self.rglru, lru_width=d_model, local_attention_window=64)
+        if self.is_encoder_decoder:
+            kw["num_encoder_layers"] = min(self.num_encoder_layers, 2)
+        if self.frontend_dim is not None:
+            kw["frontend_dim"] = d_model
         if self.attention_window is not None:
             kw["attention_window"] = min(self.attention_window, 64)
+        if self.mrope_sections is not None:
+            # three sections summing to head_dim // 2
+            h = head_dim // 2
+            kw["mrope_sections"] = (h - 2 * (h // 3), h // 3, h // 3)
         return dataclasses.replace(self, **kw)
 
     def draft(self) -> "ModelConfig":
         """The same-family draft (about 1/4 of the target's depth and
         width, same vocabulary), identical to the reference's
-        ``draft()``.  The draft of an MoE target is dense; an SSM or
-        hybrid target's draft keeps the family."""
+        ``draft()``.  The draft of an MoE target is dense; the others
+        keep the family, and the M-RoPE sections and the encoder depth
+        stay the target's (so qwen2-vl-2b's draft, H 3 over KV 2, cannot
+        group its heads: the reference's own draft raises too)."""
         d_model = max(128, self.d_model // 4)
         num_heads = max(2, self.num_heads // 4)
         kw = dict(

@@ -17,8 +17,8 @@ from repro_torch.models.transformer import forward
 
 
 # ring leaves whose leading axis is the batch axis (the others are
-# [layers, batch, ...])
-BATCH_AXIS0 = ("length", "kv_pos")
+# [layers, batch, ...]; an audio ring's cross K/V too)
+BATCH_AXIS0 = ("length", "kv_pos", "enc_valid")
 
 
 def _last_logits(logits: torch.Tensor, prompt_lens: torch.Tensor

@@ -200,13 +200,18 @@ def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
                      paged: Optional[Tuple[int, int]] = None,
                      base_seed: int = 0, drafter: Optional[Drafter] = None,
                      dtype=torch.float32, device="cuda",
-                     kv_quant: str = "none") -> RoundState:
+                     kv_quant: str = "none",
+                     enc_len: Optional[int] = None) -> RoundState:
     """Fresh round state on ``device``: the target's cache — a dense ring
     (``paged=None``) or the block-paged pool (``paged=(num_blocks,
     block_size)``, stored as ``kv_quant`` says) — plus the drafter's
     cache in the same layout (a mirrored pool inherits the storage
-    mode).  The termination fields default to "never terminate" (the
-    engine sets them per slot at prefill)."""
+    mode).  ``enc_len``: an audio target ring's cross slots, for a round
+    driver that fills ``cross_k``/``cross_v``/``enc_valid`` from
+    :func:`models.transformer.encode` (the drafter's cache keeps one
+    empty slot, as the reference's does).  The termination fields
+    default to "never terminate" (the engine sets them per slot at
+    prefill)."""
     if kv_quant not in cache_lib.KV_QUANT_MODES:
         raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
     if kv_quant != "none" and paged is None:
@@ -218,7 +223,8 @@ def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
         drafter = build_drafter(spec, cfg_t, cfg_d)
     i32 = dict(dtype=torch.int32, device=device)
     if paged is None:
-        t_cache = cache_lib.cache_struct(cfg_t, batch, max_len, dtype, device)
+        t_cache = cache_lib.cache_struct(cfg_t, batch, max_len, dtype, device,
+                                         enc_len=enc_len)
     else:
         t_cache = cache_lib.paged_cache_struct(cfg_t, batch, max_len,
                                                *paged, dtype, device,

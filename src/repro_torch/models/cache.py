@@ -52,6 +52,15 @@ These leaves are never written in place: the model returns new tensors
 for them, because the round's commit re-advances from the pre-round
 cache (``models/transformer.py``, ``commit``).
 
+A ``vlm`` cache is the dense family's, in every layout.  An ``audio``
+(encoder-decoder) cache is a dense ring only, ``max_len`` wide with no
+window, for the decoder's self-attention, plus the encoder context:
+``cross_k``/``cross_v [L, B, S_enc, KV, D]`` (every decoder layer's
+cross K/V, :func:`models.transformer.build_cross_cache`) and
+``enc_valid [B, S_enc]`` bool.  Without ``enc_len`` it has one cross slot,
+never valid, as the reference's: its engine serves audio with an empty
+encoder context, where cross-attention gives 0.
+
 The pools and ``kv_pos`` hold ONE block more than the allocator hands
 out: block ``num_blocks`` is the drop target.  The reference drops a
 write by scattering it to the out-of-range flat slot ``num_blocks * bs``
@@ -152,10 +161,11 @@ def recurrent_rows(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
-                 dtype=torch.float32, device="cpu") -> CacheT:
+                 dtype=torch.float32, device="cpu",
+                 enc_len: Optional[int] = None) -> CacheT:
     """Fresh dense-ring cache: zero rings, every slot empty, every length
-    0, zero recurrent rows (the reference's ``cache_struct`` for the
-    dense, MoE, SSM and hybrid families)."""
+    0, zero recurrent rows (the reference's ``cache_struct``); an audio
+    cache adds ``enc_len`` zero cross slots (default 1), none valid."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no dense ring in the port")
     cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -169,6 +179,13 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                  v=torch.zeros(shape, dtype=dtype, device=device),
                  kv_pos=torch.full((batch, w), -1, dtype=torch.int32,
                                    device=device))
+    if cfg.family == "audio":
+        se = enc_len if enc_len is not None else 1
+        cross = kv_buf_shape(cfg, batch, se, cfg.num_layers)
+        cache.update(cross_k=torch.zeros(cross, dtype=dtype, device=device),
+                     cross_v=torch.zeros(cross, dtype=dtype, device=device),
+                     enc_valid=torch.zeros((batch, se), dtype=torch.bool,
+                                           device=device))
     return cache
 
 
@@ -227,7 +244,8 @@ def write_pos(kv_pos: torch.Tensor, positions: torch.Tensor,
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """Families whose attention KV can live in the shared block pool (the
-    reference's list: ssm is attention-free)."""
+    reference's list: ssm is attention-free, and audio's cross K/V are
+    per-request encoder state)."""
     return cfg.family in ("dense", "moe", "vlm", "hybrid")
 
 

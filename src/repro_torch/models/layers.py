@@ -1,4 +1,5 @@
-"""Transformer layers of the port: RMSNorm, half-split RoPE, GQA
+"""Transformer layers of the port: RMSNorm, half-split RoPE (and
+M-RoPE), GQA
 projections (with the optional qkv bias and qk norm), masked attention,
 SwiGLU MLP.
 
@@ -28,14 +29,30 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return out.to(dtype)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) ``[B, T, 1, D/2]`` of ``positions [B, T]``; computed
-    once per forward and shared by every layer's q and k."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Optional[Tuple[int, int, int]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) ``[B, T, 1, D/2]`` of ``positions``; computed once per
+    forward and shared by every layer's q and k.
+
+    ``positions [B, T]``: 1-D RoPE.  ``positions [B, T, 3]`` (M-RoPE,
+    with ``mrope_sections``): the temporal, height and width streams;
+    frequency ``j`` of the D/2 takes the stream of the section it falls
+    in (the first ``sections[0]`` frequencies the temporal one, and so
+    on).  A text token carries the same value in all three streams, so
+    ``[B, T]`` positions are the 1-D path, bit for bit, as the
+    reference's broadcast to three equal streams is."""
     half = head_dim // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                           device=positions.device) / half))
-    angles = positions.float()[..., None, None] * freqs
+    if positions.dim() == 3:
+        assert mrope_sections is not None and sum(mrope_sections) == half, (
+            mrope_sections, half)
+        stream = [i for i, n in enumerate(mrope_sections) for _ in range(n)]
+        pos = positions.float()[..., stream]                  # [B, T, D/2]
+        angles = pos[..., None, :] * freqs
+    else:
+        angles = positions.float()[..., None, None] * freqs
     return torch.cos(angles), torch.sin(angles)
 
 
@@ -50,7 +67,7 @@ def apply_rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
     return out.to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("btd,dhk->bthk")`` as one matrix product."""
     b, t, d = x.shape
     return (x.reshape(b * t, d) @ w.reshape(d, -1)).reshape(
@@ -63,7 +80,7 @@ def qkv_project(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """x [B, T, d] -> q [B,T,H,D], k/v [B,T,KV,D]: the projections, then
     the bias (``qkv_bias``), then the per-head RMSNorm (``qk_norm``),
     then RoPE on q and k, in the reference's order."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = (head_proj(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:

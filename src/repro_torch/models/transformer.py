@@ -1,6 +1,6 @@
-"""Model assembly of the port (``repro.models.transformer``): the
-dense, MoE, SSM (Mamba-2) and hybrid (RG-LRU + local attention)
-families.
+"""Model assembly of the port (``repro.models.transformer``): all six
+of the reference's families, dense, MoE, SSM (Mamba-2), hybrid (RG-LRU +
+local attention), vlm (qwen2-vl: M-RoPE) and audio (an encoder-decoder).
 
 ``forward(params, cfg, tokens, cache=..., mode=...)`` has the
 reference's three modes:
@@ -14,6 +14,10 @@ reference's three modes:
   K+1 for verification), K/V written first, then attention straight off
   the cache — the CUDA kernel when the cache is a CUDA tensor, its plain
   version on the CPU.
+
+Train and prefill calls of ``BLOCKWISE_THRESHOLD`` tokens or more
+attend blockwise (``models/flash.py``), as the reference does, so train
+mode never holds the T x T scores.
 
 An MoE layer replaces the MLP with :func:`models.moe.moe_apply`, whose
 expert capacity counts every row of the call.  Under ``kv_head_pad`` the
@@ -40,6 +44,16 @@ index the K/V ring or pool by their attention index, not their layer
 index.  A prefill over right-padded prompts masks the recurrent steps of
 the padding (``update_mask``), as the reference does.
 
+A vlm stack is the dense stack; a caller may pass ``embeds`` (the
+vision stub's patch embeddings) in place of tokens and ``rope_positions
+[B, T, 3]`` for M-RoPE.  An audio stack is an encoder-decoder:
+:func:`encode` runs the bidirectional encoder over frame embeddings,
+:func:`build_cross_cache` projects its output to every decoder layer's
+cross K/V, and each decoder layer runs self-attention (on the dense
+ring), cross-attention (no RoPE, not causal, over ``enc_valid``) and the
+MLP.  With a cache the cross K/V come from it (``cross_k``/``cross_v``,
+``enc_valid``); in train mode from ``encoder_embeds``.
+
 The pool writes happen in place (see ``models/cache.py``); the returned
 cache dict shares the pool tensors with the one passed in, but holds new
 recurrent tensors.  ``commit`` is length arithmetic on the verified
@@ -58,23 +72,27 @@ from repro_torch.kernels.paged_attention import paged_ragged_attention
 from repro_torch.kernels.paged_attention_quant import paged_ragged_attention_quant
 from repro_torch.kernels.ragged_attention import ragged_attention
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.layers import (attend, attn_output, mlp_apply,
-                                       qkv_project, rmsnorm, rope_angles)
+from repro_torch.models.flash import flash_attend
+from repro_torch.models.layers import (attend, attn_output, head_proj,
+                                       mlp_apply, qkv_project, rmsnorm,
+                                       rope_angles)
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssm import mamba_mixer
 from repro_torch.models.weights import Params, map_params
 
 
-# at this many tokens the reference's train mode attends blockwise
-# (``flash_attend``); the port's train mode has only the quadratic path
+# train and prefill calls of this many tokens attend blockwise
+# (``models/flash.py``), as the reference's do
 BLOCKWISE_THRESHOLD = 2048
 
 
-def _layer(params: Params, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked ``[L, ...]`` parameters."""
+def _layer(params: Params, i: int, stack: str = "layers") -> dict:
+    """Layer ``i``'s slice of the stacked ``[L, ...]`` parameters
+    ``params[stack]`` (the decoder's ``layers``, or an encoder-decoder's
+    ``enc_layers``)."""
     return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[i]) for k, v in params["layers"].items()}
+                else v[i]) for k, v in params[stack].items()}
 
 
 def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
@@ -95,7 +113,7 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                    input_mask: Optional[torch.Tensor],
                    cache: Optional[cache_lib.CacheT],
                    slots: Optional[torch.Tensor],
-                   window: Optional[int]) -> torch.Tensor:
+                   window: Optional[int], causal: bool = True) -> torch.Tensor:
     q, k, v = qkv_project(p, cfg, x, rope)
     b, t = x.shape[:2]
     quant = cache is not None and cache_lib.is_quantized(cache)
@@ -107,8 +125,12 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                  else torch.ones((b, t), dtype=torch.bool, device=x.device))
         ka, va = (cache_lib.fake_quantize_kv(torch.stack((k, v))).unbind(0)
                   if quant else (k, v))
-        out = attend(q, ka, va, q_pos=positions, kv_pos=positions,
-                     kv_valid=valid, window=window)
+        if t >= BLOCKWISE_THRESHOLD:
+            out = flash_attend(q, ka, va, kv_valid=input_mask, window=window,
+                               causal=causal)
+        else:
+            out = attend(q, ka, va, q_pos=positions, kv_pos=positions,
+                         kv_valid=valid, window=window, causal=causal)
         k, v = _pad_kv(cfg, k, v)
         if quant:
             cache_lib.write_kv_paged_quant(cache["k"][layer], cache["v"][layer],
@@ -195,6 +217,79 @@ def _local_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
 
 
+def _cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  ck: torch.Tensor, cv: torch.Tensor,
+                  enc_valid: torch.Tensor) -> torch.Tensor:
+    """Decoder -> encoder cross-attention over one layer's cross K/V
+    ``[B, S_enc, KV, D]``: no RoPE, not causal, keys masked by
+    ``enc_valid [B, S_enc]`` (a row with no valid key gets 0)."""
+    q = head_proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    b, t, s = x.shape[0], x.shape[1], ck.shape[1]
+    i32 = dict(dtype=torch.int32, device=x.device)
+    out = attend(q, ck, cv, q_pos=torch.zeros((b, t), **i32),
+                 kv_pos=torch.zeros((b, s), **i32), kv_valid=enc_valid,
+                 causal=False)
+    return attn_output(p, out)
+
+
+def _audio_block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
+                 mode: str, positions: torch.Tensor, rope,
+                 input_mask: Optional[torch.Tensor],
+                 cache: Optional[cache_lib.CacheT],
+                 slots: Optional[torch.Tensor], ck: torch.Tensor,
+                 cv: torch.Tensor, enc_valid: torch.Tensor) -> torch.Tensor:
+    """One decoder layer of an encoder-decoder: self-attention (the
+    dense ring in decode), cross-attention over ``ck``/``cv``, the MLP,
+    each pre-norm (``ln1``, ``ln2``, ``ln3``) and residual."""
+    x = x + _attn_sublayer(p["self_attn"], cfg,
+                           rmsnorm(x, p["ln1"], cfg.norm_eps), layer, mode,
+                           positions, rope, input_mask, cache, slots, None)
+    x = x + _cross_attend(p["cross_attn"], cfg,
+                          rmsnorm(x, p["ln2"], cfg.norm_eps), ck, cv,
+                          enc_valid)
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln3"], cfg.norm_eps))
+
+
+def encode(params: Params, cfg: ModelConfig, embeds: torch.Tensor,
+           enc_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bidirectional encoder over front-end embeddings ``[B, S, d]``
+    (``enc_valid [B, S]`` masks padded frames as keys): RoPE over the
+    frame positions, attention not causal, then ``enc_norm``."""
+    b, s = embeds.shape[:2]
+    if enc_valid is None:
+        enc_valid = torch.ones((b, s), dtype=torch.bool, device=embeds.device)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=embeds.device)[None].expand(b, s)
+    rope = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    x = embeds
+    for i in range(cfg.num_encoder_layers):
+        p = _layer(params, i, "enc_layers")
+        x = x + _attn_sublayer(p["attn"], cfg,
+                               rmsnorm(x, p["ln1"], cfg.norm_eps), i, "train",
+                               positions, rope, enc_valid, None, None, None,
+                               causal=False)
+        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def build_cross_cache(params: Params, cfg: ModelConfig, enc_out: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross K/V ``[L, B, S, KV, D]`` of the encoder
+    output ``enc_out [B, S, d]``."""
+    p = params["layers"]["cross_attn"]
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        k = head_proj(enc_out, p["wk"][i])
+        v = head_proj(enc_out, p["wv"][i])
+        if cfg.qkv_bias:
+            k, v = k + p["bk"][i], v + p["bv"][i]
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
+
+
 def _run(fn, remat: bool, *args):
     return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
@@ -222,11 +317,15 @@ def _hybrid_layers(params: Params, cfg: ModelConfig):
     return out
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Optional[cache_lib.CacheT] = None, mode: str = "train",
+def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            *, cache: Optional[cache_lib.CacheT] = None, mode: str = "train",
+            embeds: Optional[torch.Tensor] = None,
             input_mask: Optional[torch.Tensor] = None,
+            rope_positions: Optional[torch.Tensor] = None,
             write_mask: Optional[torch.Tensor] = None,
             update_mask: Optional[torch.Tensor] = None,
+            encoder_embeds: Optional[torch.Tensor] = None,
+            enc_valid: Optional[torch.Tensor] = None,
             remat: bool = False, with_aux: bool = False):
     """Returns (logits [B, T, Vp] float32, cache), and the MoE blocks'
     aux losses averaged over the layers as a third item with
@@ -239,7 +338,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     prompts sets it from ``input_mask``, as the reference does.  The
     returned cache holds NEW recurrent tensors (``ssd``, ``lru``,
     ``conv``): the one passed in keeps its state.  ``remat`` applies to
-    train mode only, which raises ``NotImplementedError`` at T >= 2048."""
+    train mode only.
+
+    ``embeds [B, T, d]`` replace the token embeddings (a front-end stub's
+    output; ``tokens`` may then be None); ``rope_positions`` ([B, T], or
+    [B, T, 3] for M-RoPE) feed RoPE in place of the sequence positions,
+    which still place the K/V and mask the attention.  An audio stack
+    reads its cross K/V from the cache, or in train mode encodes
+    ``encoder_embeds [B, S, d]`` (``enc_valid [B, S]``: the valid frames,
+    all by default); train mode without them raises ``AssertionError``,
+    as the reference's does."""
     assert mode in ("train", "prefill", "decode")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -247,14 +355,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             f"family {cfg.family!r} (ROADMAP A7)")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
-    x = params["embed"][tokens.long()]
+    x = embeds if embeds is not None else params["embed"][tokens.long()]
     b, t = x.shape[:2]
-    if mode == "train" and t >= BLOCKWISE_THRESHOLD and not cfg.attention_free:
-        raise NotImplementedError(
-            f"train mode at {t} >= {BLOCKWISE_THRESHOLD} tokens attends "
-            "blockwise in the reference (models/flash.py flash_attend), "
-            "which the port does not have yet (ROADMAP A7, flash train "
-            "attention)")
     ar = torch.arange(t, dtype=torch.int32, device=x.device)[None]
     if mode == "decode":
         positions = cache["length"][:, None] + ar
@@ -267,7 +369,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         update_mask = input_mask.float()
     # per-call quantities every layer shares: RoPE angles, write slots
     rope = (None if cfg.attention_free else
-            rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta))
+            rope_angles(positions if rope_positions is None else rope_positions,
+                        cfg.resolved_head_dim, cfg.rope_theta,
+                        cfg.mrope_sections))
     slots = None
     valid = input_mask if mode == "prefill" else None
     if cache is not None and "kv_pos" in cache and not cache_lib.is_paged(cache):
@@ -308,6 +412,21 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         if cache is not None and states:
             new_state = {k: torch.stack([st[k] for st in states])
                          for k in ("lru", "conv")}
+    elif cfg.family == "audio":
+        if cache is not None:
+            ck, cv, ev = cache["cross_k"], cache["cross_v"], cache["enc_valid"]
+        else:
+            assert encoder_embeds is not None, (
+                "audio train mode needs encoder_embeds")
+            ev = (enc_valid if enc_valid is not None else
+                  torch.ones(encoder_embeds.shape[:2], dtype=torch.bool,
+                             device=x.device))
+            ck, cv = build_cross_cache(
+                params, cfg, encode(params, cfg, encoder_embeds, ev))
+        for i in range(cfg.num_layers):
+            x = _run(_audio_block, remat, _layer(params, i), cfg, x, i, mode,
+                     positions, rope, input_mask, cache, slots, ck[i], cv[i],
+                     ev)
     else:
         for i in range(cfg.num_layers):
             x, aux_i = _run(_block, remat, _layer(params, i), cfg, x, i,
@@ -327,7 +446,8 @@ def commit(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            n_committed: torch.Tensor) -> cache_lib.CacheT:
     """Commit ``n_committed[b]`` of the ``tokens [B, T]`` just verified.
 
-    Attention families: the ring or pool already holds their K/V, so this
+    Attention families (dense, moe, vlm, audio): the ring or pool
+    already holds their K/V, so this
     is ``length`` arithmetic (stale speculative slots are overwritten or
     masked, DESIGN.md §4).  Recurrent families: a masked re-advance from
     ``snapshot``, the pre-round cache (the reference's): a second decode

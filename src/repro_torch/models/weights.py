@@ -15,6 +15,10 @@ Parameters are a nested ``dict`` of tensors with the reference's layouts
   ``mlp.w_gate/w_up [L, d, F]``, ``mlp.w_down [L, F, d]``, or the MoE
   block ``moe.router [L, d, E]``, ``moe.w_gate/w_up [L, E, d, Fe]``,
   ``moe.w_down [L, E, Fe, d]``;
+* an encoder-decoder (audio): decoder ``layers`` of ``ln1``,
+  ``self_attn``, ``ln2``, ``cross_attn``, ``ln3``, ``mlp``; encoder
+  ``enc_layers`` of ``ln1``, ``attn``, ``ln2``, ``mlp`` stacked over
+  ``[num_encoder_layers, ...]``; and ``enc_norm [d]``;
 * RMSNorm scales are stored as offsets from 1 (the layer multiplies by
   ``1 + scale``), so a fresh norm is all zeros.
 """
@@ -57,6 +61,12 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     else:
         shapes["layers"] = _resolve(_stack(_layer_shapes(cfg),
                                            cfg.num_layers))
+    if cfg.is_encoder_decoder:
+        d = cfg.d_model
+        enc = {"ln1": _zeros(d), "attn": _attention_shapes(cfg),
+               "ln2": _zeros(d), "mlp": _mlp_shapes(d, cfg.d_ff)}
+        shapes["enc_layers"] = _resolve(_stack(enc, cfg.num_encoder_layers))
+        shapes["enc_norm"] = _zeros(d)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = Spec((cfg.d_model, vp), "normal", 0.02)
     return shapes
@@ -118,11 +128,16 @@ def _mlp_shapes(d: int, f: int) -> dict:
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict:
-    """One layer of a homogeneous stack (dense, MoE, SSM), unstacked."""
+    """One layer of a homogeneous stack (dense, vlm, MoE, SSM, an audio
+    decoder), unstacked."""
     d = cfg.d_model
     if cfg.family == "ssm":
         return {"ln": _zeros(d),
                 "mixer": ssm_shapes(cfg, _normal, _zeros, _ones)}
+    if cfg.family == "audio":
+        return {"ln1": _zeros(d), "self_attn": _attention_shapes(cfg),
+                "ln2": _zeros(d), "cross_attn": _attention_shapes(cfg),
+                "ln3": _zeros(d), "mlp": _mlp_shapes(d, cfg.d_ff)}
     layers = {"ln1": _zeros(d), "attn": _attention_shapes(cfg),
               "ln2": _zeros(d)}
     if cfg.family == "moe":
@@ -194,10 +209,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 def map_params(fn, *trees: Params) -> Params:
     """Leafwise ``fn`` over parameter trees of the same structure: nested
     dicts and tuples (a hybrid stack's ``tail``), with None as an empty
-    subtree (its ``groups`` when it has no whole group)."""
+    subtree (its ``groups`` when it has no whole group), which the other
+    trees may leave out."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: map_params(fn, *(t[k] for t in trees)) for k in first}
+        # an empty subtree of the first tree is absent from a tree rebuilt
+        # from leaves (:func:`unflatten_params`)
+        return {k: (None if first[k] is None else
+                    map_params(fn, *(t[k] for t in trees))) for k in first}
     if isinstance(first, tuple) and not isinstance(first, Spec):
         return tuple(map_params(fn, *sub) for sub in zip(*trees))
     if first is None:

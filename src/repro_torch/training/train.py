@@ -7,8 +7,11 @@ gradient-tracking leaves of them, and :func:`adamw_update` returns new
 ones.  Gradient accumulation over ``microbatches`` is a loop that sums
 the gradients in float32 and divides by their count, as the reference's
 ``lax.scan`` does.  The step runs no kernel of ``csrc/``: train-mode
-attention is the plain masked ``attend``, as in the reference below
-2048 tokens.
+attention is the plain masked ``attend`` below 2048 tokens and the
+blockwise ``flash_attend`` from there, as in the reference.  Every
+family trains: the recurrent ones' gradients come from autograd through
+the SSD chunked form and the RG-LRU scan; a vlm batch may come as
+``embeds``, and an audio batch needs ``encoder_embeds``.
 """
 from __future__ import annotations
 
@@ -43,24 +46,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -ll.mean()
 
 
-# the families the port trains (the serving port also runs ssm and hybrid)
-TRAIN_FAMILIES = ("dense", "moe")
-
-
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, remat: bool = False
+            labels: torch.Tensor, remat: bool = False,
+            embeds: Optional[torch.Tensor] = None,
+            encoder_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross entropy, plus for the MoE family the router's load-balance
     loss x ``load_balance_weight`` and its z-loss x 1e-3, as in the
-    reference; returns (loss, detached metrics).  Training runs the
-    dense and MoE families; the recurrent ones (ssm, hybrid) serve but do
-    not train yet, and raise."""
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training runs the {' and '.join(TRAIN_FAMILIES)} families, not "
-            f"family {cfg.family!r} (ROADMAP A7: training the recurrent "
-            "families)")
+    reference; returns (loss, detached metrics).  ``embeds`` replace the
+    token embeddings (a vlm's patch embeddings); ``encoder_embeds`` are
+    an audio model's encoder frames, without which it raises
+    ``AssertionError`` as the reference does.  A family the port does
+    not know raises ``NotImplementedError`` (:func:`forward`)."""
     logits, _, aux = forward(params, cfg, tokens, mode="train", remat=remat,
+                             embeds=embeds, encoder_embeds=encoder_embeds,
                              with_aux=True)
     loss = cross_entropy(logits, labels, cfg.vocab_size)
     metrics = {"ce_loss": loss.detach()}
@@ -75,33 +74,44 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _grads(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-           labels: torch.Tensor, remat: bool):
+           labels: torch.Tensor, remat: bool,
+           embeds: Optional[torch.Tensor] = None,
+           encoder_embeds: Optional[torch.Tensor] = None):
     """(gradients in leaf order, metrics) of one batch."""
     live = [(k, p.detach().requires_grad_()) for k, p in param_leaves(params)]
-    loss, metrics = loss_fn(unflatten_params(live), cfg, tokens, labels, remat)
+    loss, metrics = loss_fn(unflatten_params(live), cfg, tokens, labels, remat,
+                            embeds, encoder_embeds)
     return torch.autograd.grad(loss, [p for _, p in live]), metrics
 
 
 def train_step(params: Params, opt_state: AdamWState, tokens: torch.Tensor,
                labels: torch.Tensor, *, cfg: ModelConfig,
                opt_cfg: OptimizerConfig, remat: bool = True,
+               embeds: Optional[torch.Tensor] = None,
+               encoder_embeds: Optional[torch.Tensor] = None,
                microbatches: int = 1
                ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
     """One optimizer step; returns (params, state, metrics) and leaves
-    its arguments as they were.  ``microbatches > 1`` splits the batch
-    into that many consecutive row groups and averages their gradients
-    and metrics."""
+    its arguments as they were.  ``embeds`` / ``encoder_embeds``: as
+    :func:`loss_fn` takes them.  ``microbatches > 1`` splits the batch
+    (and the embeddings with it) into that many consecutive row groups
+    and averages their gradients and metrics."""
     keys = [k for k, _ in param_leaves(params)]
     if microbatches <= 1:
-        grads, metrics = _grads(params, cfg, tokens, labels, remat)
+        grads, metrics = _grads(params, cfg, tokens, labels, remat, embeds,
+                                encoder_embeds)
     else:
-        m, b = microbatches, tokens.shape[0]
+        m, b = microbatches, labels.shape[0]
         if b % m:
             raise ValueError(f"batch {b} does not split into {m} microbatches")
+
+        def split(x):
+            return ([None] * m if x is None else
+                    list(x.reshape(m, b // m, *x.shape[1:])))
         acc, per = None, []
-        for t_i, l_i in zip(tokens.reshape(m, b // m, *tokens.shape[1:]),
-                            labels.reshape(m, b // m, *labels.shape[1:])):
-            g, met = _grads(params, cfg, t_i, l_i, remat)
+        for t_i, l_i, e_i, x_i in zip(split(tokens), split(labels),
+                                      split(embeds), split(encoder_embeds)):
+            g, met = _grads(params, cfg, t_i, l_i, remat, e_i, x_i)
             g = [gi.float() for gi in g]
             acc = g if acc is None else [a + gi for a, gi in zip(acc, g)]
             per.append(met)

@@ -1051,3 +1051,174 @@ def test_recurrent_commit_leaves_the_snapshot(cuda, arch, layers, paged):
         torch.testing.assert_close(
             got[k], want[k], rtol=0,
             atol=1e-4 + 1e-5 * float(want[k].abs().max()))
+
+
+# --------------------------------------------------------------------------
+# the multimodal families: B1 / B4 / B5 and B2 at their shapes, the
+# blockwise attention, and reduced-width card == CPU paths
+# --------------------------------------------------------------------------
+
+# (H, KV, D): qwen2-vl-2b (G 6 at D 128: a T 11 verify is three launches of
+# <= 5 positions) and its served draft (H 3 / KV 1); seamless-m4t-medium's
+# decoder (MHA at D 64) and its draft
+VLM_HEADS = [(12, 2, 128), (3, 1, 128)]
+AUDIO_HEADS = [(16, 16, 64), (4, 4, 64)]
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("heads", VLM_HEADS)
+@pytest.mark.parametrize("t", [1, 11])
+def test_paged_attention_vlm_heads_match_plain(cuda, t, heads, dtype, atol,
+                                               rtol):
+    h, kv, d = heads
+    args = _paged(3, t, h, kv, d, 40, 16, 8, dtype, cuda, seed=d + t + h)
+    got = pa.paged_ragged_verify_attention_cuda(*args)
+    again = pa.paged_ragged_verify_attention_cuda(*args)
+    want = pa.paged_ragged_verify_attention_plain(*args)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    if h == 12 and t == 11:
+        assert len(pa.query_groups(h, kv, t, d)) == 3
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("t", [1, 11])
+def test_quant_attention_vlm_heads_match_plain(cuda, t, dtype, atol, rtol):
+    q, pk, pv, table, q_pos, kv_pos = _paged(3, t, 12, 2, 128, 40, 16, 8,
+                                             torch.float32, cuda, seed=t)
+    (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+    args = (q.to(dtype), pk, pv, ks, vs, table, q_pos, kv_pos)
+    got = pq.paged_ragged_verify_attention_quant_cuda(*args)
+    want = pq.paged_ragged_verify_attention_quant_plain(*args)
+    assert torch.equal(got, pq.paged_ragged_verify_attention_quant_cuda(*args))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("heads", VLM_HEADS[:1] + AUDIO_HEADS)
+@pytest.mark.parametrize("t", [1, 11])
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_ragged_attention_multimodal_heads_match_plain(cuda, splits, t, heads,
+                                                       dtype, atol, rtol):
+    h, kv, d = heads
+    args = _ring(3, t, h, kv, d, 256, dtype, cuda, seed=d + t + h)
+    got = ra.ragged_verify_attention_cuda(*args, splits=splits)
+    again = ra.ragged_verify_attention_cuda(*args, splits=splits)
+    want = ra.ragged_verify_attention_plain(*args)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("v", [152064, 256256])
+def test_kld_kernel_at_the_multimodal_vocabularies(cuda, v):
+    g = torch.Generator().manual_seed(v)
+    tl = (torch.randn(4, 10, v, generator=g) * 3).to(cuda)
+    dl = (torch.randn(4, 10, v, generator=g) * 3).to(cuda)
+    tok = torch.randint(0, v - 128, (4, 10), generator=g,
+                        dtype=torch.int32).to(cuda)
+    got = kl.fused_kld_accept_cuda(tl, dl, tok)
+    want = kl.kld_accept_plain(tl, dl, tok)
+    for x, y in zip(got[:2], want[:2]):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+    for x, y in zip(got[2:], want[2:]):
+        torch.testing.assert_close(x, y, atol=1e-9, rtol=1e-4)
+
+
+@pytest.mark.parametrize("t", [2048, 2500])
+def test_flash_attend_matches_attend_on_the_card(cuda, t):
+    """The blockwise attention against the quadratic one at smollm's
+    heads, causal, with padded keys: outputs and gradients within 1e-4."""
+    from repro_torch.models.flash import flash_attend
+    from repro_torch.models.layers import attend
+    g = torch.Generator(device="cuda").manual_seed(t)
+    q, k, v, dout = (torch.randn(2, t, n, 64, generator=g, device="cuda")
+                     for n in (9, 3, 3, 9))
+    valid = torch.ones((2, t), dtype=torch.bool, device="cuda")
+    valid[1, t - 300:] = False
+    pos = torch.arange(t, device="cuda")[None].expand(2, t)
+    res = []
+    for fn in (lambda a, b, c: flash_attend(a, b, c, kv_valid=valid),
+               lambda a, b, c: attend(a, b, c, q_pos=pos, kv_pos=pos,
+                                      kv_valid=valid)):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        res.append((out.detach(),) + torch.autograd.grad(out, leaves, dout))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def _mm_serve(arch, device, paged, kv_quant="none", pipelined=False):
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg = get_config(arch).reduced()
+    pt = init_params(cfg, seed=2, device="cpu")
+    pd = init_params(cfg.draft(), seed=3, device="cpu")
+    reqs = [Request(i, prompt=list(range(5 + i, 14 + 3 * i)),
+                    max_new_tokens=20) for i in range(3)]
+    ServingEngine(pt, cfg, pd, cfg.draft(), SpecDecodeConfig(),
+                  ServingConfig(max_batch_size=2, max_seq_len=96,
+                                kv_block_size=16, paged_kv=paged,
+                                kv_quant=kv_quant, pipelined=pipelined),
+                  device=device).run(reqs)
+    return [r.output for r in reqs]
+
+
+@pytest.mark.parametrize("arch,paged,kv_quant,pipelined", [
+    ("qwen2-vl-2b", True, "none", False), ("qwen2-vl-2b", True, "int8", False),
+    ("qwen2-vl-2b", False, "none", False), ("qwen2-vl-2b", True, "none", True),
+    ("seamless-m4t-medium", False, "none", False)])
+def test_multimodal_engine_streams_match_cpu(cuda, arch, paged, kv_quant,
+                                             pipelined):
+    assert (_mm_serve(arch, cuda, paged, kv_quant, pipelined)
+            == _mm_serve(arch, "cpu", paged, kv_quant, pipelined))
+
+
+def test_vlm_image_prefill_and_audio_encoder_match_cpu(cuda):
+    """The reduced vlm's image prefill (embeds + M-RoPE positions into
+    the pool, T 1 and T 11 decode steps) and the reduced audio model's
+    encoder and cross cache: card == CPU within 1e-4, on the reduced init
+    scaled by 0.2 (at its own scale attention saturates, and the card's
+    and the CPU's orders of fp32 sums part by up to 2.7e-4 in the cross
+    K/V, whose values reach 40)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.transformer import (build_cross_cache, encode,
+                                                forward)
+    from repro_torch.models.weights import init_params, map_params
+
+    def conditioned(c):
+        return map_params(lambda a: a * 0.2, init_params(c, seed=2,
+                                                         device="cpu"))
+    cfg = get_config("qwen2-vl-2b").reduced()
+    pt = conditioned(cfg)
+    g = torch.Generator().manual_seed(0)
+    emb = torch.randn(2, 20, cfg.d_model, generator=g) * 0.3
+    pos = torch.randint(0, 30, (2, 20, 3), generator=g, dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda):
+        c = cache_lib.paged_cache_struct(cfg, 2, 64, 8, 16, device=dev)
+        c["block_table"][:] = torch.arange(8, dtype=torch.int32,
+                                           device=dev).reshape(2, 4)
+        p = _to(pt, dev)
+        pl, c = forward(p, cfg, None, cache=c, mode="prefill",
+                        embeds=emb.to(dev), rope_positions=pos.to(dev))
+        c["length"] = torch.full((2,), 20, dtype=torch.int32, device=dev)
+        toks = torch.arange(11, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+        d1, _ = forward(p, cfg, toks[:, :1], cache=c, mode="decode")
+        d11, _ = forward(p, cfg, toks, cache=c, mode="decode")
+        outs.append([x.cpu() for x in (pl, d1, d11)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    cfg = get_config("seamless-m4t-medium").reduced()
+    pt = conditioned(cfg)
+    frames = torch.randn(2, 9, cfg.d_model, generator=g) * 0.3
+    outs = []
+    for dev in ("cpu", cuda):
+        p = _to(pt, dev)
+        ck, cv = build_cross_cache(p, cfg, encode(p, cfg, frames.to(dev)))
+        outs.append((ck.cpu(), cv.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

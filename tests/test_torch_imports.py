@@ -35,7 +35,8 @@ def test_import_port_leaves_jax_out():
         "          'configs.paper_gemma_pair', 'serving.frontend',\n"
         "          'serving.server', 'launch.serve', 'models.ssm',\n"
         "          'models.rglru', 'configs.mamba2_130m',\n"
-        "          'configs.recurrentgemma_2b'):\n"
+        "          'configs.recurrentgemma_2b', 'models.flash',\n"
+        "          'configs.qwen2_vl_2b', 'configs.seamless_m4t_medium'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
