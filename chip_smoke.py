@@ -182,6 +182,21 @@ Phases, each printing one JSON line:
              memory, differences); smollm-135m at B 2 x S 2048 for 5
              steps through it.
 
+10. dryrun — the dry run (``repro_torch.launch.dryrun``, ROADMAP A11):
+             smollm-135m x decode_32k, granite-8b x train_4k and
+             qwen3-32b x decode_32k on the 16 x 16 fake mesh, each
+             record's per-device FLOPs, bytes, collectives, memory and
+             roofline (predictions on the H100 SXM's data-sheet
+             figures); then the one-card check (``ONE_CARD_STEPS``):
+             each step predicted on a 1 x 1 mesh and run for real at
+             full width in bf16 (smollm-135m and granite-8b decode B 4
+             on a ring of 2048, verify T 11, prefill B 4 x 512;
+             smollm-135m train B 4 x 512): FLOPs outside the kernels
+             (``FlopCounterMode``), kernel calls and argument bytes must
+             equal the prediction's and the peak be within 15% of
+             ``max_memory_allocated``; each prints its median ms and
+             roofline share.
+
 It ends with the script's seconds so far, the kernels line, the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits
@@ -192,6 +207,14 @@ result.
 
 runs only the named phases (``ONLY``) after the build, with no result
 line.
+
+    python3 chip_smoke.py --serve-ab PARENT
+
+runs smollm-135m's ``serve`` at 32 tokens a request (the earlier depth
+of the full serves, ``SERVE_AB_NEW``) on PARENT's package and this tree's in
+turns, parent, change, change, parent, each in its own process, three
+timed runs each: tokens/s and ``host_blocked_s`` (rows ``serve-ab``).
+It prints no result line.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -227,6 +250,15 @@ NGRAM_DAMP = 2e-4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed_phase(name: str, fn, *args):
+    """``fn(*args)``, then a row of the seconds it took (where the
+    script's time goes)."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    emit({"phase": name + "-seconds", "seconds": time.monotonic() - t0})
+    return out
 
 
 def timings(fn, iters: int = 30, flush=None):
@@ -1057,9 +1089,15 @@ def damped(params, alpha):
     return dict(params, layers=layers)
 
 
+# new tokens a request of every full-width serve (formerly 32; cut to 16
+# to keep the script inside its time limit as it grew)
+SERVE_NEW = 16
+
+
 def serve_prompts(vocab, drafter):
-    """8 requests, 32 new tokens each.  The n-gram serve's prompts repeat
-    a seeded 8-token phrase 3 times before a random tail."""
+    """8 requests (of ``SERVE_NEW`` new tokens each).  The n-gram
+    serve's prompts repeat a seeded 8-token phrase 3 times before a
+    random tail."""
     import numpy as np
     rng = np.random.RandomState(0)
     if drafter != "ngram":
@@ -1117,7 +1155,7 @@ def serve_phase():
     pd = map_params(lambda a, n: a + 0.03 * n, pt, noise)
     # every untraced measurement comes before the first profiled run, so
     # that none follows a torch.profiler session
-    forward_phase(cfg, pt)
+    timed_phase("forward", forward_phase, cfg, pt)
     total = {k: 0 for k in read_launches()}
     profiled, streams = [], {}
     for sv in SERVES:
@@ -1137,7 +1175,7 @@ def serve_phase():
                                      self_draft_layers=sv.self_layers),
                                  serving, seed=0, device="cuda")
 
-        reqs = [Request(i, prompt=p, max_new_tokens=32,
+        reqs = [Request(i, prompt=p, max_new_tokens=SERVE_NEW,
                         slo_deadline_s=((0.05 if i % 2 else 60.0)
                                         if sv.deadlines else None))
                 for i, p in enumerate(serve_prompts(cfg.vocab_size,
@@ -1157,7 +1195,8 @@ def serve_phase():
         if min(launches[k] for k in sv.path) <= 0:
             raise AssertionError(f"{sv.name}: a kernel of the path never ran: "
                                  f"{launches}")
-        if m["requests_finished"] != 8 or any(len(r.output) != 32 for r in reqs):
+        if m["requests_finished"] != 8 or any(len(r.output) != SERVE_NEW
+                                              for r in reqs):
             raise AssertionError(f"{sv.name} did not finish every request: {m}")
         if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
             raise AssertionError(f"{sv.name}: a token outside the vocabulary")
@@ -1215,8 +1254,8 @@ def serve_phase():
           "requests_equal": sum(a == b for a, b in zip(streams["serve-dense"],
                                                        streams["serve"]))})
     for args in profiled:
-        profile_phase(*args)
-    check_phase(cfg)
+        timed_phase("profile", profile_phase, *args)
+    timed_phase("check", check_phase, cfg)
     return total
 
 
@@ -1777,7 +1816,7 @@ def frontdoor_phase(smi):
     pd = map_params(lambda a, n: a + 0.03 * n, pt,
                     init_params(cfg, seed=1, device="cuda"))
     total = warm_serves(cfg, pt, pd, smi)
-    warm_check_phase(cfg)
+    timed_phase("warm-check", warm_check_phase, cfg)
     for kernel, n in frontend_runs(cfg, pt, pd, smi).items():
         total[kernel] += n
     http_runs(cfg, pt, pd, smi)
@@ -1817,7 +1856,7 @@ class FamilyServe(NamedTuple):
     equal: bool = False
     prompts: Optional[Tuple[int, ...]] = None
     max_len: int = 256
-    new: int = 32
+    new: int = SERVE_NEW
 
 
 B1_B2 = ("paged_ragged_verify_attention", "fused_kld_accept")
@@ -2121,7 +2160,7 @@ def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
                 profiled.append((sv.name, engine, reqs))
             del target, eng
         for args in profiled:
-            profile_phase(*args)
+            timed_phase("profile", profile_phase, *args)
         del pt, pd, profiled
         gc.collect()
         torch.cuda.empty_cache()
@@ -2260,7 +2299,7 @@ def families_phase(smi):
     remainder and the MoE family; returns the serves' launches."""
     t0 = time.monotonic()
     launches = family_serves(smi)
-    family_check_phase()
+    timed_phase("family-check", family_check_phase)
     emit({"phase": "families-total", "seconds": time.monotonic() - t0})
     return launches
 
@@ -2379,7 +2418,7 @@ def recurrent_phase(smi):
     recurrent families; returns the serves' launches."""
     t0 = time.monotonic()
     launches = family_serves(smi, RECURRENT_SERVES, RECURRENT_PROFILED)
-    recurrent_check_phase()
+    timed_phase("recurrent-check", recurrent_check_phase)
     emit({"phase": "recurrent-total", "seconds": time.monotonic() - t0})
     return launches
 
@@ -2729,7 +2768,7 @@ def multimodal_phase(smi):
     vlm_image_phase(smi)
     for kernel, n in audio_encdec_phase(smi).items():
         launches[kernel] += n
-    multimodal_check_phase()
+    timed_phase("multimodal-check", multimodal_check_phase)
     emit({"phase": "multimodal-total", "seconds": time.monotonic() - t0})
     return launches
 
@@ -3317,9 +3356,15 @@ PORT_KERNELS = ("pv::verify_kernel", "pv::wide_kernel", "pv::merge_kernel",
                 "kld_accept_kernel", "ngram_match_kernel")
 
 
+# rounds a profiled run traces (formerly 6, then 3: the traces'
+# processing on the host, about 1 ms a kernel launch traced, took a
+# quarter to a third of the script's time)
+PROFILE_ROUNDS = 2
+
+
 def profile_phase(serve, engine, reqs) -> None:
     """The first four requests of ``serve`` again, for their prefill and
-    first six rounds, under ``torch.profiler``: device kernel time
+    first ``PROFILE_ROUNDS`` rounds, under ``torch.profiler``: device kernel time
     against the run's wall (the device's busy share), the kernels that
     take it, and on the host the operator and CUDA runtime calls that
     take the most time (a synchronising call shows as
@@ -3337,7 +3382,7 @@ def profile_phase(serve, engine, reqs) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        eng.run(again, max_rounds=6)
+        eng.run(again, max_rounds=PROFILE_ROUNDS)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     events = prof.key_averages()
@@ -3387,6 +3432,94 @@ chip_smoke.kernel_phase(torch.empty(64 * 2 ** 20, dtype=torch.float32,
 """
 
 
+# one serve A/B run: ``SERVES[0]`` at argv[3] tokens a request on the
+# package of the tree whose ``src`` is argv[2], this file's harness
+_SERVE_AB_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.path.insert(0, sys.argv[2])
+import repro_torch
+assert repro_torch.__file__.startswith(sys.argv[2]), repro_torch.__file__
+from repro_torch.kernels.build import build_all
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build_all()
+chip_smoke.serve_ab_run(int(sys.argv[3]))
+"""
+
+# the full serves' former depth (new tokens a request), for comparing a
+# change with a parent that served at it
+SERVE_AB_NEW = 32
+
+
+def serve_ab_run(new: int, reps: int = 3) -> None:
+    """``SERVES[0]`` (smollm-135m at full width, the model drafter, the
+    fp32 pool) with 8 requests of ``new`` tokens, ``reps`` times after a
+    warm-up serve, untraced: tokens/s and ``host_blocked_s`` of each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.models.weights import init_params, map_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    sv = SERVES[0]
+    cfg = get_config("smollm-135m")
+    pt = init_params(cfg, seed=0, device="cuda")
+    noise = init_params(cfg, seed=1, device="cuda")
+    pd = map_params(lambda a, n: a + 0.03 * n, pt, noise)
+    serving = ServingConfig(max_batch_size=4, max_seq_len=256,
+                            pipelined=sv.pipelined, paged_kv=True,
+                            kv_block_size=16, num_kv_blocks=sv.nblocks,
+                            kv_quant=sv.kv_quant)
+
+    def engine():
+        return ServingEngine(pt, cfg, pd, cfg,
+                             SpecDecodeConfig(policy=sv.policy,
+                                              drafter=sv.drafter),
+                             serving, seed=0, device="cuda")
+    engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
+    for rep in range(reps):
+        reqs = [Request(i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(serve_prompts(cfg.vocab_size,
+                                                    sv.drafter))]
+        eng = engine()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        m = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if any(len(r.output) != new for r in reqs):
+            raise AssertionError(f"serve A/B: a request fell short: {m}")
+        emit({"phase": "serve-ab", "serve": sv.name, "rep": rep,
+              "new_tokens": new, "rounds": m["rounds"],
+              "tokens": m["tokens_emitted"], "wall_s": wall,
+              "tokens_per_s": m["tokens_emitted"] / wall,
+              "host_blocked_s": m["host_blocked_s"]})
+
+
+def serve_ab_phase(parent: Path) -> None:
+    """:func:`serve_ab_run` at ``SERVE_AB_NEW`` tokens on ``parent``'s
+    package and this tree's in turns (parent, change, change, parent),
+    each in a process of its own on this card: the host cost of a change
+    to the serve path, at the parent's depth."""
+    trees = (("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent))
+    for i, (tag, tree) in enumerate(trees):
+        proc = subprocess.run([sys.executable, "-c", _SERVE_AB_CHILD,
+                               str(ROOT), str(tree / "src"),
+                               str(SERVE_AB_NEW)], cwd=tree,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"serve A/B run {i} ({tag}) failed:\n"
+                               + proc.stdout[-4000:] + proc.stderr[-4000:])
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                emit(dict(json.loads(line), ab_run=i, tree=tag))
+
+
 # the sources whose ptxas reports the A/B compares (B3: this change's)
 AB_PTXAS_SOURCES = ("ngram_match",)
 
@@ -3423,9 +3556,154 @@ def ab_phase(parent: Path) -> None:
                   "kernels": parse_ptxas(log.stdout + log.stderr)})
 
 
+# -- dryrun phase --------------------------------------------------------
+# The dry run (repro_torch/launch/dryrun.py): production combinations on
+# the 16 x 16 fake mesh (predictions of a cost model on the H100 SXM's
+# data-sheet figures), then each one-card step predicted on a 1 x 1 mesh
+# and run for real on the card: FLOPs outside the kernels, kernel calls
+# and argument bytes must equal the prediction's, the peak be within 15%.
+DRYRUN_COMBOS = (("smollm-135m", "decode_32k"), ("granite-8b", "train_4k"),
+                 ("qwen3-32b", "decode_32k"))
+# (arch, shape, batch, seq_len, opts): decode and verify on a ring of
+# 2048 slots, prefill B 4 x 512, smollm's train step B 4 x 512
+ONE_CARD_STEPS = (
+    ("smollm-135m", "decode_32k", 4, 2048, ()),
+    ("smollm-135m", "decode_32k", 4, 2048, ("verify",)),
+    ("smollm-135m", "prefill_32k", 4, 512, ()),
+    ("smollm-135m", "train_4k", 4, 512, ()),
+    ("granite-8b", "decode_32k", 4, 2048, ()),
+    ("granite-8b", "decode_32k", 4, 2048, ("verify",)),
+    ("granite-8b", "prefill_32k", 4, 512, ()),
+)
+PEAK_TOL = 0.15
+
+
+def kernel_calls():
+    """The five kernels' call counters (each wrapper adds one a call)."""
+    from repro_torch.kernels import (kld_accept, ngram_match, paged_attention,
+                                     paged_attention_quant, ragged_attention)
+    out = {}
+    for mod in (kld_accept, ngram_match, paged_attention,
+                paged_attention_quant, ragged_attention):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def dryrun_phase(smi):
+    """The dry run's production combinations, then the one-card check of
+    each of ``ONE_CARD_STEPS`` (see above): prints the per-device
+    predictions, then for each step the prediction beside the card's
+    FLOPs (``FlopCounterMode``), kernel calls, argument bytes, peak
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``; memory
+    the card held besides the arguments when the count was reset is left
+    out), median ms of 10 CUDA-event-timed calls after a warm-up, and the
+    roofline share max(compute_s, memory_s) / measured (``memory_s``: the
+    bytes the step must move, ``launch.dryrun.roofline``)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import INPUT_SHAPES
+    from repro_torch.launch.dryrun import dryrun_one, one_card
+    from repro_torch.launch.steps import concrete_args
+    t0 = time.monotonic()
+    for arch, shape in DRYRUN_COMBOS:
+        t = time.monotonic()
+        rec = dryrun_one(arch, shape, verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} x {shape}: {rec}")
+        emit({"phase": "dryrun", "arch": arch, "shape": shape,
+              "mesh": rec["mesh"], "seconds": time.monotonic() - t,
+              "label": "dry run, H100 SXM data-sheet figures",
+              **{k: rec[k] for k in (
+                  "flops_per_device", "bytes_per_device",
+                  "collective_bytes_per_device", "collectives",
+                  "kernel_calls", "memory", "roofline",
+                  "model_flops_per_device", "fake_device")}})
+    torch.ones(64, 64, device="cuda", dtype=torch.bfloat16).matmul(
+        torch.ones(64, 64, device="cuda", dtype=torch.bfloat16))
+    for arch, shape, b, s, opts in ONE_CARD_STEPS:
+        t = time.monotonic()
+        opts = frozenset(opts)
+        rec, step = one_card(arch, shape, batch=b, seq_len=s, opts=opts)
+        args = concrete_args(get_config(arch), INPUT_SHAPES[shape], batch=b,
+                             seq_len=s, device="cuda", opts=opts)
+        seen = {}
+        for x in flat_tensors(args):
+            seen[x.untyped_storage().data_ptr()] = \
+                x.untyped_storage().nbytes()
+        arg_bytes = sum(seen.values())
+        out = step(*args)                        # warm-up
+        del out
+        torch.cuda.synchronize()
+        before = kernel_calls()
+        with FlopCounterMode(display=False) as fc:
+            out = step(*args)
+        torch.cuda.synchronize()
+        calls = {k: n - before[k] for k, n in kernel_calls().items()
+                 if n != before[k]}
+        del out
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - arg_bytes
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - other
+        del out
+        ms = statistics.median(timings(lambda: step(*args), iters=10))
+        flops_outside = rec["flops"] - rec["kernel_flops"]
+        roof = rec["roofline"]
+        bound_ms = 1e3 * max(roof["compute_s"], roof["memory_s"])
+        row = {"phase": "dryrun-one-card", "arch": arch, "shape": shape,
+               "B": b, "S": s, "opts": sorted(opts),
+               "predicted_flops_outside_kernels": flops_outside,
+               "measured_flops": fc.get_total_flops(),
+               "predicted_kernel_calls": rec["kernel_calls"],
+               "measured_kernel_calls": calls,
+               "predicted_argument_bytes": rec["memory"]["argument_bytes"],
+               "measured_argument_bytes": arg_bytes,
+               "predicted_peak_bytes": rec["memory"]["peak_bytes"],
+               "measured_peak_bytes": peak,
+               "predicted_bytes": rec["bytes"],
+               "predicted_flops": rec["flops"],
+               "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+               "eager_memory_s": roof["eager_memory_s"],
+               "ms_median": ms, "roofline_share": bound_ms / ms,
+               "nvidia_smi": smi, "seconds": time.monotonic() - t}
+        emit(row)
+        what = f"one-card {arch} {shape} {sorted(opts)}"
+        if fc.get_total_flops() != flops_outside:
+            raise AssertionError(f"{what}: FLOPs {fc.get_total_flops()} != "
+                                 f"predicted {flops_outside}")
+        if calls != {k: int(v) for k, v in rec["kernel_calls"].items()}:
+            raise AssertionError(f"{what}: kernel calls {calls} != "
+                                 f"{rec['kernel_calls']}")
+        if arg_bytes != rec["memory"]["argument_bytes"]:
+            raise AssertionError(f"{what}: argument bytes {arg_bytes} != "
+                                 f"{rec['memory']['argument_bytes']}")
+        if abs(rec["memory"]["peak_bytes"] - peak) > PEAK_TOL * peak:
+            raise AssertionError(f"{what}: peak {peak} vs predicted "
+                                 f"{rec['memory']['peak_bytes']}")
+        del args
+        torch.cuda.empty_cache()
+    emit({"phase": "dryrun-total", "seconds": time.monotonic() - t0})
+
+
+def flat_tensors(tree):
+    """The tensors of nested dicts, tuples and lists."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [t for sub in tree for t in flat_tensors(sub)]
+    return []
+
+
 # ``--only NAME[,NAME]``: these phases alone, after the build, with no
 # result line (a short run while a phase is being written)
 ONLY = {
+    "dryrun": dryrun_phase,
     "kernels": lambda smi: kernel_phase(torch_flush()),
     "multimodal-kernels": lambda smi: multimodal_rows(torch_flush()),
     "multimodal": multimodal_phase,
@@ -3469,19 +3747,27 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         ab_phase(Path(sys.argv[2]).resolve())
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-ab":
+        serve_ab_phase(Path(sys.argv[2]).resolve())
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         for name in sys.argv[2].split(","):
             ONLY[name](smi)
         return 0
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    t0 = time.monotonic()
     contract = kernel_phase(flush)
     del flush
+    emit({"phase": "kernel-total", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
     launches = serve_phase()
+    emit({"phase": "serve-total", "seconds": time.monotonic() - t0})
     for phase in (frontdoor_phase, families_phase, recurrent_phase,
                   multimodal_phase, train_phase):
         for kernel, n in phase(smi).items():
             launches[kernel] += n
+    dryrun_phase(smi)
 
     sources = {
         "paged_ragged_verify_attention": (

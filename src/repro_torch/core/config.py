@@ -287,3 +287,78 @@ class TrainConfig:
         default_factory=OptimizerConfig)
     checkpoint_every: int = 500
     checkpoint_dir: str = "/tmp/repro_ckpt"
+
+
+# ---------------------------------------------------------------------------
+# Distribution / mesh (the dry run, ``launch/dryrun.py``)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pod: int = 1
+
+    @property
+    def multi_pod(self) -> bool:
+        return self.pod > 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pod
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Logical-axis -> mesh-axis rules. None = replicated."""
+    batch: Tuple[str, ...] = ("pod", "data")
+    heads: Optional[str] = "model"
+    mlp: Optional[str] = "model"
+    vocab: Optional[str] = "model"
+    embed: Optional[str] = None
+    cache_seq: Optional[str] = None      # set to "data" for long_500k
+    experts: Optional[str] = None        # "model" for expert-parallel variant
+    seq: Optional[str] = None            # sequence/context parallel activations
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str       # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """One card's peaks for the dry run's roofline.  Figures of NVIDIA's
+    H100 SXM data sheet (dense rates, no sparsity, at the full 700 W):
+    989 TFLOP/s in bf16, 3.35 TB/s and 80 GB of HBM3, NVLink 900 GB/s a
+    GPU inside an 8-GPU node, and between nodes one 400 Gb/s adapter a
+    GPU (50 GB/s), as a DGX H100 has.
+
+    The collective term divides a collective's bytes by the rate of the
+    slowest link its group crosses: ``nvlink_bandwidth`` for a mesh
+    axis whose groups fit in one node (``gpus_per_node`` or fewer
+    devices), ``network_bandwidth`` for one whose groups span nodes.  On
+    the production mesh the ``model`` axis (16) and the ``data`` and
+    ``pod`` axes all span nodes, so every collective there is charged
+    at 50 GB/s."""
+    name: str = "h100-sxm"
+    peak_flops_bf16: float = 989e12      # FLOP/s per card
+    hbm_bandwidth: float = 3.35e12       # bytes/s per card
+    hbm_bytes: float = 80e9              # capacity per card
+    nvlink_bandwidth: float = 900e9      # bytes/s per GPU inside a node
+    network_bandwidth: float = 50e9      # bytes/s per GPU between nodes
+    gpus_per_node: int = 8
+
+
+H100_SXM = HardwareSpec()

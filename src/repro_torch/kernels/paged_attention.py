@@ -320,7 +320,13 @@ def paged_ragged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                            q_pos: torch.Tensor, kv_pos: torch.Tensor,
                            window: Optional[int] = None) -> torch.Tensor:
     """Decode/verify attention straight off the block-paged pool: the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors, the
+    shape-only form for the dry run's stand-ins
+    (``kernels/shape_only.py``)."""
+    if type(q) is not torch.Tensor:
+        from repro_torch.kernels.shape_only import paged_attention
+        return paged_attention(q, pool_k, pool_v, block_table, q_pos, kv_pos,
+                               window)
     if q.device.type == "cuda":
         return paged_ragged_verify_attention_cuda(q, pool_k, pool_v,
                                                   block_table, q_pos, kv_pos,

@@ -180,7 +180,11 @@ def ragged_attention(q: torch.Tensor, k_buf: torch.Tensor,
                      kv_pos: torch.Tensor,
                      window: Optional[int] = None) -> torch.Tensor:
     """Decode/verify attention over the dense ring: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors, the shape-only form for
+    the dry run's stand-ins (``kernels/shape_only.py``)."""
+    if type(q) is not torch.Tensor:
+        from repro_torch.kernels.shape_only import ring_attention
+        return ring_attention(q, k_buf, v_buf, q_pos, kv_pos, window)
     if q.device.type == "cuda":
         return ragged_verify_attention_cuda(q, k_buf, v_buf, q_pos, kv_pos,
                                             window)

@@ -10,16 +10,22 @@
                      interrupted;
 * ``--http-smoke`` — start that server on a free loopback port, run one
                      streaming and one non-streaming completion through
-                     it, print the result JSON and exit.
+                     it, print the result JSON and exit;
+* default          — the dry run of the production serve step
+                     (``launch/dryrun.py``): ``--shape`` decode_32k,
+                     prefill_32k or long_500k on the 16 x 16 mesh
+                     (``--multi-pod``: 2 x 16 x 16), per-device FLOPs,
+                     bytes, collectives, memory and the H100 roofline;
+                     it needs no card.
 
-It runs on the CUDA card unless ``--device cpu`` is given.  The
-reference's default mode, lowering the production serve step, and its
-``--mesh`` are not ported.
+The serving modes run on the CUDA card unless ``--device cpu`` is
+given.  ``--mesh`` (multi-card serving) is ROADMAP A10.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo --paged --prefix-share 0.5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --http --paged --pipelined
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --shape decode_32k
 """
 import argparse
 import json
@@ -32,6 +38,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core.config import ServingConfig, SpecDecodeConfig
 from repro_torch.core.drafters import available_drafters, build_drafter
 from repro_torch.core.policies import available_policies
+from repro_torch.launch.dryrun import dryrun_one
 from repro_torch.models.weights import init_params, map_params
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.frontend import ServingFrontend
@@ -40,11 +47,19 @@ from repro_torch.serving.server import smoke_check, start_http_server_thread
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
-    """Runs the chosen mode; returns the demo's run summary or the HTTP
+    """Runs the chosen mode; returns the demo's run summary, the HTTP
     smoke test's result (``--http`` serves until interrupted, then
-    returns an empty dict)."""
+    returns an empty dict) or the dry run's record (exit 1 if it
+    failed)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["decode_32k", "prefill_32k", "long_500k"],
+                    help="dry run (default mode): the serve shape")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="dry run: the 2 x 16 x 16 mesh")
+    ap.add_argument("--reduced", action="store_true",
+                    help="dry run: the arch's reduced config")
     ap.add_argument("--demo", action="store_true",
                     help="serve seeded requests at the reduced width")
     ap.add_argument("--http", action="store_true",
@@ -85,9 +100,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.mesh:
         ap.error("--mesh (multi-card serving) is not ported: ROADMAP A10")
     if not (args.demo or args.http or args.http_smoke):
-        ap.error("only --demo, --http and --http-smoke are ported; lowering "
-                 "the production serve step (the reference's default mode) "
-                 "is ROADMAP A11")
+        # production path: the dry run of the serve step
+        rec = dryrun_one(args.arch, args.shape, args.multi_pod,
+                         reduced=args.reduced)
+        if rec["status"] not in ("ok", "skipped"):
+            raise SystemExit(1)
+        return rec
     if not 0.0 <= args.prefix_share < 1.0:
         ap.error("--prefix-share must be in [0, 1)")
     deadline = None

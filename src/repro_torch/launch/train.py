@@ -7,12 +7,15 @@ recipe: peakedness 2.0, a stream of 200 000 tokens, batch 16 x 64, lr
 format.  The demo feeds tokens only, so an encoder-decoder
 (``seamless-m4t-medium``) raises ``AssertionError`` at its first step,
 as the reference's demo does.  It runs on the CUDA card unless
-``--device cpu`` is given.  The reference's other mode, lowering the
-train_4k step for a mesh, is not ported.
+``--device cpu`` is given.  The default mode is the dry run of the
+production train_4k step (``launch/dryrun.py``) on the 16 x 16 mesh
+(``--multi-pod``: 2 x 16 x 16): per-device FLOPs, bytes, collectives,
+memory and the H100 roofline; it needs no card.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --demo --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --demo --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b [--multi-pod]
 """
 import argparse
 import os
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.config import OptimizerConfig, TrainConfig
+from repro_torch.launch.dryrun import dryrun_one
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.data import MarkovTaskCorpus, lm_batches
 from repro_torch.training.train import train_loop
@@ -28,9 +32,13 @@ from repro_torch.training.train import train_loop
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Runs the demo and returns its metrics and ``checkpoint``, the
-    file written."""
+    file written; or the dry run and returns its record (exit 1 if it
+    failed)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--reduced", action="store_true",
+                    help="dry run: the arch's reduced config")
     ap.add_argument("--demo", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--ckpt-dir", default=os.path.join(
@@ -38,8 +46,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.demo:
-        ap.error("only --demo is ported; lowering the train_4k step "
-                 "(the reference's dry run) is ROADMAP A11")
+        rec = dryrun_one(args.arch, "train_4k", args.multi_pod,
+                         reduced=args.reduced)
+        if rec["status"] not in ("ok", "skipped"):
+            raise SystemExit(1)
+        return rec
 
     cfg = get_config(args.arch).reduced()
     corpus = MarkovTaskCorpus(cfg.vocab_size, peakedness=2.0)

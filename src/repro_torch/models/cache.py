@@ -75,6 +75,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.cost_hooks import stand_ins_only
 from repro_torch.core.config import FAMILIES, ModelConfig
 from repro_torch.models.ssm import ssm_dims
 
@@ -189,6 +190,36 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def local_shard(x):
+    """A DTensor's local shard (the dry run's caches on a mesh), anything
+    else as it is.  A ring write runs on each device's shard: the slots
+    it writes are its own, so no collective is needed (and DTensor cannot
+    follow an indexed in-place write)."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _like_ring(new, buf):
+    """New K/V ``[B, T, KV, D]`` laid out as a ring ``[B, W, KV, D]``
+    DTensor: split over the ring's batch and head axes, whole over the
+    rest (a device writes the tokens of its own slots)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in buf.placements)
+    return new.redistribute(buf.device_mesh, pl)
+
+
+def _shard_rows(slots: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``slots`` cut to ``new``'s B x T' rows: unchanged on one card; on
+    a slot-sharded ring's shard, whose W/n slots keep the last W/n of a
+    long prefill's tokens, the first that many (a stand-in's indices
+    hold no values; on real tensors a mismatch raises)."""
+    n = new.shape[0] * new.shape[1]
+    if slots.shape[0] == n:
+        return slots
+    stand_ins_only("a slot-sharded ring write")
+    return slots[:n]
+
+
 def cache_window(cache: CacheT) -> int:
     return cache["kv_pos"].shape[-1]
 
@@ -218,11 +249,16 @@ def write_kv(k_buf: torch.Tensor, v_buf: torch.Tensor, k_new: torch.Tensor,
     at :func:`ring_slots`, in place (``T >= W``: the last W tokens).  No
     write mask: a write past a row's horizon lands in the ring and is
     masked later by ``kv_pos <= q_pos``, as in the reference."""
+    if hasattr(k_buf, "device_mesh"):
+        k_new, v_new = (_like_ring(x, k_buf) for x in (k_new, v_new))
+    k_buf, v_buf, k_new, v_new, slots = map(
+        local_shard, (k_buf, v_buf, k_new, v_new, slots))
     b, w = k_buf.shape[:2]
     for buf, new in ((k_buf, k_new), (v_buf, v_new)):
         new = _last_columns(new, w)
         buf.view((b * w,) + buf.shape[2:]).index_copy_(
-            0, slots, new.reshape((-1,) + new.shape[2:]).to(buf.dtype))
+            0, _shard_rows(slots, new), new.reshape((-1,) + new.shape[2:])
+            .to(buf.dtype))
 
 
 def write_pos(kv_pos: torch.Tensor, positions: torch.Tensor,
@@ -231,11 +267,13 @@ def write_pos(kv_pos: torch.Tensor, positions: torch.Tensor,
     """Update the ring's slot-position map ``[B, W]`` in place (once per
     model call) at :func:`ring_slots`; ``valid`` marks entries written
     as -1 (ragged prefill padding)."""
+    kv_pos, positions, slots, valid = map(
+        local_shard, (kv_pos, positions, slots, valid))
     w = kv_pos.shape[1]
     newpos = positions if valid is None else torch.where(valid, positions, -1)
-    kv_pos.view(-1).index_copy_(0, slots,
-                                _last_columns(newpos, w).reshape(-1)
-                                .to(kv_pos.dtype))
+    newpos = _last_columns(newpos, w)
+    kv_pos.view(-1).index_copy_(0, _shard_rows(slots, newpos),
+                                newpos.reshape(-1).to(kv_pos.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,10 @@ A tile that the causal or window mask empties entirely is skipped: in
 the reference it adds exact zeros (its running max and sum stay as they
 were), so skipping it changes no value.  A query row with no valid key
 gets 0, as in :func:`models.layers.attend`.
+
+A row's live tiles, and the backward's, iterate by
+``core.cost_hooks.trips``: all of a row's tiles but a partial last block
+have one shape, so the dry run runs two of them and weights the second.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.core.cost_hooks import trips
 
 NEG_INF = -1e30
 BLOCK = 512
@@ -86,10 +92,12 @@ def _forward(q, k, v, kv_valid, window, causal, q_block, kv_block):
         m = torch.full((b, kvh, g, qe - qs), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((b, kvh, g, qe - qs, d), device=q.device)
-        for ks in range(0, s, kv_block):
+        live = [ks for ks in range(0, s, kv_block)
+                if _tile_live(qs, qe, ks, min(ks + kv_block, s), window,
+                              causal)]
+        for j in trips(len(live)):
+            ks = live[j]
             ke = min(ks + kv_block, s)
-            if not _tile_live(qs, qe, ks, ke, window, causal):
-                continue
             msk = _tile_mask(kv_valid, qs, qe, ks, ke, window, causal,
                              q.device)
             sc = torch.einsum("bqkgd,bskd->bkgqs", qi, kf[:, ks:ke]) * scale
@@ -120,7 +128,9 @@ def _backward(q, k, v, kv_valid, out, lse, dout, window, causal,
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
-    for qs, qe, ks, ke in _tiles(t, s, q_block, kv_block, window, causal):
+    tiles = _tiles(t, s, q_block, kv_block, window, causal)
+    for j in trips(len(tiles)):
+        qs, qe, ks, ke = tiles[j]
         msk = _tile_mask(kv_valid, qs, qe, ks, ke, window, causal, q.device)
         qi, doi = qf[:, qs:qe], dof[:, qs:qe]
         kj, vj = kf[:, ks:ke], vf[:, ks:ke]

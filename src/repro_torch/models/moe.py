@@ -25,7 +25,7 @@ the shapes alone.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,11 +45,27 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor
+def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor,
+              shardings: Optional[Dict] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, T, d] -> (y [B, T, d], aux): ``load_balance_loss`` (Switch),
     ``router_z_loss``, ``expert_fraction [E]`` (top-1 share of each
-    expert) and ``dropped_fraction`` (of the (token, slot) pairs)."""
+    expert) and ``dropped_fraction`` (of the (token, slot) pairs).
+    ``shardings`` (the dry run's ``launch.sharding.moe_shardings``) are
+    passed on to the DTensor form (``core/dtensor_ops.py``), which a
+    DTensor ``x`` selects; a plain tensor never reads them."""
+    if hasattr(x, "device_mesh"):
+        from repro_torch.core.dtensor_ops import moe_apply_sharded
+        return moe_apply_sharded(p, cfg, x, shardings, _moe_local)
+    return _moe_local(p, cfg, x)
+
+
+def _moe_local(p: dict, cfg: MoEConfig, x: torch.Tensor,
+               experts: Optional[Tuple[int, int]] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`moe_apply` on one device's tensors.  ``experts`` (the dry
+    run's expert parallelism, on stand-ins only): the device holds the
+    weights of experts [lo, hi) and runs their dispatch rows alone."""
     b, t, d = x.shape
     n = b * t
     e, k = cfg.num_experts, cfg.top_k
@@ -88,6 +104,8 @@ def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor
     # overflows holds the sentinel
     over = eh.sum(0) > cap                                       # [e]
     buf[:, cap - 1] = torch.where(over, n, buf[:, cap - 1])
+    if experts is not None:
+        buf = buf[experts[0]:experts[1]]
     token_pad = torch.cat([xf, xf.new_zeros((1, d))], 0)
     xe = token_pad[buf]                                          # [e, cap, d]
 

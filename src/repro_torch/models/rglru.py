@@ -43,11 +43,15 @@ def rglru_shapes(cfg: ModelConfig, normal, zeros, ones) -> dict:
     built by the caller's leaf makers: the recurrence and input gates at
     stddev 0.02, ``conv_w [W, lru]`` at 0.5, ``lam`` (Lambda) ones."""
     d, w, cw = cfg.d_model, cfg.rglru.lru_width, cfg.rglru.conv_width
-    return {"w_x": normal(d, w), "w_gate": normal(d, w), "w_out": normal(w, d),
-            "conv_w": normal(cw, w, scale=0.5), "conv_b": zeros(w),
-            "w_a": normal(w, w, scale=0.02), "b_a": zeros(w),
-            "w_i": normal(w, w, scale=0.02), "b_i": zeros(w),
-            "lam": ones(w)}
+    lru, sq = ("lru",), ("lru", "lru")
+    return {"w_x": normal(d, w, axes=("embed", "lru")),
+            "w_gate": normal(d, w, axes=("embed", "lru")),
+            "w_out": normal(w, d, axes=("lru", "embed")),
+            "conv_w": normal(cw, w, scale=0.5, axes=("conv", "lru")),
+            "conv_b": zeros(w, axes=lru),
+            "w_a": normal(w, w, scale=0.02, axes=sq), "b_a": zeros(w, axes=lru),
+            "w_i": normal(w, w, scale=0.02, axes=sq), "b_i": zeros(w, axes=lru),
+            "lam": ones(w, axes=lru)}
 
 
 def _gates(p: dict, x: torch.Tensor, update_mask: Optional[torch.Tensor]

@@ -44,15 +44,22 @@ def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
 
 def ssm_shapes(cfg: ModelConfig, normal, zeros, ones) -> dict:
     """One Mamba-2 mixer's parameters (the reference's ``ssm_specs``),
-    built by the caller's ``normal(*shape, scale=None)`` / ``zeros`` /
-    ``ones`` leaf makers: ``wxbc`` projects x | B | C jointly (they are
+    built by the caller's ``normal(*shape, scale=None, axes)`` /
+    ``zeros`` / ``ones`` leaf makers (``axes``: the reference's logical
+    axis names): ``wxbc`` projects x | B | C jointly (they are
     convolved together), ``conv_w [W, conv_dim]`` at stddev 0.5."""
     d = cfg.d_model
     di, h, dc, _ = ssm_dims(cfg)
-    return {"wz": normal(d, di), "wxbc": normal(d, dc), "wdt": normal(d, h),
-            "dt_bias": zeros(h), "A_log": ones(h), "D": ones(h),
-            "conv_w": normal(cfg.ssm.conv_width, dc, scale=0.5),
-            "conv_b": zeros(dc), "gnorm": zeros(di), "out_proj": normal(di, d)}
+    return {"wz": normal(d, di, axes=("embed", "mlp")),
+            "wxbc": normal(d, dc, axes=("embed", "mlp")),
+            "wdt": normal(d, h, axes=("embed", None)),
+            "dt_bias": zeros(h, axes=(None,)), "A_log": ones(h, axes=(None,)),
+            "D": ones(h, axes=(None,)),
+            "conv_w": normal(cfg.ssm.conv_width, dc, scale=0.5,
+                             axes=("conv", "mlp")),
+            "conv_b": zeros(dc, axes=("mlp",)),
+            "gnorm": zeros(di, axes=("mlp",)),
+            "out_proj": normal(di, d, axes=("mlp", "embed"))}
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -71,6 +71,10 @@ from repro_torch.core.config import FAMILIES, ModelConfig
 from repro_torch.kernels.paged_attention import paged_ragged_attention
 from repro_torch.kernels.paged_attention_quant import paged_ragged_attention_quant
 from repro_torch.kernels.ragged_attention import ragged_attention
+from repro_torch.core.cost_hooks import fill_skipped, trips
+from repro_torch.core.dtensor_ops import (attend_sharded, batch_only,
+                                          embed_sharded, gather_fsdp,
+                                          replicated_call, shard_as)
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.flash import flash_attend
 from repro_torch.models.layers import (attend, attn_output, head_proj,
@@ -87,12 +91,52 @@ from repro_torch.models.weights import Params, map_params
 BLOCKWISE_THRESHOLD = 2048
 
 
-def _layer(params: Params, i: int, stack: str = "layers") -> dict:
+def _layer(params: Params, i: int, stack: str = "layers",
+           sharded: bool = False) -> dict:
     """Layer ``i``'s slice of the stacked ``[L, ...]`` parameters
     ``params[stack]`` (the decoder's ``layers``, or an encoder-decoder's
-    ``enc_layers``)."""
-    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[i]) for k, v in params[stack].items()}
+    ``enc_layers``); ``sharded`` (DTensor parameters, the dry run):
+    gathered over the batch axes first (FSDP)."""
+    p = {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+             else v[i]) for k, v in params[stack].items()}
+    return gather_fsdp(p) if sharded else p
+
+
+def _sharded(x) -> bool:
+    """Whether ``x`` is a DTensor (the dry run on a mesh)."""
+    return hasattr(x, "device_mesh")
+
+
+def _tp_in(h: torch.Tensor) -> torch.Tensor:
+    """A sublayer's input: on a DTensor, whole over every axis but the
+    batch's (sequence parallelism's all-gather); else ``h``."""
+    return batch_only(h) if _sharded(h) else h
+
+
+def _residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h``; on DTensors ``h`` (a partial sum over the model axis)
+    is first reduced to ``x``'s layout (all-reduce, or reduce-scatter
+    under sequence parallelism)."""
+    if _sharded(x):
+        h = h.redistribute(x.device_mesh, x.placements)
+    return x + h
+
+
+def _attention(fn, q, k, v, **kw) -> torch.Tensor:
+    """An attention core (``attend`` or ``flash_attend``); on DTensors on
+    each device's batch and head shards (``attend_sharded``)."""
+    if not _sharded(q):
+        return fn(q, k, v, **kw)
+    return attend_sharded(fn, q, k, v, **kw)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings: rows of ``table``; a DTensor table (the dry
+    run) looks up vocab-parallel (``core.dtensor_ops.embed_sharded``)
+    where indexing would gather the whole table."""
+    if not _sharded(table):
+        return table[tokens.long()]
+    return embed_sharded(table, tokens)
 
 
 def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
@@ -108,12 +152,35 @@ def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
                  for x in (k, v))
 
 
+def _pin_heads(x: torch.Tensor, attn_sharding) -> torch.Tensor:
+    """``x [B, T, H, D]`` held to the head-axis TP layout (the
+    reference's ``pin_heads``) when its heads divide the axis; a no-op
+    without ``attn_sharding`` (single card)."""
+    if attn_sharding is None or x.shape[2] % attn_sharding[1]:
+        return x
+    return shard_as(x, attn_sharding[0])
+
+
+def _expand_kv(k: torch.Tensor, v: torch.Tensor, h: int, attn_sharding
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V for sharded train/prefill attention: when the KV heads do not
+    divide the head axis, repeated to all ``h`` query heads (GQA as
+    MHA, the same values), so the attention stays sharded on the full
+    head dim instead of running replicated (the reference's
+    ``expand_kv``); then pinned."""
+    kv = k.shape[2]
+    if kv != h and kv % attn_sharding[1]:
+        k, v = (x.repeat_interleave(h // kv, dim=2) for x in (k, v))
+    return _pin_heads(k, attn_sharding), _pin_heads(v, attn_sharding)
+
+
 def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                    mode: str, positions: torch.Tensor, rope,
                    input_mask: Optional[torch.Tensor],
                    cache: Optional[cache_lib.CacheT],
                    slots: Optional[torch.Tensor],
-                   window: Optional[int], causal: bool = True) -> torch.Tensor:
+                   window: Optional[int], causal: bool = True,
+                   attn_sharding=None) -> torch.Tensor:
     q, k, v = qkv_project(p, cfg, x, rope)
     b, t = x.shape[:2]
     quant = cache is not None and cache_lib.is_quantized(cache)
@@ -125,12 +192,16 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                  else torch.ones((b, t), dtype=torch.bool, device=x.device))
         ka, va = (cache_lib.fake_quantize_kv(torch.stack((k, v))).unbind(0)
                   if quant else (k, v))
+        if attn_sharding is not None:
+            q = _pin_heads(q, attn_sharding)
+            ka, va = _expand_kv(ka, va, q.shape[2], attn_sharding)
         if t >= BLOCKWISE_THRESHOLD:
-            out = flash_attend(q, ka, va, kv_valid=input_mask, window=window,
-                               causal=causal)
+            out = _attention(flash_attend, q, ka, va, kv_valid=input_mask,
+                             window=window, causal=causal)
         else:
-            out = attend(q, ka, va, q_pos=positions, kv_pos=positions,
-                         kv_valid=valid, window=window, causal=causal)
+            out = _attention(attend, q, ka, va, q_pos=positions,
+                             kv_pos=positions, kv_valid=valid, window=window,
+                             causal=causal)
         k, v = _pad_kv(cfg, k, v)
         if quant:
             cache_lib.write_kv_paged_quant(cache["k"][layer], cache["v"][layer],
@@ -165,17 +236,20 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
            mode: str, positions: torch.Tensor, rope,
            input_mask: Optional[torch.Tensor],
            cache: Optional[cache_lib.CacheT],
-           slots: Optional[torch.Tensor]) -> Tuple[torch.Tensor, dict]:
+           slots: Optional[torch.Tensor], attn_sharding=None,
+           moe_sharding=None) -> Tuple[torch.Tensor, dict]:
     """One pre-norm layer: attention, then the MLP or the MoE block, each
     residual.  Returns (x, the MoE block's aux; empty for dense)."""
-    x = x + _attn_sublayer(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
-                           layer, mode, positions, rope, input_mask, cache,
-                           slots, cfg.attention_window)
-    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = _residual(x, _attn_sublayer(
+        p["attn"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)), layer,
+        mode, positions, rope, input_mask, cache, slots,
+        cfg.attention_window, attn_sharding=attn_sharding))
+    h = _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps))
     if cfg.family == "moe":
-        h, aux = moe_apply(p["moe"], cfg.moe, h)
-        return x + h, aux
-    return x + mlp_apply(p["mlp"], h), {}
+        h, aux = (moe_apply(p["moe"], cfg.moe, h) if moe_sharding is None
+                  else moe_apply(p["moe"], cfg.moe, h, shardings=moe_sharding))
+        return _residual(x, h), aux
+    return _residual(x, mlp_apply(p["mlp"], h)), {}
 
 
 def _ssm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -183,10 +257,16 @@ def _ssm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                mode: str) -> Tuple[torch.Tensor, Optional[dict]]:
     """One Mamba-2 layer (pre-norm, residual): the chunked form in train
     and prefill, the token recurrence in decode."""
-    h, new_state = mamba_mixer(p["mixer"], cfg, rmsnorm(x, p["ln"], cfg.norm_eps),
-                               state=state, update_mask=update_mask,
-                               use_chunked=mode in ("train", "prefill"))
-    return x + h, new_state
+    def mixer(pm, h, st, um):
+        return mamba_mixer(pm, cfg, h, state=st, update_mask=um,
+                           use_chunked=mode in ("train", "prefill"))
+    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    if not _sharded(h):
+        h, new_state = mixer(p["mixer"], h, state, update_mask)
+    else:
+        h, new_state = replicated_call(mixer, p["mixer"], h, state,
+                                       update_mask)
+    return _residual(x, h), new_state
 
 
 def _rec_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -195,26 +275,34 @@ def _rec_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """One RG-LRU layer of a hybrid stack: the recurrent block, then the
     MLP, each pre-norm and residual (the scan in train and prefill, the
     step recurrence in decode)."""
-    h, new_state = rglru_block(p["temporal"], cfg,
-                               rmsnorm(x, p["ln1"], cfg.norm_eps),
-                               state=state, update_mask=update_mask,
-                               sequential=mode == "decode")
-    x = x + h
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)), new_state
+    def block(pt, h, st, um):
+        return rglru_block(pt, cfg, h, state=st, update_mask=um,
+                           sequential=mode == "decode")
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if not _sharded(h):
+        h, new_state = block(p["temporal"], h, state, update_mask)
+    else:
+        h, new_state = replicated_call(block, p["temporal"], h, state,
+                                       update_mask)
+    x = _residual(x, h)
+    return _residual(x, mlp_apply(
+        p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps)))), new_state
 
 
 def _local_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       attn_index: int, mode: str, positions: torch.Tensor,
                       rope, input_mask: Optional[torch.Tensor],
                       cache: Optional[cache_lib.CacheT],
-                      slots: Optional[torch.Tensor]) -> torch.Tensor:
+                      slots: Optional[torch.Tensor],
+                      attn_sharding=None) -> torch.Tensor:
     """One local-attention layer of a hybrid stack, whose K/V live at
     ``attn_index`` of the cache's layer axis (attention layers only)."""
-    x = x + _attn_sublayer(p["temporal"], cfg,
-                           rmsnorm(x, p["ln1"], cfg.norm_eps), attn_index,
-                           mode, positions, rope, input_mask, cache, slots,
-                           cfg.rglru.local_attention_window)
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = _residual(x, _attn_sublayer(
+        p["temporal"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)),
+        attn_index, mode, positions, rope, input_mask, cache, slots,
+        cfg.rglru.local_attention_window, attn_sharding=attn_sharding))
+    return _residual(x, mlp_apply(
+        p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps))))
 
 
 def _cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -228,9 +316,9 @@ def _cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"]
     b, t, s = x.shape[0], x.shape[1], ck.shape[1]
     i32 = dict(dtype=torch.int32, device=x.device)
-    out = attend(q, ck, cv, q_pos=torch.zeros((b, t), **i32),
-                 kv_pos=torch.zeros((b, s), **i32), kv_valid=enc_valid,
-                 causal=False)
+    out = _attention(attend, q, ck, cv, q_pos=torch.zeros((b, t), **i32),
+                     kv_pos=torch.zeros((b, s), **i32), kv_valid=enc_valid,
+                     causal=False)
     return attn_output(p, out)
 
 
@@ -239,24 +327,30 @@ def _audio_block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                  input_mask: Optional[torch.Tensor],
                  cache: Optional[cache_lib.CacheT],
                  slots: Optional[torch.Tensor], ck: torch.Tensor,
-                 cv: torch.Tensor, enc_valid: torch.Tensor) -> torch.Tensor:
+                 cv: torch.Tensor, enc_valid: torch.Tensor,
+                 attn_sharding=None) -> torch.Tensor:
     """One decoder layer of an encoder-decoder: self-attention (the
     dense ring in decode), cross-attention over ``ck``/``cv``, the MLP,
     each pre-norm (``ln1``, ``ln2``, ``ln3``) and residual."""
-    x = x + _attn_sublayer(p["self_attn"], cfg,
-                           rmsnorm(x, p["ln1"], cfg.norm_eps), layer, mode,
-                           positions, rope, input_mask, cache, slots, None)
-    x = x + _cross_attend(p["cross_attn"], cfg,
-                          rmsnorm(x, p["ln2"], cfg.norm_eps), ck, cv,
-                          enc_valid)
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln3"], cfg.norm_eps))
+    x = _residual(x, _attn_sublayer(
+        p["self_attn"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)),
+        layer, mode, positions, rope, input_mask, cache, slots, None,
+        attn_sharding=attn_sharding))
+    x = _residual(x, _cross_attend(
+        p["cross_attn"], cfg, _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps)), ck,
+        cv, enc_valid))
+    return _residual(x, mlp_apply(
+        p["mlp"], _tp_in(rmsnorm(x, p["ln3"], cfg.norm_eps))))
 
 
 def encode(params: Params, cfg: ModelConfig, embeds: torch.Tensor,
-           enc_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+           enc_valid: Optional[torch.Tensor] = None,
+           attn_sharding=None) -> torch.Tensor:
     """The bidirectional encoder over front-end embeddings ``[B, S, d]``
     (``enc_valid [B, S]`` masks padded frames as keys): RoPE over the
-    frame positions, attention not causal, then ``enc_norm``."""
+    frame positions, attention not causal, then ``enc_norm``.  (Its
+    input needs no gradient, so its first layer's backward differs from
+    the rest: the light iteration of :func:`trips` runs first.)"""
     b, s = embeds.shape[:2]
     if enc_valid is None:
         enc_valid = torch.ones((b, s), dtype=torch.bool, device=embeds.device)
@@ -264,14 +358,18 @@ def encode(params: Params, cfg: ModelConfig, embeds: torch.Tensor,
                              device=embeds.device)[None].expand(b, s)
     rope = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
     x = embeds
-    for i in range(cfg.num_encoder_layers):
-        p = _layer(params, i, "enc_layers")
-        x = x + _attn_sublayer(p["attn"], cfg,
-                               rmsnorm(x, p["ln1"], cfg.norm_eps), i, "train",
-                               positions, rope, enc_valid, None, None, None,
-                               causal=False)
-        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    sharded = _sharded(x)
+    for i in trips(cfg.num_encoder_layers):
+        p = _layer(params, i, "enc_layers", sharded)
+        x = _residual(x, _attn_sublayer(
+            p["attn"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)), i,
+            "train", positions, rope, enc_valid, None, None, None,
+            causal=False, attn_sharding=attn_sharding))
+        x = _residual(x, mlp_apply(
+            p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps))))
+    enc_norm = params["enc_norm"]
+    return rmsnorm(x, gather_fsdp(enc_norm) if sharded else enc_norm,
+                   cfg.norm_eps)
 
 
 def build_cross_cache(params: Params, cfg: ModelConfig, enc_out: torch.Tensor
@@ -279,42 +377,43 @@ def build_cross_cache(params: Params, cfg: ModelConfig, enc_out: torch.Tensor
     """Every decoder layer's cross K/V ``[L, B, S, KV, D]`` of the encoder
     output ``enc_out [B, S, d]``."""
     p = params["layers"]["cross_attn"]
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
+    ks, vs = [None] * cfg.num_layers, [None] * cfg.num_layers
+    for i in trips(cfg.num_layers, heavy_first=True):
         k = head_proj(enc_out, p["wk"][i])
         v = head_proj(enc_out, p["wv"][i])
         if cfg.qkv_bias:
             k, v = k + p["bk"][i], v + p["bv"][i]
-        ks.append(k)
-        vs.append(v)
-    return torch.stack(ks), torch.stack(vs)
+        ks[i], vs[i] = k, v
+    return torch.stack(fill_skipped(ks)), torch.stack(fill_skipped(vs))
 
 
 def _run(fn, remat: bool, *args):
     return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
 
-def _hybrid_layers(params: Params, cfg: ModelConfig):
+def _hybrid_layers(params: Params, cfg: ModelConfig, sharded: bool = False):
     """``(kind, params, index)`` of every layer of a hybrid stack in
     order: ``kind`` "rec" or "attn"; ``index`` the layer's place on the
     cache's recurrent or attention layer axis.  The groups' leaves are
     ``[ngroups, bpa, ...]`` (rec) and ``[ngroups, ...]`` (attn), the
-    tail's unstacked."""
+    tail's unstacked.  The groups, all of one shape, go by
+    :func:`trips`; ``sharded``: as :func:`_layer`.  A fourth item says
+    whether the layer is in a group: train mode's remat covers the
+    groups only, as the reference's checkpointed group scan does (its
+    unrolled tail runs without)."""
     bpa = cfg.rglru.blocks_per_attention
     ngroups, tail = divmod(cfg.num_layers, bpa + 1)
     lp = params["layers"]
     groups = lp.get("groups")
-    out, n_rec = [], 0
-    for g in range(ngroups):
+    gather = gather_fsdp if sharded else (lambda p: p)
+    for g in trips(ngroups, heavy_first=True):
         for j in range(bpa):
-            out.append(("rec", map_params(lambda a: a[g, j], groups["rec"]),
-                        n_rec))
-            n_rec += 1
-        out.append(("attn", map_params(lambda a: a[g], groups["attn"]), g))
+            yield ("rec", gather(map_params(lambda a: a[g, j], groups["rec"])),
+                   g * bpa + j, True)
+        yield ("attn", gather(map_params(lambda a: a[g], groups["attn"])), g,
+               True)
     for j in range(tail):
-        out.append(("rec", lp["tail"][j], n_rec))
-        n_rec += 1
-    return out
+        yield "rec", gather(lp["tail"][j]), ngroups * bpa + j, False
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
@@ -326,7 +425,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             update_mask: Optional[torch.Tensor] = None,
             encoder_embeds: Optional[torch.Tensor] = None,
             enc_valid: Optional[torch.Tensor] = None,
-            remat: bool = False, with_aux: bool = False):
+            remat: bool = False, with_aux: bool = False,
+            act_sharding=None,
+            attn_sharding=None, moe_sharding=None):
     """Returns (logits [B, T, Vp] float32, cache), and the MoE blocks'
     aux losses averaged over the layers as a third item with
     ``with_aux`` (the reference's ``aux``; empty for the other
@@ -347,7 +448,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     reads its cross K/V from the cache, or in train mode encodes
     ``encoder_embeds [B, S, d]`` (``enc_valid [B, S]``: the valid frames,
     all by default); train mode without them raises ``AssertionError``,
-    as the reference's does."""
+    as the reference's does.
+
+    The sharding hooks (``launch/sharding.py``; the dry run passes them,
+    the single-card paths never do): ``act_sharding`` holds the residual
+    stream ``[B, S, d]`` between blocks (sequence parallelism),
+    ``attn_sharding`` = (sharding, head-axis size) pins q/k/v heads in
+    train and prefill attention, ``moe_sharding`` the MoE dispatch
+    buffers.  On DTensors they redistribute; on plain tensors they do
+    nothing.  The layer stacks iterate by ``core.cost_hooks.trips``:
+    ``range`` outside the dry run's weighting counter."""
     assert mode in ("train", "prefill", "decode")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -355,7 +465,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             f"family {cfg.family!r} (ROADMAP A7)")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
-    x = embeds if embeds is not None else params["embed"][tokens.long()]
+    sharded = _sharded(params["embed"])
+    if sharded:
+        params = dict(params, **gather_fsdp(
+            {k: params[k] for k in ("embed", "final_norm", "lm_head",
+                                    "enc_norm") if k in params}))
+    x = embeds if embeds is not None else _embed(params["embed"], tokens)
+    if sharded:
+        x = batch_only(x)
     b, t = x.shape[:2]
     ar = torch.arange(t, dtype=torch.int32, device=x.device)[None]
     if mode == "decode":
@@ -387,29 +504,36 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     remat = remat and mode == "train"
     new_state = {}
     aux: dict = {}
+
+    def between(x):
+        return shard_as(x, act_sharding)
     if cfg.family == "ssm":
-        states = []
-        for i in range(cfg.num_layers):
+        states = [None] * cfg.num_layers
+        for i in trips(cfg.num_layers, heavy_first=True):
             st = (None if cache is None else
                   {k: cache[k][i] for k in ("ssd", "conv")})
-            x, st = _run(_ssm_block, remat, _layer(params, i), cfg, x, st,
-                         update_mask, mode)
-            states.append(st)
+            x, states[i] = _run(_ssm_block, remat, _layer(params, i, sharded=sharded),
+                                cfg, x, st, update_mask, mode)
+            x = between(x)
         if cache is not None:
+            states = fill_skipped(states)
             new_state = {k: torch.stack([st[k] for st in states])
                          for k in ("ssd", "conv")}
     elif cfg.family == "hybrid":
-        states = []
-        for kind, p, idx in _hybrid_layers(params, cfg):
+        states = [None] * cache_lib.hybrid_layer_counts(cfg)[1]
+        for kind, p, idx, grouped in _hybrid_layers(params, cfg, sharded):
             if kind == "attn":
-                x = _run(_local_attn_block, remat, p, cfg, x, idx, mode,
-                         positions, rope, input_mask, cache, slots)
+                x = between(_run(_local_attn_block, remat, p, cfg, x, idx,
+                                 mode, positions, rope, input_mask, cache,
+                                 slots, attn_sharding))
                 continue
             st = (None if cache is None else
                   {k: cache[k][idx] for k in ("lru", "conv")})
-            x, st = _run(_rec_block, remat, p, cfg, x, st, update_mask, mode)
-            states.append(st)
+            x, states[idx] = _run(_rec_block, remat and grouped, p, cfg, x,
+                                  st, update_mask, mode)
+            x = between(x)
         if cache is not None and states:
+            states = fill_skipped(states)
             new_state = {k: torch.stack([st[k] for st in states])
                          for k in ("lru", "conv")}
     elif cfg.family == "audio":
@@ -422,17 +546,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                   torch.ones(encoder_embeds.shape[:2], dtype=torch.bool,
                              device=x.device))
             ck, cv = build_cross_cache(
-                params, cfg, encode(params, cfg, encoder_embeds, ev))
-        for i in range(cfg.num_layers):
-            x = _run(_audio_block, remat, _layer(params, i), cfg, x, i, mode,
-                     positions, rope, input_mask, cache, slots, ck[i], cv[i],
-                     ev)
+                params, cfg, encode(params, cfg, encoder_embeds, ev,
+                                    attn_sharding=attn_sharding))
+        for i in trips(cfg.num_layers, heavy_first=True):
+            x = between(_run(_audio_block, remat,
+                             _layer(params, i, sharded=sharded), cfg, x,
+                             i, mode, positions, rope, input_mask, cache,
+                             slots, ck[i], cv[i], ev, attn_sharding))
     else:
-        for i in range(cfg.num_layers):
-            x, aux_i = _run(_block, remat, _layer(params, i), cfg, x, i,
-                            mode, positions, rope, input_mask, cache, slots)
+        for i in trips(cfg.num_layers, heavy_first=True):
+            x, aux_i = _run(_block, remat, _layer(params, i, sharded=sharded),
+                            cfg, x, i,
+                            mode, positions, rope, input_mask, cache, slots,
+                            attn_sharding, moe_sharding)
+            x = between(x)
             aux = {k: aux.get(k, 0.0) + a for k, a in aux_i.items()}
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = _tp_in(rmsnorm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()
     out = (logits, None if cache is None else dict(cache, **new_state))

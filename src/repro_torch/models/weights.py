@@ -42,20 +42,25 @@ Params = Dict[str, Any]
 VOCAB_PAD_MULTIPLE = 128
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested ``{name: (shape, init, scale)}`` of ``cfg``'s parameters.
+def param_shapes(cfg: ModelConfig,
+                 vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE) -> Dict[str, Any]:
+    """Nested ``{name: Spec(shape, init, scale, axes)}`` of ``cfg``'s
+    parameters, the vocabulary padded to ``vocab_pad_multiple`` (the
+    dry run pads to 2048, ``launch/steps.py``).
     ``scale`` is the normal init's stddev: 0.02 for the embedding, the
     untied LM head, the router and the RG-LRU gates, 0.5 for the conv
     filters, else the reference's fan-in rule ``1/sqrt(shape[0])`` on the
     STACKED shape, whose leading axis is the layer count (the group count
-    in a hybrid stack's groups)."""
+    in a hybrid stack's groups).  ``axes`` are the reference's logical
+    axis names, one per dim (``layers`` on a stacked axis)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the port runs the {', '.join(FAMILIES)} families, not "
             f"{cfg.family!r}")
-    vp = cfg.padded_vocab(VOCAB_PAD_MULTIPLE)
-    shapes = {"embed": Spec((vp, cfg.d_model), "normal", 0.02),
-              "final_norm": _zeros(cfg.d_model)}
+    vp = cfg.padded_vocab(vocab_pad_multiple)
+    shapes = {"embed": _normal(vp, cfg.d_model, scale=0.02,
+                               axes=("vocab", "embed")),
+              "final_norm": _norm(cfg.d_model)}
     if cfg.family == "hybrid":
         shapes["layers"] = _hybrid_shapes(cfg)
     else:
@@ -63,41 +68,51 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                                            cfg.num_layers))
     if cfg.is_encoder_decoder:
         d = cfg.d_model
-        enc = {"ln1": _zeros(d), "attn": _attention_shapes(cfg),
-               "ln2": _zeros(d), "mlp": _mlp_shapes(d, cfg.d_ff)}
+        enc = {"ln1": _norm(d), "attn": _attention_shapes(cfg),
+               "ln2": _norm(d), "mlp": _mlp_shapes(d, cfg.d_ff)}
         shapes["enc_layers"] = _resolve(_stack(enc, cfg.num_encoder_layers))
-        shapes["enc_norm"] = _zeros(d)
+        shapes["enc_norm"] = _norm(d)
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = Spec((cfg.d_model, vp), "normal", 0.02)
+        shapes["lm_head"] = _normal(cfg.d_model, vp, scale=0.02,
+                                    axes=("embed", "vocab"))
     return shapes
 
 
 class Spec(NamedTuple):
     """One parameter's shape and init: ``init`` "normal" (stddev
-    ``scale``), "zeros" or "ones".  A leaf of :func:`param_shapes`'s
-    tree (never taken for a tuple subtree)."""
+    ``scale``), "zeros" or "ones"; ``axes`` the logical axis name of
+    each dim (None: never sharded), as the reference's ``Spec`` has
+    them.  A leaf of :func:`param_shapes`'s tree (never taken for a
+    tuple subtree)."""
     shape: Tuple[int, ...]
     init: str
     scale: Optional[float]
+    axes: Tuple[Optional[str], ...]
 
 
-def _normal(*shape, scale=None):
-    return Spec(shape, "normal", scale)
+def _normal(*shape, scale=None, axes):
+    return Spec(shape, "normal", scale, axes)
 
 
-def _zeros(*shape):
-    return Spec(shape, "zeros", None)
+def _zeros(*shape, axes):
+    return Spec(shape, "zeros", None, axes)
 
 
-def _ones(*shape):
-    return Spec(shape, "ones", None)
+def _ones(*shape, axes):
+    return Spec(shape, "ones", None, axes)
+
+
+def _norm(d: int) -> Spec:
+    """An RMSNorm scale over the model width."""
+    return _zeros(d, axes=("embed",))
 
 
 def _stack(tree, n: int):
-    """``tree``'s leaves with a leading ``[n]`` axis (the reference's
-    ``_stack_specs``: an explicit scale stays, a fan-in one is read off
-    the stacked shape)."""
-    return map_params(lambda leaf: leaf._replace(shape=(n,) + leaf.shape), tree)
+    """``tree``'s leaves with a leading ``[n]`` axis named ``layers``
+    (the reference's ``_stack_specs``: an explicit scale stays, a fan-in
+    one is read off the stacked shape)."""
+    return map_params(lambda leaf: leaf._replace(
+        shape=(n,) + leaf.shape, axes=("layers",) + leaf.axes), tree)
 
 
 def _resolve(tree):
@@ -113,18 +128,24 @@ def _resolve(tree):
 def _attention_shapes(cfg: ModelConfig) -> dict:
     d, kv = cfg.d_model, cfg.num_kv_heads
     h, hd = cfg.q_head_pad or cfg.num_heads, cfg.resolved_head_dim
-    attn = {"wq": _normal(d, h, hd), "wk": _normal(d, kv, hd),
-            "wv": _normal(d, kv, hd), "wo": _normal(h, hd, d)}
+    attn = {"wq": _normal(d, h, hd, axes=("embed", "heads", "head_dim")),
+            "wk": _normal(d, kv, hd, axes=("embed", "kv_heads", "head_dim")),
+            "wv": _normal(d, kv, hd, axes=("embed", "kv_heads", "head_dim")),
+            "wo": _normal(h, hd, d, axes=("heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        attn.update(bq=_zeros(h, hd), bk=_zeros(kv, hd), bv=_zeros(kv, hd))
+        attn.update(bq=_zeros(h, hd, axes=("heads", "head_dim")),
+                    bk=_zeros(kv, hd, axes=("kv_heads", "head_dim")),
+                    bv=_zeros(kv, hd, axes=("kv_heads", "head_dim")))
     if cfg.qk_norm:
-        attn.update(q_norm=_zeros(hd), k_norm=_zeros(hd))
+        attn.update(q_norm=_zeros(hd, axes=("head_dim",)),
+                    k_norm=_zeros(hd, axes=("head_dim",)))
     return attn
 
 
 def _mlp_shapes(d: int, f: int) -> dict:
-    return {"w_gate": _normal(d, f), "w_up": _normal(d, f),
-            "w_down": _normal(f, d)}
+    return {"w_gate": _normal(d, f, axes=("embed", "mlp")),
+            "w_up": _normal(d, f, axes=("embed", "mlp")),
+            "w_down": _normal(f, d, axes=("mlp", "embed"))}
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict:
@@ -132,20 +153,21 @@ def _layer_shapes(cfg: ModelConfig) -> dict:
     decoder), unstacked."""
     d = cfg.d_model
     if cfg.family == "ssm":
-        return {"ln": _zeros(d),
+        return {"ln": _norm(d),
                 "mixer": ssm_shapes(cfg, _normal, _zeros, _ones)}
     if cfg.family == "audio":
-        return {"ln1": _zeros(d), "self_attn": _attention_shapes(cfg),
-                "ln2": _zeros(d), "cross_attn": _attention_shapes(cfg),
-                "ln3": _zeros(d), "mlp": _mlp_shapes(d, cfg.d_ff)}
-    layers = {"ln1": _zeros(d), "attn": _attention_shapes(cfg),
-              "ln2": _zeros(d)}
+        return {"ln1": _norm(d), "self_attn": _attention_shapes(cfg),
+                "ln2": _norm(d), "cross_attn": _attention_shapes(cfg),
+                "ln3": _norm(d), "mlp": _mlp_shapes(d, cfg.d_ff)}
+    layers = {"ln1": _norm(d), "attn": _attention_shapes(cfg),
+              "ln2": _norm(d)}
     if cfg.family == "moe":
         e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
-        layers["moe"] = {"router": _normal(d, e, scale=0.02),
-                         "w_gate": _normal(e, d, fe),
-                         "w_up": _normal(e, d, fe),
-                         "w_down": _normal(e, fe, d)}
+        layers["moe"] = {
+            "router": _normal(d, e, scale=0.02, axes=("embed", None)),
+            "w_gate": _normal(e, d, fe, axes=("experts", "embed", "mlp")),
+            "w_up": _normal(e, d, fe, axes=("experts", "embed", "mlp")),
+            "w_down": _normal(e, fe, d, axes=("experts", "mlp", "embed"))}
     else:
         layers["mlp"] = _mlp_shapes(d, cfg.d_ff)
     return layers
@@ -154,8 +176,8 @@ def _layer_shapes(cfg: ModelConfig) -> dict:
 def _hybrid_layer_shapes(cfg: ModelConfig, attention: bool) -> dict:
     temporal = (_attention_shapes(cfg) if attention else
                 rglru_shapes(cfg, _normal, _zeros, _ones))
-    return {"ln1": _zeros(cfg.d_model), "temporal": temporal,
-            "ln2": _zeros(cfg.d_model),
+    return {"ln1": _norm(cfg.d_model), "temporal": temporal,
+            "ln2": _norm(cfg.d_model),
             "mlp": _mlp_shapes(cfg.d_model, cfg.d_ff)}
 
 
@@ -175,14 +197,39 @@ def _hybrid_shapes(cfg: ModelConfig) -> dict:
                           for _ in range(tail))}
 
 
-def count_params(cfg: ModelConfig) -> int:
+def logical_to_pspec(axes, rules) -> Tuple:
+    """The spec that the rules table ``rules`` (a ``ShardingConfig``)
+    gives logical dims ``axes``: one entry per dim, trailing Nones
+    trimmed (``launch.sharding.canonical_spec``'s form)."""
+    mapping = {
+        "embed": rules.embed,
+        "mlp": rules.mlp,
+        "heads": rules.heads,
+        "kv_heads": rules.heads,     # kv heads follow the heads rule
+        "vocab": rules.vocab,
+        "experts": rules.experts,
+        "batch": tuple(rules.batch) or None,
+        "cache_seq": rules.cache_seq,
+        "seq": rules.seq,
+        "lru": rules.mlp,
+        # never sharded: head_dim, layers, conv, state
+    }
+    spec = [mapping.get(name) for name in axes]
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+def count_params(cfg: ModelConfig,
+                 vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE) -> int:
     """Parameters of ``cfg``, from the shapes alone."""
-    return sum(math.prod(shape)
-               for _, (shape, _, _) in param_leaves(param_shapes(cfg)))
+    return sum(math.prod(leaf.shape) for _, leaf in
+               param_leaves(param_shapes(cfg, vocab_pad_multiple)))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                dtype=torch.float32, rng_device="cpu") -> Params:
+                dtype=torch.float32, rng_device="cpu",
+                vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE) -> Params:
     """The port's own seeded init: the reference's shapes and scales,
     drawn from one ``torch.Generator`` on ``rng_device`` and moved to
     ``device``.  With the default CPU generator the same seed gives the
@@ -190,12 +237,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     card instead (other values, the same distribution), which a model of
     billions of parameters needs to start in seconds.  It cannot
     reproduce ``jax.random`` draws; parity tests convert reference
-    parameters with :func:`from_reference` instead."""
+    parameters with :func:`from_reference` instead.
+    ``vocab_pad_multiple``: as :func:`param_shapes` takes it."""
     device = resolve_device(device)
     gen = torch.Generator(device=resolve_device(rng_device)).manual_seed(seed)
 
     def make(leaf: Spec) -> torch.Tensor:
-        shape, init, scale = leaf
+        shape, init, scale, _ = leaf
         if init in ("zeros", "ones"):
             fill = torch.zeros if init == "zeros" else torch.ones
             return fill(shape, dtype=dtype, device=device)
@@ -203,7 +251,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                         device=gen.device)
         return t.mul_(scale).to(device=device, dtype=dtype)
 
-    return map_params(make, param_shapes(cfg))
+    return map_params(make, param_shapes(cfg, vocab_pad_multiple))
 
 
 def map_params(fn, *trees: Params) -> Params:

@@ -23,6 +23,9 @@ import torch
 
 from repro_torch.core.config import ModelConfig, OptimizerConfig, TrainConfig
 from repro_torch.core.sampling import mask_vocab
+from repro_torch.core.cost_hooks import fill_skipped, trips
+from repro_torch.core.dtensor_ops import (cross_entropy_sharded, shard_as,
+                                          split_microbatches)
 from repro_torch.models.transformer import forward
 from repro_torch.models.weights import (Params, init_params, param_leaves,
                                         resolve_device, unflatten_params)
@@ -35,7 +38,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy over the unpadded vocabulary (the
     padded rows masked to -1e30 before the log-sum-exp); with ``mask``,
-    the mean over the masked-in positions."""
+    the mean over the masked-in positions.  DTensor logits (the dry run)
+    go to the vocab-parallel form
+    (``core.dtensor_ops.cross_entropy_sharded``), which never gathers
+    the [B, S, V] logits."""
+    if hasattr(logits, "device_mesh"):
+        return cross_entropy_sharded(logits, labels, vocab_size, mask,
+                                     cross_entropy)
     logits = mask_vocab(logits, vocab_size).float()
     lse = torch.logsumexp(logits, dim=-1)
     tok_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
@@ -49,7 +58,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, remat: bool = False,
             embeds: Optional[torch.Tensor] = None,
-            encoder_embeds: Optional[torch.Tensor] = None
+            encoder_embeds: Optional[torch.Tensor] = None,
+            act_sharding=None, logits_sharding=None, attn_sharding=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross entropy, plus for the MoE family the router's load-balance
     loss x ``load_balance_weight`` and its z-loss x 1e-3, as in the
@@ -57,10 +67,16 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     token embeddings (a vlm's patch embeddings); ``encoder_embeds`` are
     an audio model's encoder frames, without which it raises
     ``AssertionError`` as the reference does.  A family the port does
-    not know raises ``NotImplementedError`` (:func:`forward`)."""
+    not know raises ``NotImplementedError`` (:func:`forward`).  The
+    sharding hooks (the dry run's; no-ops on plain tensors):
+    ``act_sharding`` and ``attn_sharding`` go to :func:`forward`,
+    ``logits_sharding`` holds the [B, S, V] logits to (batch, None,
+    model), so that the vocabulary stays split into the loss."""
     logits, _, aux = forward(params, cfg, tokens, mode="train", remat=remat,
                              embeds=embeds, encoder_embeds=encoder_embeds,
-                             with_aux=True)
+                             with_aux=True, act_sharding=act_sharding,
+                             attn_sharding=attn_sharding)
+    logits = shard_as(logits, logits_sharding)
     loss = cross_entropy(logits, labels, cfg.vocab_size)
     metrics = {"ce_loss": loss.detach()}
     if cfg.family == "moe":
@@ -76,11 +92,11 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def _grads(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            labels: torch.Tensor, remat: bool,
            embeds: Optional[torch.Tensor] = None,
-           encoder_embeds: Optional[torch.Tensor] = None):
+           encoder_embeds: Optional[torch.Tensor] = None, hooks=None):
     """(gradients in leaf order, metrics) of one batch."""
     live = [(k, p.detach().requires_grad_()) for k, p in param_leaves(params)]
     loss, metrics = loss_fn(unflatten_params(live), cfg, tokens, labels, remat,
-                            embeds, encoder_embeds)
+                            embeds, encoder_embeds, **(hooks or {}))
     return torch.autograd.grad(loss, [p for _, p in live]), metrics
 
 
@@ -89,32 +105,46 @@ def train_step(params: Params, opt_state: AdamWState, tokens: torch.Tensor,
                opt_cfg: OptimizerConfig, remat: bool = True,
                embeds: Optional[torch.Tensor] = None,
                encoder_embeds: Optional[torch.Tensor] = None,
-               microbatches: int = 1
+               microbatches: int = 1, act_sharding=None, attn_sharding=None,
+               logits_sharding=None, microbatch_sharding=None
                ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
     """One optimizer step; returns (params, state, metrics) and leaves
     its arguments as they were.  ``embeds`` / ``encoder_embeds``: as
     :func:`loss_fn` takes them.  ``microbatches > 1`` splits the batch
     (and the embeddings with it) into that many consecutive row groups
-    and averages their gradients and metrics."""
+    and averages their gradients and metrics; the groups iterate by
+    ``core.cost_hooks.trips``.  The sharding hooks are the dry run's
+    (``launch/steps.py``): ``act_sharding``, ``attn_sharding`` and
+    ``logits_sharding`` as :func:`loss_fn` takes them, and
+    ``microbatch_sharding(ndim)``, the layout of the [m, B/m, ...]
+    microbatches, with which a DTensor batch splits on each device's
+    shard (``core.dtensor_ops.split_microbatches``)."""
     keys = [k for k, _ in param_leaves(params)]
+    hooks = dict(act_sharding=act_sharding, attn_sharding=attn_sharding,
+                 logits_sharding=logits_sharding)
     if microbatches <= 1:
         grads, metrics = _grads(params, cfg, tokens, labels, remat, embeds,
-                                encoder_embeds)
+                                encoder_embeds, hooks)
     else:
         m, b = microbatches, labels.shape[0]
         if b % m:
             raise ValueError(f"batch {b} does not split into {m} microbatches")
 
         def split(x):
-            return ([None] * m if x is None else
-                    list(x.reshape(m, b // m, *x.shape[1:])))
-        acc, per = None, []
-        for t_i, l_i, e_i, x_i in zip(split(tokens), split(labels),
-                                      split(embeds), split(encoder_embeds)):
-            g, met = _grads(params, cfg, t_i, l_i, remat, e_i, x_i)
+            if x is None:
+                return [None] * m
+            if microbatch_sharding is None:
+                return list(x.reshape(m, b // m, *x.shape[1:]))
+            return split_microbatches(x, m, microbatch_sharding)
+        acc, per = None, [None] * m
+        parts = list(zip(split(tokens), split(labels), split(embeds),
+                         split(encoder_embeds)))
+        for i in trips(m):
+            t_i, l_i, e_i, x_i = parts[i]
+            g, per[i] = _grads(params, cfg, t_i, l_i, remat, e_i, x_i, hooks)
             g = [gi.float() for gi in g]
             acc = g if acc is None else [a + gi for a, gi in zip(acc, g)]
-            per.append(met)
+        per = fill_skipped(per)
         grads = [a / m for a in acc]
         metrics = {k: torch.stack([p[k] for p in per]).mean(0) for k in per[0]}
     grads = unflatten_params(zip(keys, grads))

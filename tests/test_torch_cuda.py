@@ -1222,3 +1222,58 @@ def test_vlm_image_prefill_and_audio_encoder_match_cpu(cuda):
         outs.append((ck.cpu(), cv.cpu()))
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the dispatchers' shape-only branch (the dry run's stand-ins)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", ["ring", "paged", "quant"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shape_only_branch(cuda, kernel, dtype):
+    """A fake CUDA tensor reaches no kernel: the dispatcher returns the
+    kernel's output shape and dtype, records one call with the dry run's
+    counter at the kernel's own formula (full extent), and launches
+    nothing."""
+    from repro_torch.kernels.shape_only import attention_cost
+    from repro_torch.launch.op_cost import OpCounter
+    b, t, h, kv, d, w, n, bs, maxb = 4, 11, 12, 4, 128, 256, 64, 16, 16
+    launches = (dict(ra.LAUNCHES), dict(pa.LAUNCHES), dict(pq.LAUNCHES))
+    with OpCounter() as c:
+        q = torch.empty(b, t, h, d, dtype=dtype, device=cuda)
+        q_pos = torch.empty(b, t, dtype=torch.int32, device=cuda)
+        if kernel == "ring":
+            k = torch.empty(b, w, kv, d, dtype=dtype, device=cuda)
+            kv_pos = torch.empty(b, w, dtype=torch.int32, device=cuda)
+            out = ra.ragged_attention(q, k, k, q_pos, kv_pos, window=None)
+            name, want = "ragged_verify_attention", attention_cost(
+                b, t, h, d, w, kv, q.element_size(), k.element_size(),
+                4 * (b * w + b * t))
+        else:
+            table = torch.empty(b, maxb, dtype=torch.int32, device=cuda)
+            kv_pos = torch.empty(n, bs, dtype=torch.int32, device=cuda)
+            extra = 4 * (b * maxb * bs + b * maxb + b * t)
+            if kernel == "paged":
+                pool = torch.empty(n, bs, kv, d, dtype=dtype, device=cuda)
+                out = pa.paged_ragged_attention(q, pool, pool, table, q_pos,
+                                                kv_pos)
+                name, want = "paged_ragged_verify_attention", attention_cost(
+                    b, t, h, d, maxb * bs, kv, q.element_size(),
+                    pool.element_size(), extra)
+            else:
+                pool = torch.empty(n, bs, kv, d, dtype=torch.int8,
+                                   device=cuda)
+                sc = torch.empty(n, bs, kv, dtype=torch.float32, device=cuda)
+                out = pq.paged_ragged_attention_quant(q, pool, pool, sc, sc,
+                                                      table, q_pos, kv_pos)
+                name = "paged_ragged_verify_attention_quant"
+                want = attention_cost(b, t, h, d, maxb * bs, kv,
+                                      q.element_size(), 1 + 4.0 / d, extra)
+        assert tuple(out.shape) == (b, t, h, d) and out.dtype == dtype
+        assert out.device == q.device
+    assert dict(c.kernel_calls) == {name: 1.0}
+    assert (c.kernel_flops, c.kernel_bytes) == want
+    assert want[0] == 4.0 * b * t * h * d * (w if kernel == "ring"
+                                             else maxb * bs)
+    assert (dict(ra.LAUNCHES), dict(pa.LAUNCHES),
+            dict(pq.LAUNCHES)) == launches

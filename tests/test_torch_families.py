@@ -556,6 +556,6 @@ def test_demo_launcher_trains_an_moe_arch(tmp_path, monkeypatch):
     assert out["steps"] == 2 and np.isfinite(out["loss"])
     assert out["loss"] > out["ce_loss"]          # the aux losses count
     # a recurrent arch's demo trains now (tests/test_torch_training.py);
-    # the launcher still exits without --demo, the one mode it ports
-    with pytest.raises(SystemExit):
-        t_launch.main(["--arch", "mamba2-130m", "--device", "cpu"])
+    # without --demo the launcher dry-runs its train_4k step
+    rec = t_launch.main(["--arch", "mamba2-130m", "--reduced"])
+    assert rec["status"] == "ok" and rec["shape"] == "train_4k"

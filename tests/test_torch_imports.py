@@ -36,8 +36,15 @@ def test_import_port_leaves_jax_out():
         "          'serving.server', 'launch.serve', 'models.ssm',\n"
         "          'models.rglru', 'configs.mamba2_130m',\n"
         "          'configs.recurrentgemma_2b', 'models.flash',\n"
-        "          'configs.qwen2_vl_2b', 'configs.seamless_m4t_medium'):\n"
+        "          'configs.qwen2_vl_2b', 'configs.seamless_m4t_medium',\n"
+        "          'launch.mesh', 'launch.sharding', 'launch.steps',\n"
+        "          'launch.op_cost', 'launch.dryrun', 'core.dtensor_ops',\n"
+        "          'core.cost_hooks', 'kernels.shape_only'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
+        "import torch.distributed as dist\n"
+        "assert 'torch.testing._internal.distributed.fake_pg' not in "
+        "sys.modules\n"
+        "assert not dist.is_initialized()\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=SRC,
@@ -63,6 +70,33 @@ def test_no_jax_or_reference_import_in_port_sources():
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro", "flax"), (f, mod)
+
+
+def test_fake_process_group_only_inside_functions():
+    """The dry run's fake process group (``fake_pg``) is imported inside
+    the functions that make one (``launch/mesh.py``), never at a module's
+    top level."""
+    for f in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                assert not any("fake_pg" in (n or "") for n in names), f
+
+
+@pytest.mark.parametrize("layer", ["core", "models", "kernels", "training",
+                                   "serving"])
+def test_layers_below_launch_import_nothing_of_it(layer):
+    """Only ``launch/`` knows meshes, rules and the cost counter: the
+    layers below it reach the dry run through ``core/cost_hooks.py`` and
+    ``core/dtensor_ops.py``, and import no module of ``launch/``, not
+    even inside a function."""
+    files = sorted((PORT / layer).rglob("*.py"))
+    assert files
+    for f in files:
+        for mod in _imported_modules(f):
+            assert not mod.startswith("repro_torch.launch"), (f, mod)
 
 
 @pytest.mark.parametrize("entry", ["engine", "init_params",

@@ -223,10 +223,33 @@ def test_launcher_http_smoke_on_cpu():
     assert out["summary"]["requests_finished"] == 2
 
 
-@pytest.mark.parametrize("extra,word", [([], "A11"),
-                                        (["--demo", "--mesh", "1x4"], "A10")])
+@pytest.mark.parametrize("extra,word", [(["--demo", "--mesh", "1x4"], "A10")])
 def test_launcher_unported_modes_exit_with_an_error(extra, word, capsys):
     with pytest.raises(SystemExit) as e:
         launch_serve.main(["--arch", "smollm-135m", "--device", "cpu"] + extra)
     assert e.value.code == 2
     assert word in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_launcher_default_mode_is_the_dry_run(shape):
+    """The default mode dry-runs the serve step on the 16 x 16 mesh (here
+    the reduced config): a record of the reference's keys, per-device
+    counts, the H100 roofline, the ring kernel once a layer."""
+    rec = launch_serve.main(["--arch", "smollm-135m", "--reduced",
+                             "--shape", shape])
+    assert rec["status"] == "ok" and rec["devices"] == 256
+    assert rec["mesh"] == "16x16" and rec["shape"] == shape
+    assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
+    assert set(rec["roofline"]) == {"compute_s", "memory_s", "collective_s",
+                                    "bottleneck", "eager_memory_s",
+                                    "useful_flops_ratio"}
+    mem, roof = rec["memory"], rec["roofline"]
+    # the memory term is the bytes the step must move, not the eager count
+    assert roof["memory_s"] == pytest.approx(
+        (mem["argument_bytes"] + mem["output_bytes"]) / 3.35e12)
+    assert roof["eager_memory_s"] > roof["memory_s"]
+    assert rec["kernel_calls"] == {"ragged_verify_attention": 2.0}
+    mem = rec["memory"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+    assert 0 < mem["peak_share_of_hbm"] < 1

@@ -455,8 +455,21 @@ def test_demo_launcher_checkpoint_restores_in_the_reference(model, tmp_path,
             t = t[k.key]
         assert np.isfinite(leaf).all()
         assert not np.array_equal(leaf, t.numpy()), path
-    with pytest.raises(SystemExit):
-        t_launch.main(["--arch", "smollm-135m"])
+
+
+def test_launcher_default_mode_is_the_dry_run():
+    """Without --demo the launcher dry-runs the train_4k step on the 16 x
+    16 mesh (here the reduced config): FSDP's weight gathers and gradient
+    reduce-scatters show among the collectives, the new parameters and
+    moments among the outputs."""
+    rec = t_launch.main(["--arch", "smollm-135m", "--reduced"])
+    assert rec["status"] == "ok" and rec["shape"] == "train_4k"
+    assert rec["devices"] == 256 and rec["kernel_calls"] == {}
+    assert rec["collectives"]["all-gather"] > 0
+    assert rec["collectives"]["reduce-scatter"] > 0
+    assert rec["memory"]["output_bytes"] > 0
+    assert rec["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "mamba2-130m",
