@@ -57,6 +57,37 @@ Phases, each printing one JSON line:
              verify passes past one launch of B1 and B4; adaedl,
              goodput and slo on the fp32 pool, goodput x n-gram on the
              int8 pool, the self drafter on the pool and the ring).
+4b. mesh   — the serving engine on a (data, model) mesh (ROADMAP A10):
+             smollm-135m at full width, each serve's 8 requests and
+             prompts those of its unmeshed twin in the serve phase
+             (``MESH_TWINS``); ``mesh-1x1-nccl``: a real NCCL
+             communicator of one rank in this process, its all-reduce
+             and all-gather enqueued with 0 synchronising calls, then
+             the fp32 pool and the dense ring served (a group of one
+             rank launches no collective), dispatch making 0
+             synchronising calls;
+             ``mesh-1x3-shared`` and ``mesh-2x2-shared``: 3 and 4 ranks
+             (``--mesh-rank``, processes of this script started after the
+             build; both worlds and the launcher at once) sharing card 0
+             over gloo, the first
+             ``MESH_SHARED_LAYERS`` layers against unmeshed twins of that
+             depth, on the fp32 pool, the ring (synchronous and
+             pipelined) and n-gram x int8; each rank's streams must equal
+             its twin's (a parted stream prints its position and the
+             unmeshed target's top-2 logit margin there), each row prints
+             tok/s, rounds, collectives a round and every rank's dispatch
+             syncs; the ranks' kernel launches join the kernels line;
+             ``mesh-launcher``: ``torchrun --nproc-per-node 1 -m
+             repro_torch.launch.serve --demo --mesh 1x1`` must exit 0 and
+             print its summary.  ``--only mesh-witness`` (a measurement,
+             not in the default run): the damped n-gram x int8 serve at
+             all 30 layers on one card and on 1 x 3 ranks sharing the
+             card, every K/V quantization recorded; prints where one
+             card's int8 streams part from the fp32 greedy rollout,
+             where the meshed streams part from one card's, and up to
+             that round the first fp32 gap, the first int8 value apart
+             (its quanta, its distance from the rounding boundary) and
+             the cascade after them.
 5. frontdoor — the serving front door at smollm-135m full width:
              prefix caching (``WARM_SERVES``: a 512-token head seeded by
              one request, then a partial hit with a 100-token tail, the
@@ -1141,45 +1172,69 @@ def count_syncs(eng):
     return counts
 
 
+def serve_weights(plan=None, layers=None):
+    """smollm-135m at full width (``layers``: its first that many layers
+    only): the target (seed 0) and the draft (target + 0.03 x a seed-1
+    draw), drawn on the CPU generator, so that a mesh rank's shards
+    (``plan``) are the whole draw's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params, map_params
+    cfg = get_config("smollm-135m")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    pt = init_params(cfg, seed=0, device="cuda", plan=plan)
+    noise = init_params(cfg, seed=1, device="cuda", plan=plan)
+    return cfg, pt, map_params(lambda a, n: a + 0.03 * n, pt, noise)
+
+
+def serve_engine(cfg, pt, pd, sv, mesh=None):
+    """The engine of one ``Serve`` (batch 4, 256 tokens), on ``mesh``
+    (a ``DeviceMesh`` or ``core.tp.MeshPlan``) or one card."""
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    model = sv.drafter == "model"
+    serving = ServingConfig(max_batch_size=4, max_seq_len=256,
+                            pipelined=sv.pipelined,
+                            paged_kv=sv.nblocks is not None,
+                            kv_block_size=16, num_kv_blocks=sv.nblocks,
+                            kv_quant=sv.kv_quant)
+    return ServingEngine(damped(pt, sv.damp), cfg, pd if model else None,
+                         cfg if model else None,
+                         SpecDecodeConfig(policy=sv.policy,
+                                          drafter=sv.drafter,
+                                          self_draft_layers=sv.self_layers),
+                         serving, seed=0, device="cuda", mesh=mesh)
+
+
+def serve_requests(cfg, sv):
+    from repro_torch.serving.request import Request
+    return [Request(i, prompt=p, max_new_tokens=SERVE_NEW,
+                    slo_deadline_s=((0.05 if i % 2 else 60.0)
+                                    if sv.deadlines else None))
+            for i, p in enumerate(serve_prompts(cfg.vocab_size, sv.drafter))]
+
+
+# greedy streams of the serve phase's serves, by name (the mesh phase's
+# twins)
+SERVE_STREAMS = {}
+
+
 def serve_phase():
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
-    from repro_torch.models.weights import init_params, map_params
-    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
-    cfg = get_config("smollm-135m")
-    pt = init_params(cfg, seed=0, device="cuda")
-    noise = init_params(cfg, seed=1, device="cuda")
-    pd = map_params(lambda a, n: a + 0.03 * n, pt, noise)
+    cfg, pt, pd = serve_weights()
     # every untraced measurement comes before the first profiled run, so
     # that none follows a torch.profiler session
     timed_phase("forward", forward_phase, cfg, pt)
     total = {k: 0 for k in read_launches()}
-    profiled, streams = [], {}
+    profiled, streams = [], SERVE_STREAMS
     for sv in SERVES:
-        model = sv.drafter == "model"
-        serving = ServingConfig(max_batch_size=4, max_seq_len=256,
-                                pipelined=sv.pipelined,
-                                paged_kv=sv.nblocks is not None,
-                                kv_block_size=16, num_kv_blocks=sv.nblocks,
-                                kv_quant=sv.kv_quant)
+        def engine(sv=sv):
+            return serve_engine(cfg, pt, pd, sv)
 
-        def engine(target=damped(pt, sv.damp), model=model, sv=sv,
-                   serving=serving):
-            return ServingEngine(target, cfg, pd if model else None,
-                                 cfg if model else None,
-                                 SpecDecodeConfig(
-                                     policy=sv.policy, drafter=sv.drafter,
-                                     self_draft_layers=sv.self_layers),
-                                 serving, seed=0, device="cuda")
-
-        reqs = [Request(i, prompt=p, max_new_tokens=SERVE_NEW,
-                        slo_deadline_s=((0.05 if i % 2 else 60.0)
-                                        if sv.deadlines else None))
-                for i, p in enumerate(serve_prompts(cfg.vocab_size,
-                                                    sv.drafter))]
+        reqs = serve_requests(cfg, sv)
         # one-time set-up (library handles, allocator pools) outside the
         # measured run
         engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
@@ -1787,20 +1842,29 @@ def http_runs(cfg, pt, pd, smi) -> None:
     if not ok:
         raise AssertionError(f"HTTP streams differ from run(): {res} "
                              f"{want.output}")
+    import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for args in (["--http-smoke"], ["--demo", "--paged", "--prefix-share",
-                                    "0.5"]):
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             "smollm-135m", *args], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=300)
+    tmp = Path(tempfile.mkdtemp(prefix="frontdoor-", dir=ROOT / "build"))
+    runs = []
+    t0 = time.monotonic()
+    # both launchers at once (each mostly its own start-up)
+    for i, args in enumerate((["--http-smoke"],
+                              ["--demo", "--paged", "--prefix-share", "0.5"])):
+        with open(tmp / f"{i}.out", "w") as out, \
+                open(tmp / f"{i}.err", "w") as err:
+            runs.append((args, i, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                 "smollm-135m", *args], cwd=ROOT, env=env, stdout=out,
+                stderr=err)))
+    for args, i, proc in runs:
+        proc.wait(timeout=300)
         emit({"phase": "frontdoor-launcher", "args": args,
               "returncode": proc.returncode,
               "seconds": time.monotonic() - t0,
-              "stdout_tail": proc.stdout[-600:]})
+              "stdout_tail": (tmp / f"{i}.out").read_text()[-600:]})
         if proc.returncode != 0:
-            raise AssertionError(f"launcher {args} failed:\n{proc.stderr[-3000:]}")
+            raise AssertionError(f"launcher {args} failed:\n"
+                                 + (tmp / f"{i}.err").read_text()[-3000:])
 
 
 def frontdoor_phase(smi):
@@ -3688,6 +3752,640 @@ def dryrun_phase(smi):
     emit({"phase": "dryrun-total", "seconds": time.monotonic() - t0})
 
 
+# ---------------------------------------------------------------------------
+# the serving mesh (ROADMAP A10)
+# ---------------------------------------------------------------------------
+
+# the serve phase's serves that the mesh serves again: the fp32 pool, the
+# dense ring (synchronous and pipelined) and the damped n-gram drafter on
+# the int8 pool; each meshed serve must emit its twin's streams
+MESH_TWINS = ("serve", "serve-dense", "serve-dense-pipe", "serve-ngram-int8")
+MESH_NCCL_TWINS = ("serve", "serve-dense")
+# ranks that share card 0 over gloo: 1 x 3 splits smollm's 9 query and 3
+# KV heads (and its MLP) three ways, its vocabulary 49280 not; 2 x 2
+# splits the MLP and the vocabulary, replicates the heads, and splits the
+# ring's rows and the n-gram history over data
+MESH_SHARED = ("1x3", "2x2")
+# the shared-card meshes serve the first 6 of smollm's 30 layers, against
+# unmeshed twins of the same depth: the ranks time-slice one card, and a
+# gloo all-reduce there took 5.7 ms (1 x 3, 30 layers: 234 s for the four
+# serves, 50-60 s for each pool or ring serve).  At 30 layers the damped
+# n-gram x int8 serve parts from its twin on 1 x 3; ``--only
+# mesh-witness`` records why (split sums move K/V a few units in the last
+# place, int8 rounding makes some of them whole quanta)
+MESH_SHARED_LAYERS = 6
+MESH_RANK_TIMEOUT_S = 600
+
+
+def serve_by_name(name):
+    return next(sv for sv in SERVES if sv.name == name)
+
+
+def mesh_serve(cfg, pt, pd, sv, mesh, warm_up=False):
+    """One meshed serve of ``sv`` (``warm_up``: after a one-request run,
+    the process's one-time set-up): this rank's streams, wall, rounds,
+    collectives, dispatch syncs and kernel launches."""
+    import torch
+    from repro_torch.core import tp
+    from repro_torch.serving.request import Request
+
+    if warm_up:
+        serve_engine(cfg, pt, pd, sv, mesh).run(
+            [Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
+    eng = serve_engine(cfg, pt, pd, sv, mesh)
+    syncs = count_syncs(eng)
+    reqs = serve_requests(cfg, sv)
+    reset_launches()
+    tp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    m = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"streams": [r.output for r in reqs], "wall_s": wall,
+            "rounds": m["rounds"], "tokens": m["tokens_emitted"],
+            "finished": m["requests_finished"],
+            "collectives": dict(tp.COUNTS), "launches": read_launches(),
+            "dispatch_syncs": sum(syncs.values()),
+            "dispatch_sync_sources": dict(syncs)}
+
+
+def mesh_rank_main(spec, rank, store, out, names) -> int:
+    """One rank of a shared-card mesh (``--mesh-rank``): gloo over a
+    FileStore, card 0, this rank's shards of the serve phase's weights,
+    the serves ``names`` (comma-separated); its results to ``out``
+    (JSON)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.tp import MeshPlan
+    from repro_torch.launch.mesh import parse_mesh, serving_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    d, m = parse_mesh(spec)
+    dist.init_process_group("gloo", store=dist.FileStore(store, d * m),
+                            rank=rank, world_size=d * m)
+    try:
+        plan = MeshPlan.for_mesh(serving_mesh(spec, share_card=True), 4)
+        cfg, pt, pd = serve_weights(plan, MESH_SHARED_LAYERS)
+        res = {name: mesh_serve(cfg, pt, pd, serve_by_name(name), plan,
+                                warm_up=i == 0)
+               for i, name in enumerate(names.split(","))}
+        Path(out).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_twins(names, smi, layers=None):
+    """The unmeshed streams of the serves ``names``: the serve phase's
+    (full depth, when it ran), else served here on one card at
+    ``layers``, each timed after a warm-up (rows ``mesh-twin``)."""
+    import torch
+    from repro_torch.serving.request import Request
+    if layers is None and all(n in SERVE_STREAMS for n in names):
+        return {n: SERVE_STREAMS[n] for n in names}
+    cfg, pt, pd = serve_weights(layers=layers)
+    out = {}
+    for name in names:
+        sv = serve_by_name(name)
+        serve_engine(cfg, pt, pd, sv).run(
+            [Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
+        eng = serve_engine(cfg, pt, pd, sv)
+        reqs = serve_requests(cfg, sv)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        m = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        out[name] = [r.output for r in reqs]
+        emit({"phase": "mesh-twin", "serve": name, "layers": cfg.num_layers,
+              "rounds": m["rounds"], "tokens": m["tokens_emitted"],
+              "wall_s": wall, "tokens_per_s": m["tokens_emitted"] / wall,
+              "nvidia_smi": smi})
+    return out
+
+
+def top2_margin(sv, request, stream, layers=None):
+    """The unmeshed target's top-2 logit margin (and its two tokens)
+    after ``request``'s prompt and ``stream`` (fp32, one card)."""
+    import torch
+    from repro_torch.models.transformer import forward
+    cfg, pt, _ = serve_weights(layers=layers)
+    prompt = serve_prompts(cfg.vocab_size, sv.drafter)[request]
+    toks = torch.tensor([prompt + list(stream)], dtype=torch.int32,
+                        device="cuda")
+    with torch.no_grad():
+        logits, _ = forward(damped(pt, sv.damp), cfg, toks, mode="train")
+    top = torch.topk(logits[0, -1, :cfg.vocab_size], 2)
+    return {"tokens": top.indices.tolist(),
+            "margin": float(top.values[0] - top.values[1])}
+
+
+def mesh_row(phase, name, ranks, twin, smi, layers=30):
+    """The row of one meshed serve (``ranks``: every rank's results):
+    rank 0's rate, rounds and collectives a round, every rank's syncs;
+    raises where a rank's streams part from the twin's (each parted
+    request's first parting position, the two tokens and the unmeshed
+    target's top-2 logit margin there printed) or a path kernel never
+    ran."""
+    r0 = ranks[0]
+    sv = serve_by_name(name)
+    for i, r in enumerate(ranks):
+        if r["finished"] != 8:
+            raise AssertionError(f"{phase} {name} rank {i}: {r['finished']}"
+                                 " requests finished")
+        if min(r["launches"][k] for k in sv.path) <= 0:
+            raise AssertionError(f"{phase} {name} rank {i}: a kernel of the "
+                                 f"path never ran: {r['launches']}")
+    equal = [r["streams"] == twin for r in ranks]
+    rounds = max(r0["rounds"], 1)
+    row = {"phase": phase, "serve": name, "twin": name, "ranks": len(ranks),
+           "layers": layers,
+           "equal_to_twin": all(equal), "rounds": r0["rounds"],
+           "tokens": r0["tokens"], "wall_s": r0["wall_s"],
+           "tokens_per_s": r0["tokens"] / r0["wall_s"],
+           "collectives_per_round": (r0["collectives"]["all_reduce"]
+                                     + r0["collectives"]["all_gather"])
+           / rounds,
+           "all_reduce_per_round": r0["collectives"]["all_reduce"] / rounds,
+           "all_gather_per_round": r0["collectives"]["all_gather"] / rounds,
+           "clock_broadcasts_per_round": r0["collectives"]["broadcast"]
+           / rounds,
+           "dispatch_syncs": [r["dispatch_syncs"] for r in ranks],
+           "launches": {k: sum(r["launches"][k] for r in ranks)
+                        for k in r0["launches"]},
+           "nvidia_smi": smi}
+    if not all(equal):
+        bad = next(r["streams"] for r in ranks if r["streams"] != twin)
+        row["parted"] = []
+        for i, (x, y) in enumerate(zip(bad, twin)):
+            if x == y:
+                continue
+            j = next(j for j, (a, b) in enumerate(zip(x, y)) if a != b)
+            row["parted"].append({"request": i, "position": j,
+                                  "mesh_token": x[j], "twin_token": y[j],
+                                  **top2_margin(sv, i, y[:j], layers)})
+    emit(row)
+    if not all(equal):
+        raise AssertionError(f"{phase} {name}: streams part from the "
+                             f"unmeshed serve's: {row['parted']}")
+    return row["launches"]
+
+
+def nccl_collectives(mesh, smi):
+    """One all-reduce and one all-gather over the 1 x 1 mesh's NCCL
+    *model* group, as ``core.tp`` calls them where a group holds more
+    than one rank: enqueued on the stream with no synchronising call, and
+    the values come back."""
+    import torch
+    import torch.distributed as dist
+    group = mesh.get_group("model")
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    want = x.clone()
+    parts = [torch.empty_like(x)]
+    torch.cuda.synchronize()
+    # switched outside the counted region: its first switch warns by itself
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dist.all_reduce(x, group=group)
+            dist.all_gather(parts, x, group=group)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    messages = [str(w.message)[:200] for w in caught
+                if "synchroniz" in str(w.message)]
+    syncs = len(messages)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(x, want) and torch.equal(parts[0], want))
+    emit({"phase": "mesh-1x1-nccl-collectives", "backend":
+          dist.get_backend(group), "syncs": syncs, "equal": equal,
+          "nvidia_smi": smi})
+    if syncs or not equal:
+        raise AssertionError(f"mesh-1x1-nccl collectives: {messages}, "
+                             f"values equal {equal}")
+
+
+def mesh_nccl(smi, twins):
+    """``mesh-1x1-nccl``: a real NCCL communicator of one rank in this
+    process, the pool and the ring; dispatch must make no synchronising
+    call.  A group of one rank makes ``core.tp``'s collectives no-ops, so
+    the communicator's own all-reduce and all-gather are checked alone
+    (:func:`nccl_collectives`)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import serving_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    total = {}
+    try:
+        mesh = serving_mesh("1x1")
+        nccl_collectives(mesh, smi)
+        cfg, pt, pd = serve_weights()
+        for i, name in enumerate(MESH_NCCL_TWINS):
+            res = mesh_serve(cfg, pt, pd, serve_by_name(name), mesh,
+                             warm_up=i == 0)
+            for k, n in mesh_row("mesh-1x1-nccl", name, [res], twins[name],
+                                 smi).items():
+                total[k] = total.get(k, 0) + n
+            if res["dispatch_syncs"]:
+                raise AssertionError(f"mesh-1x1-nccl {name}: dispatch "
+                                     "synchronised: "
+                                     f"{res['dispatch_sync_sources']}")
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def start_mesh_ranks(spec, names):
+    """``mesh-DxM-shared``'s D*M ranks on card 0 over gloo, each a process
+    of this script (``--mesh-rank``) serving ``names``; the kernels were
+    built before any starts.  Returns (spec, names, processes, their log
+    files, the scratch directory)."""
+    import os
+    import tempfile
+    from repro_torch.launch.mesh import parse_mesh
+
+    d, m = parse_mesh(spec)
+    tmp = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(d * m)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", spec,
+         str(r), str(tmp / "store"), str(tmp / f"rank{r}.json"),
+         ",".join(names)],
+        env=env, cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(d * m)]
+    return spec, procs, logs, tmp
+
+
+def wait_mesh_ranks(worlds, t0):
+    """Wait for every world of :func:`start_mesh_ranks`; a failed rank (or
+    the time limit) stops them all and raises with its log.  Returns each
+    world's ranks' results."""
+    procs = [p for _, ps, _, _ in worlds for p in ps]
+    try:
+        while any(p.poll() is None for p in procs):
+            for spec, ps, _, tmp in worlds:
+                failed = [r for r, p in enumerate(ps)
+                          if p.poll() not in (None, 0)]
+                if failed or time.monotonic() - t0 > MESH_RANK_TIMEOUT_S:
+                    raise RuntimeError(
+                        f"mesh {spec}: rank(s) {failed or 'timed out'}:\n"
+                        + "\n".join((tmp / f"rank{r}.log").read_text()
+                                    [-4000:]
+                                    for r in (failed or range(len(ps)))))
+            time.sleep(0.5)
+        for spec, ps, _, tmp in worlds:
+            failed = [r for r, p in enumerate(ps) if p.returncode]
+            if failed:
+                raise RuntimeError(
+                    f"mesh {spec}: rank(s) {failed} failed:\n" + "\n".join(
+                        (tmp / f"rank{r}.log").read_text()[-4000:]
+                        for r in failed))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for _, _, logs, _ in worlds:
+            for f in logs:
+                f.close()
+    return {spec: [json.loads((tmp / f"rank{r}.json").read_text())
+                   for r in range(len(ps))]
+            for spec, ps, _, tmp in worlds}
+
+
+def start_mesh_launcher():
+    """``mesh-launcher``: ``torchrun --nproc-per-node 1 -m
+    repro_torch.launch.serve --demo --mesh 1x1`` on the card, its output
+    to files.  Returns (the process, the output's path)."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = Path(tempfile.mkdtemp(prefix="mesh-launcher-", dir=ROOT / "build"))
+    with open(tmp / "out.txt", "w") as out, open(tmp / "err.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
+             "--arch", "smollm-135m", "--demo", "--mesh", "1x1", "--device",
+             "cuda", "--max-new", "16"],
+            env=env, cwd=ROOT, stdout=out, stderr=err)
+    return proc, tmp
+
+
+def finish_mesh_launcher(launcher, smi, t0) -> None:
+    """The launcher must exit 0 and print its summary."""
+    proc, tmp = launcher
+    proc.wait(timeout=300)
+    out, err = ((tmp / f).read_text() for f in ("out.txt", "err.txt"))
+    lines = [ln for ln in out.splitlines() if "'mesh': '1x1'" in ln]
+    emit({"phase": "mesh-launcher", "returncode": proc.returncode,
+          "seconds": time.monotonic() - t0,
+          "summary": lines[-1][:600] if lines else None,
+          "nvidia_smi": smi})
+    if proc.returncode != 0 or len(lines) != 1 \
+            or "'requests_finished': 8" not in lines[0]:
+        raise AssertionError(f"mesh-launcher failed: {err[-3000:]}")
+
+
+def mesh_phase(smi):
+    """The serving engine on a (data, model) mesh at smollm-135m full
+    width, every meshed serve's streams equal to the unmeshed serve's;
+    returns the mesh ranks' kernel launches.  The NCCL serves run alone;
+    then both shared-card worlds and the launcher run at once (a rank
+    waits on the host in each gloo call, so the card takes them side by
+    side; their rates are measured in each other's company)."""
+    t0 = time.monotonic()
+    twins = mesh_twins(MESH_NCCL_TWINS, smi)
+    shallow = mesh_twins(MESH_TWINS, smi, MESH_SHARED_LAYERS)
+    total = {k: 0 for k in read_launches()}
+    for k, c in mesh_nccl(smi, twins).items():
+        total[k] += c
+    t1 = time.monotonic()
+    launcher = start_mesh_launcher()
+    try:
+        worlds = [start_mesh_ranks(spec, MESH_TWINS) for spec in MESH_SHARED]
+        ranks = wait_mesh_ranks(worlds, t1)
+    except BaseException:
+        launcher[0].kill()
+        launcher[0].wait()
+        raise
+    emit({"phase": "mesh-shared-seconds", "seconds": time.monotonic() - t1})
+    finish_mesh_launcher(launcher, smi, t1)
+    for spec in MESH_SHARED:
+        for name in MESH_TWINS:
+            for k, c in mesh_row(f"mesh-{spec}-shared", name,
+                                 [r[name] for r in ranks[spec]],
+                                 shallow[name], smi,
+                                 MESH_SHARED_LAYERS).items():
+                total[k] += c
+    emit({"phase": "mesh-total", "seconds": time.monotonic() - t0})
+    return total
+
+
+# ``--only mesh-witness``: why meshed int8 streams can part from one
+# card's.  The serve, its depth and its mesh: the damped n-gram drafter
+# on the int8 pool at smollm-135m's full 30 layers, 1 x 3 (query heads,
+# KV heads and the MLP split three ways), where its streams parted
+WITNESS_SERVE, WITNESS_SPEC = "serve-ngram-int8", "1x3"
+
+
+def witness_record(cfg, pt, pd, plan=None):
+    """One serve of ``WITNESS_SERVE`` with every K/V quantization of the
+    target recorded in call order (the fp32 K/V, their int8 values and
+    scales), each round's quantizations (the calls its dispatch made)
+    and each round's emitted tokens by request."""
+    import torch
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.serving.engine import ServingEngine
+
+    calls, marks, emitted = [], [], []
+    quantize, dispatch, collect = (cache_lib.quantize_kv,
+                                   ServingEngine.dispatch,
+                                   ServingEngine.collect)
+
+    def quantize_rec(x):
+        q, scale = quantize(x)
+        calls.append(tuple(t.detach().cpu() for t in (x, q, scale)))
+        return q, scale
+
+    def dispatch_rec(eng):
+        n = len(calls)
+        rec = dispatch(eng)
+        marks.append((n, len(calls)))
+        return rec
+
+    def collect_rec(eng, rec):
+        out = collect(eng, rec)
+        n = rec.out.num_emitted.tolist()
+        emitted.append({r.request_id: rec.out.emitted[slot, :n[slot]].tolist()
+                        for r, slot, _ in rec.rows})
+        return out
+
+    cache_lib.quantize_kv = quantize_rec
+    ServingEngine.dispatch, ServingEngine.collect = dispatch_rec, collect_rec
+    try:
+        sv = serve_by_name(WITNESS_SERVE)
+        reqs = serve_requests(cfg, sv)
+        serve_engine(cfg, pt, pd, sv, plan).run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        cache_lib.quantize_kv = quantize
+        ServingEngine.dispatch, ServingEngine.collect = dispatch, collect
+    return {"streams": [r.output for r in reqs], "calls": calls,
+            "marks": marks, "emitted": emitted}
+
+
+def fp32_greedy_partings(cfg, pt, streams):
+    """Where ``streams`` (of ``WITNESS_SERVE``'s requests) part from the
+    target's fp32 greedy rollout (train-mode forwards, no cache): each
+    parted request's first position and the fp32 top-2 margin there."""
+    import torch
+    from repro_torch.models.transformer import forward
+    sv = serve_by_name(WITNESS_SERVE)
+    params = damped(pt, sv.damp)
+    out = []
+    for i, (prompt, stream) in enumerate(zip(
+            serve_prompts(cfg.vocab_size, sv.drafter), streams)):
+        seq = list(prompt)
+        for j, tok in enumerate(stream):
+            toks = torch.tensor([seq], dtype=torch.int32, device="cuda")
+            with torch.no_grad():
+                logits, _ = forward(params, cfg, toks, mode="train")
+            top = torch.topk(logits[0, -1, :cfg.vocab_size], 2)
+            if int(top.indices[0]) != tok:
+                out.append({"request": i, "position": j,
+                            "fp32_token": int(top.indices[0]),
+                            "int8_token": tok,
+                            "margin": float(top.values[0]
+                                            - top.values[1])})
+                break
+            seq.append(tok)
+    return out
+
+
+def mesh_witness_rank(rank, store, out) -> int:
+    """One rank of the witness's mesh (``--mesh-witness-rank``): gloo over
+    a FileStore on card 0, its record saved to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.tp import MeshPlan
+    from repro_torch.launch.mesh import parse_mesh, serving_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    d, m = parse_mesh(WITNESS_SPEC)
+    dist.init_process_group("gloo", store=dist.FileStore(store, d * m),
+                            rank=rank, world_size=d * m)
+    try:
+        plan = MeshPlan.for_mesh(serving_mesh(WITNESS_SPEC, share_card=True),
+                                 4)
+        cfg, pt, pd = serve_weights(plan)
+        torch.save(witness_record(cfg, pt, pd, plan), out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def witness_call(x1, q1, s1, xm, qm, sm):
+    """One quantization, one card's against a rank's: fp32 gaps in units
+    in the last place of each vector's amax (a gap that does not blow up
+    near zero) and in int8 quanta (the vector's scale), int8 values that
+    differ, how far those elements' value / scale sat from the rounding
+    boundary, and scales that differ."""
+    import torch
+    x1, xm, s1d = x1.double(), xm.double(), s1.double()
+    amax = x1.abs().amax(-1).float()
+    ulp = (torch.nextafter(amax, torch.full_like(amax, float("inf")))
+           - amax).double()[..., None]
+    gap = (x1 - xm).abs()
+    flips = q1 != qm
+    out = {"fp32_differing": int((gap > 0).sum()),
+           "fp32_max_gap_ulp_of_amax": float((gap / ulp).max()),
+           "fp32_max_gap_quanta": float((gap / s1d[..., None]).max()),
+           "int8_flips": int(flips.sum()),
+           "scales_differing": int((s1 != sm).sum()),
+           "scales_max_rel_gap": float(((s1d - sm.double()).abs()
+                                        / s1d).max())}
+    if flips.any():
+        frac = (x1 / s1d[..., None]).abs()
+        out.update(
+            int8_max_gap_quanta=int((q1.int() - qm.int()).abs().max()),
+            flips_max_boundary_distance=float(
+                ((frac - frac.floor()) - 0.5).abs()[flips].max()),
+            flips_max_fp32_gap_quanta=float(
+                (gap / s1d[..., None])[flips].max()),
+            flips_max_fp32_gap_ulp_of_amax=float((gap / ulp)[flips].max()))
+    return out
+
+
+def witness_compare(one, ranks, rounds):
+    """The quantizations of the first ``rounds`` rounds (and the prefills
+    before them), rank r's KV head against one card's head r, in call
+    order (per forward, layer by layer): the calls bitwise equal before
+    the first fp32 gap, the first call with an fp32 gap and the first
+    with an int8 value apart (:func:`witness_call` of each, the rank
+    that showed it), and over every call the totals of the cascade that
+    follows."""
+    n_one = one["marks"][rounds - 1][1]
+    out = {"calls": n_one, "first_fp32_gap": None, "first_int8_flip": None,
+           "cascade": {"fp32_elements": 0, "fp32_differing": 0,
+                       "int8_flips": 0, "int8_max_gap_quanta": 0,
+                       "scales_max_rel_gap": 0.0}}
+    for i in range(n_one):
+        for r, rank in enumerate(ranks):
+            if rank["marks"][rounds - 1][1] != n_one:
+                raise AssertionError(f"witness rank {r}: {rank['marks']} "
+                                     f"quantizations, one card "
+                                     f"{one['marks']}")
+            x1, q1, s1 = one["calls"][i]
+            # [..., KV, D] values, [..., KV] scales: one card's head r
+            x1, q1, s1 = x1[..., r:r + 1, :], q1[..., r:r + 1, :], \
+                s1[..., r:r + 1]
+            xm, qm, sm = rank["calls"][i]
+            if x1.shape != xm.shape:
+                raise AssertionError(f"witness call {i}: {tuple(x1.shape)} "
+                                     f"against {tuple(xm.shape)}")
+            c = witness_call(x1, q1, s1, xm, qm, sm)
+            if c["fp32_differing"] and out["first_fp32_gap"] is None:
+                out["first_fp32_gap"] = {"call": i, "rank": r, **c}
+            if c["int8_flips"] and out["first_int8_flip"] is None:
+                out["first_int8_flip"] = {"call": i, "rank": r, **c}
+            cas = out["cascade"]
+            cas["fp32_elements"] += x1.numel()
+            cas["fp32_differing"] += c["fp32_differing"]
+            cas["int8_flips"] += c["int8_flips"]
+            cas["int8_max_gap_quanta"] = max(cas["int8_max_gap_quanta"],
+                                             c.get("int8_max_gap_quanta", 0))
+            cas["scales_max_rel_gap"] = max(cas["scales_max_rel_gap"],
+                                            c["scales_max_rel_gap"])
+    return out
+
+
+def mesh_witness(smi):
+    """The witness: one card's and ``WITNESS_SPEC``'s serve of
+    ``WITNESS_SERVE`` at full depth, every K/V quantization recorded.
+    Prints where one card's int8 streams part from the fp32 greedy
+    rollout (:func:`fp32_greedy_partings`), the meshed streams' first
+    parting from one card's (request, position, the two tokens, the
+    unmeshed fp32 target's top-2 margin there), the first round whose
+    emitted tokens differ, and :func:`witness_compare` over the rounds up
+    to it (the schedule is the same until then).  A measurement, not a
+    check: it fails only where the two runs cannot be compared."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import parse_mesh
+
+    t0 = time.monotonic()
+    d, m = parse_mesh(WITNESS_SPEC)
+    tmp = Path(tempfile.mkdtemp(prefix="witness-", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(tmp / "ranks.log", "w") as log:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--mesh-witness-rank", str(r), str(tmp / "store"),
+             str(tmp / f"rank{r}.pt")], env=env, cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT) for r in range(d * m)]
+        try:
+            cfg, pt, pd = serve_weights()
+            one = witness_record(cfg, pt, pd)
+            greedy = fp32_greedy_partings(cfg, pt, one["streams"])
+            for p in procs:
+                p.wait(timeout=MESH_RANK_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    if any(p.returncode for p in procs):
+        raise RuntimeError("witness ranks failed:\n"
+                           + (tmp / "ranks.log").read_text()[-4000:])
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(d * m)]
+    row = {"phase": "mesh-int8-witness", "serve": WITNESS_SERVE,
+           "mesh": WITNESS_SPEC, "layers": cfg.num_layers,
+           "ranks_equal": all(r["streams"] == ranks[0]["streams"]
+                              for r in ranks),
+           "equal_to_one_card": ranks[0]["streams"] == one["streams"],
+           "rounds_one_card": len(one["marks"]),
+           "rounds_mesh": len(ranks[0]["marks"]),
+           "one_card_int8_vs_fp32_greedy": greedy}
+    parted = [(i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+              for i, (x, y) in enumerate(zip(ranks[0]["streams"],
+                                             one["streams"])) if x != y]
+    if parted:
+        i, j = parted[0]
+        row["parted"] = {"request": i, "position": j,
+                         "mesh_token": ranks[0]["streams"][i][j],
+                         "one_card_token": one["streams"][i][j],
+                         **top2_margin(serve_by_name(WITNESS_SERVE), i,
+                                       one["streams"][i][:j])}
+        rounds = next(k for k, (a, b) in enumerate(zip(ranks[0]["emitted"],
+                                                       one["emitted"]))
+                      if a != b) + 1
+    else:
+        rounds = min(len(one["marks"]), len(ranks[0]["marks"]))
+    row["same_schedule_rounds"] = all(
+        r["emitted"][:rounds - 1] == one["emitted"][:rounds - 1]
+        and r["marks"][:rounds] == one["marks"][:rounds] for r in ranks)
+    row["compared_rounds"] = rounds
+    row.update(witness_compare(one, ranks, rounds))
+    row["seconds"] = time.monotonic() - t0
+    row["nvidia_smi"] = smi
+    emit(row)
+    return {}
+
+
 def flat_tensors(tree):
     """The tensors of nested dicts, tuples and lists."""
     import torch
@@ -3704,6 +4402,8 @@ def flat_tensors(tree):
 # result line (a short run while a phase is being written)
 ONLY = {
     "dryrun": dryrun_phase,
+    "mesh": mesh_phase,
+    "mesh-witness": mesh_witness,
     "kernels": lambda smi: kernel_phase(torch_flush()),
     "multimodal-kernels": lambda smi: multimodal_rows(torch_flush()),
     "multimodal": multimodal_phase,
@@ -3719,6 +4419,10 @@ def torch_flush():
 
 
 def main() -> int:
+    if len(sys.argv) == 7 and sys.argv[1] == "--mesh-rank":
+        return mesh_rank_main(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7])
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-witness-rank":
+        return mesh_witness_rank(int(sys.argv[2]), *sys.argv[3:5])
     t_start = time.monotonic()
     import torch
     if not torch.cuda.is_available():
@@ -3763,8 +4467,8 @@ def main() -> int:
     t0 = time.monotonic()
     launches = serve_phase()
     emit({"phase": "serve-total", "seconds": time.monotonic() - t0})
-    for phase in (frontdoor_phase, families_phase, recurrent_phase,
-                  multimodal_phase, train_phase):
+    for phase in (mesh_phase, frontdoor_phase, families_phase,
+                  recurrent_phase, multimodal_phase, train_phase):
         for kernel, n in phase(smi).items():
             launches[kernel] += n
     dryrun_phase(smi)

@@ -26,7 +26,8 @@ def active_counter():
 def stand_ins_only(what: str):
     """The active counter; raises when there is none: ``what`` is a dry
     run's form, which costs a step on stand-ins but would compute wrong
-    values on real DTensors (a real mesh's forms are ROADMAP A10)."""
+    values on real DTensors (the serving engine's real mesh runs on
+    local shards instead, ``core/tp.py``)."""
     c = active_counter()
     if c is None:
         raise RuntimeError(f"{what} is the dry run's form for stand-in "

@@ -7,6 +7,13 @@ too), its own per-sequence cache (:meth:`init_cache` / :meth:`prefill`
 / :meth:`commit`), and the policy-observation divergence
 (:meth:`observation_kld`).  Host-side hooks say whether the engine must
 hand it draft params and whether it mirrors the target's block pool.
+
+On a serving mesh every device-side hook takes the engine's ``plan`` (a
+``core.tp.MeshPlan``): a draft model's params and cache are this rank's
+shards, laid out as the target's; per-row state split over *data* takes
+only its own rows of an admission group (``own``, as
+``core.prefill.set_slots``), and proposals come back whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -61,7 +68,7 @@ class Drafter:
     def init_cache(self, batch: int, max_len: int,
                    paged: Optional[Tuple[int, int]] = None,
                    dtype=torch.float32, device="cpu",
-                   kv_quant: str = "none") -> State:
+                   kv_quant: str = "none", plan=None) -> State:
         """``paged`` is the target's pool geometry ``(num_blocks,
         block_size)``, None for a dense ring; ``kv_quant`` the pool's
         storage mode.  A drafter that keeps KV uses the same layout."""
@@ -70,7 +77,8 @@ class Drafter:
     def prefill(self, params_d, cache: State, idx: torch.Tensor,
                 tokens: torch.Tensor, prompt_lens: torch.Tensor,
                 table_rows: Optional[torch.Tensor] = None,
-                max_len: Optional[int] = None) -> State:
+                max_len: Optional[int] = None, plan=None,
+                own=None) -> State:
         """Absorb an admission group: right-padded prompts ``tokens [R,
         S]`` landing in batch slots ``idx [R]``, with block-table rows
         ``table_rows [R, max_blocks]`` on the paged pool, or fresh ring
@@ -100,7 +108,8 @@ class Drafter:
                 k: int, sl_i: torch.Tensor, policy: Any,
                 step_u: Callable[[int], torch.Tensor],
                 live: torch.Tensor, *, params_t=None,
-                target_cache: Optional[dict] = None) -> DraftProposal:
+                target_cache: Optional[dict] = None,
+                plan=None) -> DraftProposal:
         """Up to ``k`` proposals per sequence (``sl_i [B]`` the budget, 0
         for dead rows).  ``step_u(j)`` gives the [B] uniforms of draft
         step j (identity-threaded).  ``params_t`` / ``target_cache`` are
@@ -109,7 +118,8 @@ class Drafter:
         raise NotImplementedError
 
     def commit(self, params_d, tokens: torch.Tensor, snapshot: State,
-               drafted: State, n_committed: torch.Tensor) -> State:
+               drafted: State, n_committed: torch.Tensor,
+               plan=None) -> State:
         """Commit ``n_committed[b]`` of the round's ``tokens [B, K+1]``
         (pending + proposals).  ``snapshot`` is the pre-round cache,
         ``drafted`` the one :meth:`propose` returned, ``params_d`` the
@@ -117,7 +127,8 @@ class Drafter:
         snapshot)."""
         return snapshot
 
-    def reset_rows(self, cache: State, rows: torch.Tensor) -> State:
+    def reset_rows(self, cache: State, rows: torch.Tensor,
+                   plan=None) -> State:
         """Clear the rows ``rows [B]`` bool that an admission replaces
         (identity unless the drafter keeps per-row state that prefill
         does not rewrite)."""

@@ -24,7 +24,8 @@ def autoregressive_draft_loop(params, cfg: ModelConfig, cache: dict,
                               pending: torch.Tensor, k: int,
                               sl_i: torch.Tensor, policy: Any,
                               step_u: Callable[[int], torch.Tensor],
-                              active: torch.Tensor, temperature: float
+                              active: torch.Tensor, temperature: float,
+                              plan=None
                               ) -> Tuple[torch.Tensor, torch.Tensor, dict,
                                          torch.Tensor]:
     """K+1 single-token decode steps of ``params`` against ``cache`` (the
@@ -33,8 +34,9 @@ def autoregressive_draft_loop(params, cfg: ModelConfig, cache: dict,
     ragged SL inside the bucket.  ``cache`` itself is left as it was but
     for in-place K/V writes past its lengths: each step's forward returns
     new recurrent tensors, so a recurrent draft's commit re-advances from
-    the untouched pre-round state.  Returns (draft_tokens [B,K],
-    draft_logits [B,K,V], drafted_cache, eff_sl [B])."""
+    the untouched pre-round state.  ``plan``: the serving mesh's
+    (``forward``).  Returns (draft_tokens [B,K], draft_logits [B,K,V],
+    drafted_cache, eff_sl [B])."""
     b = pending.shape[0]
     dev = pending.device
     tok = pending
@@ -48,7 +50,7 @@ def autoregressive_draft_loop(params, cfg: ModelConfig, cache: dict,
         # ring ignores the mask: its writes are masked by kv_pos <= q_pos)
         wm = ((j <= sl_i) & active)[:, None]
         lg, cur = forward(params, cfg, tok[:, None], cache=cur,
-                          mode="decode", write_mask=wm)
+                          mode="decode", write_mask=wm, plan=plan)
         lj = lg[:, 0]
         nxt = sample_token(step_u(j), lj, temperature,
                            cfg.vocab_size).to(torch.int32)
@@ -87,27 +89,27 @@ class ModelDrafter(Drafter):
                 / max(model_flops_per_token(self.cfg_t), 1.0))
 
     def init_cache(self, batch, max_len, paged=None, dtype=torch.float32,
-                   device="cpu", kv_quant="none"):
+                   device="cpu", kv_quant="none", plan=None):
         if paged is None:
             return cache_lib.cache_struct(self.cfg_d, batch, max_len, dtype,
-                                          device)
+                                          device, plan=plan)
         # the mirror inherits the target pool's storage mode, so a block
         # id means the same bytes on both sides
         n_blocks, bs = paged
         return cache_lib.paged_cache_struct(self.cfg_d, batch, max_len,
                                             n_blocks, bs, dtype, device,
-                                            kv_quant=kv_quant)
+                                            kv_quant=kv_quant, plan=plan)
 
     def prefill(self, params_d, cache, idx, tokens, prompt_lens,
-                table_rows=None, max_len=None):
+                table_rows=None, max_len=None, plan=None, own=None):
         if table_rows is None:
             rows, _ = prefill_lib.prefill_rows(params_d, self.cfg_d, tokens,
-                                               prompt_lens, max_len)
-            return prefill_lib.set_slots(cache, rows, idx)
+                                               prompt_lens, max_len, plan=plan)
+            return prefill_lib.set_slots(cache, rows, idx, own)
         rows, _ = prefill_lib.prefill_paged_rows(
             params_d, self.cfg_d, cache["k"], cache["v"], cache["kv_pos"],
             table_rows, tokens, prompt_lens, cache.get("k_scale"),
-            cache.get("v_scale"))
+            cache.get("v_scale"), plan=plan)
         return prefill_lib.scatter_paged_rows(cache, rows, idx)
 
     def prefill_tail(self, params_d, cache, idx, tokens, prompt_lens,
@@ -126,13 +128,14 @@ class ModelDrafter(Drafter):
         return prefill_lib.scatter_paged_rows(cache, rows, idx)
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
-                step_u, live, *, params_t=None, target_cache=None):
+                step_u, live, *, params_t=None, target_cache=None, plan=None):
         toks, logits, cache, eff = autoregressive_draft_loop(
             params_d, self.cfg_d, draft_cache, pending, k, sl_i, policy,
-            step_u, live, self.spec.temperature)
+            step_u, live, self.spec.temperature, plan)
         return DraftProposal(tokens=toks, logits=logits, cache=cache,
                              eff_sl=eff)
 
-    def commit(self, params_d, tokens, snapshot, drafted, n_committed):
+    def commit(self, params_d, tokens, snapshot, drafted, n_committed,
+               plan=None):
         return commit_model(params_d, self.cfg_d, tokens, snapshot, drafted,
-                            n_committed)
+                            n_committed, plan)

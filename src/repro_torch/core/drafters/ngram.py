@@ -16,6 +16,10 @@ fused KLD kernel is not on this drafter's path, as in the reference.
 The suffix match runs on the CUDA kernel for CUDA tensors and on its
 plain version on the CPU (:func:`repro_torch.kernels.ngram_match
 .ngram_propose_history`).
+
+On a serving mesh whose batch splits over *data* the history's rows do
+too (``length`` stays whole): each data rank matches its own rows and
+the proposals are gathered whole (``core.tp.gather_rows``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import tp as tp_lib
 from repro_torch.core.drafters.base import DraftProposal, Drafter, register_drafter
 from repro_torch.kernels.ngram_match import ngram_propose_history
 from repro_torch.models.weights import VOCAB_PAD_MULTIPLE
@@ -39,34 +44,44 @@ class NGramDrafter(Drafter):
     # False / 0.0): a table lookup is free next to a verification
 
     def init_cache(self, batch, max_len, paged=None, dtype=torch.float32,
-                   device="cpu", kv_quant="none"):
+                   device="cpu", kv_quant="none", plan=None):
         # token history, NOT a KV cache: ``length`` counts committed
         # tokens, mirroring the target cache's commit arithmetic
         i32 = dict(dtype=torch.int32, device=device)
-        return {"tokens": torch.zeros((batch, max_len), **i32),
+        rows = None if plan is None else plan.ring_rows(batch)
+        local = batch if rows is None else rows[1] - rows[0]
+        return {"tokens": torch.zeros((local, max_len), **i32),
                 "length": torch.zeros((batch,), **i32)}
 
     def prefill(self, params_d, cache, idx, tokens, prompt_lens,
-                table_rows=None, max_len=None):
+                table_rows=None, max_len=None, plan=None, own=None):
         # full-row writes: no stale text from a slot's previous occupant
         buf = cache["tokens"].clone()
         rows = torch.zeros((tokens.shape[0], buf.shape[1]), dtype=torch.int32,
                            device=buf.device)
         rows[:, :tokens.shape[1]] = tokens
-        buf[idx] = rows
+        if tp_lib.split_rows(cache, plan, "tokens", 0) is None:
+            buf[idx] = rows
+        else:
+            buf[own[1]] = rows[own[0]]
         length = cache["length"].clone()
         length[idx] = prompt_lens.to(torch.int32)
         return {"tokens": buf, "length": length}
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
-                step_u, live, *, params_t=None, target_cache=None):
-        buf = draft_cache["tokens"]
+                step_u, live, *, params_t=None, target_cache=None, plan=None):
+        buf, length = draft_cache["tokens"], draft_cache["length"]
+        pending = pending.to(torch.int32)
+        rows = tp_lib.split_rows(draft_cache, plan, "tokens", 0)
+        if rows is not None:
+            length, pending = (x[rows[0]:rows[1]] for x in (length, pending))
         # the proposal conditions on committed history + the pending
         # token at ``length`` where it fits; the lookup reads it there
         # without writing the buffer
-        toks, cnt = ngram_propose_history(buf, draft_cache["length"],
-                                          pending.to(torch.int32),
+        toks, cnt = ngram_propose_history(buf, length, pending,
                                           n=self.spec.ngram_n, k=k)
+        if rows is not None:
+            toks, cnt = (tp_lib.gather_rows(x, plan) for x in (toks, cnt))
         # one-hot over the target's padded vocabulary
         v = self.cfg_t.padded_vocab(VOCAB_PAD_MULTIPLE)
         vocab = torch.arange(v, device=buf.device)
@@ -74,8 +89,14 @@ class NGramDrafter(Drafter):
         return DraftProposal(tokens=toks, logits=logits, cache=draft_cache,
                              eff_sl=cnt)
 
-    def commit(self, params_d, tokens, snapshot, drafted, n_committed):
+    def commit(self, params_d, tokens, snapshot, drafted, n_committed,
+               plan=None):
         buf, ln = snapshot["tokens"], snapshot["length"]
+        new_len = ln + n_committed.to(torch.int32)
+        rows = tp_lib.split_rows(snapshot, plan, "tokens", 0)
+        if rows is not None:
+            ln, tokens, n_committed = (x[rows[0]:rows[1]] for x in
+                                       (ln, tokens, n_committed))
         b, h = buf.shape
         t = tokens.shape[1]
         pos = ln[:, None] + torch.arange(t, device=buf.device)[None]
@@ -86,11 +107,12 @@ class NGramDrafter(Drafter):
         wide = torch.cat([buf, torch.zeros((b, 1), dtype=buf.dtype,
                                            device=buf.device)], 1)
         wide.scatter_(1, tgt, tokens.to(torch.int32))
-        return {"tokens": wide[:, :h].contiguous(),
-                "length": ln + n_committed.to(torch.int32)}
+        return {"tokens": wide[:, :h].contiguous(), "length": new_len}
 
-    def reset_rows(self, cache, rows):
-        return {"tokens": torch.where(rows[:, None], 0, cache["tokens"]),
+    def reset_rows(self, cache, rows, plan=None):
+        split = tp_lib.split_rows(cache, plan, "tokens", 0)
+        mine = rows if split is None else rows[split[0]:split[1]]
+        return {"tokens": torch.where(mine[:, None], 0, cache["tokens"]),
                 "length": torch.where(rows, 0, cache["length"])}
 
     def observation_kld(self, target_logits, draft_logits, tokens, valid):

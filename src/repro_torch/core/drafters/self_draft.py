@@ -57,7 +57,7 @@ class SelfDrafter(Drafter):
                 / max(model_flops_per_token(self.cfg_t), 1.0))
 
     def init_cache(self, batch, max_len, paged=None, dtype=torch.float32,
-                   device="cpu", kv_quant="none"):
+                   device="cpu", kv_quant="none", plan=None):
         if kv_quant != "none":
             raise ValueError(
                 f"self-draft slices the target's K/V pools but not an "
@@ -66,7 +66,7 @@ class SelfDrafter(Drafter):
         return ()          # stateless: everything lives in the target cache
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
-                step_u, live, *, params_t=None, target_cache=None):
+                step_u, live, *, params_t=None, target_cache=None, plan=None):
         n = self.spec.self_draft_layers
         params_s = dict(params_t, layers=map_params(lambda a: a[:n],
                                                     params_t["layers"]))
@@ -74,7 +74,7 @@ class SelfDrafter(Drafter):
                        v=target_cache["v"][:n])
         toks, logits, _, eff = autoregressive_draft_loop(
             params_s, self._truncated_cfg(), cache_s, pending, k, sl_i,
-            policy, step_u, live, self.spec.temperature)
+            policy, step_u, live, self.spec.temperature, plan)
         return DraftProposal(tokens=toks, logits=logits, cache=draft_cache,
                              eff_sl=eff)
 

@@ -4,7 +4,12 @@ group per model.  :func:`prefill_rows` builds fresh dense-ring rows that
 :func:`set_slots` scatters into the batched ring; :func:`prefill_paged_rows`
 writes straight into allocated pool blocks; :func:`prefill_paged_tail`,
 its prefix-cache sibling, computes only the uncached tail of each row
-after the group's copy-on-write block copies."""
+after the group's copy-on-write block copies.
+
+On a serving mesh (``plan``) a group's rows run whole on every rank, over
+this rank's heads; a ring whose rows split over *data* takes only the
+rows it holds (:func:`set_slots`'s ``own``).  The tail prefill takes no
+plan: prefix caching on a mesh is ROADMAP A10's."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -28,7 +33,7 @@ def _last_logits(logits: torch.Tensor, prompt_lens: torch.Tensor
 
 
 def prefill_rows(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 prompt_lens: torch.Tensor, max_len: int
+                 prompt_lens: torch.Tensor, max_len: int, plan=None
                  ) -> Tuple[dict, torch.Tensor]:
     """Prefill R right-padded prompts ``tokens [R, S]`` into fresh dense
     ring rows of a ``max_len`` cache.  With ``S >= W`` the ring keeps the
@@ -38,9 +43,10 @@ def prefill_rows(params, cfg: ModelConfig, tokens: torch.Tensor,
     mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
             < prompt_lens[:, None])
     rows = cache_lib.cache_struct(cfg, tokens.shape[0], max_len,
-                                  device=tokens.device)
+                                  device=tokens.device, plan=plan,
+                                  whole_rows=True)
     logits, rows = forward(params, cfg, tokens, cache=rows, mode="prefill",
-                           input_mask=mask)
+                           input_mask=mask, plan=plan)
     rows["length"] = prompt_lens.to(torch.int32)
     return rows, _last_logits(logits, prompt_lens)
 
@@ -58,11 +64,14 @@ def _scatter_recurrent(out: dict, big: dict, rows: dict,
             out[key] = big[key].index_copy(1, idx, rows[key].to(big[key].dtype))
 
 
-def set_slots(big: dict, rows: dict, idx: torch.Tensor) -> dict:
+def set_slots(big: dict, rows: dict, idx: torch.Tensor,
+              own: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> dict:
     """Scatter a :func:`prefill_rows` group into the batched ring at the
     R slots ``idx``: the rings and ``kv_pos`` in place, ``length`` and
     the recurrent rows into new tensors (a round keeps the pre-round
-    dict as its snapshot)."""
+    dict as its snapshot).  ``own`` (a ring whose rows split over
+    *data*): (group rows, local rows) of the slots this rank holds, where
+    its K/V rings take their rows."""
     idx = idx.long()
     out = dict(big)
     _scatter_recurrent(out, big, rows, idx)
@@ -74,6 +83,8 @@ def set_slots(big: dict, rows: dict, idx: torch.Tensor) -> dict:
             out[key][idx] = rows[key]
         elif key in BATCH_AXIS0:
             val[idx] = rows[key]
+        elif own is not None:
+            val[:, own[1]] = rows[key][:, own[0]]
         else:
             val[:, idx] = rows[key]
     return out
@@ -84,7 +95,7 @@ def prefill_paged_rows(params, cfg: ModelConfig, pool_k: torch.Tensor,
                        table_rows: torch.Tensor, tokens: torch.Tensor,
                        prompt_lens: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
-                       v_scale: Optional[torch.Tensor] = None
+                       v_scale: Optional[torch.Tensor] = None, plan=None
                        ) -> Tuple[dict, torch.Tensor]:
     """Prefill R right-padded prompts ``tokens [R, S]`` straight into
     their allocated blocks (``table_rows [R, max_blocks]``; the pools,
@@ -97,7 +108,7 @@ def prefill_paged_rows(params, cfg: ModelConfig, pool_k: torch.Tensor,
     view = cache_lib.paged_prefill_view(pool_k, pool_v, kv_pos, table_rows,
                                         k_scale, v_scale, cfg=cfg)
     logits, view = forward(params, cfg, tokens, cache=view, mode="prefill",
-                           input_mask=mask)
+                           input_mask=mask, plan=plan)
     view["length"] = prompt_lens.to(torch.int32)
     return view, _last_logits(logits, prompt_lens)
 

@@ -22,6 +22,12 @@ dense ring or the block-paged pool alike.
 RNG is identity-threaded: every draw is keyed by (base seed, request
 seed, the request's own round ordinal, purpose, position) through
 :func:`repro_torch.core.sampling.counter_uniform`.
+
+On a serving mesh (``plan``, a ``core.tp.MeshPlan``) the drafter's and
+the target's forwards return their logits whole over the vocabulary and
+the rows (``models/transformer.py``), so steps 3-7 (rejection, the KLD
+kernel on the whole vocabulary, the policy) run on the same values on
+every rank and the round's outputs are replicated.
 """
 from __future__ import annotations
 
@@ -85,10 +91,11 @@ def _match_vocab(dl: torch.Tensor, v: int) -> torch.Tensor:
 
 def spec_decode_round_impl(params_t, params_d, cfg_t: ModelConfig,
                            drafter: Drafter, spec: SpecDecodeConfig, k: int,
-                           state: RoundState, active: torch.Tensor
-                           ) -> Tuple[RoundState, RoundOutput]:
+                           state: RoundState, active: torch.Tensor,
+                           plan=None) -> Tuple[RoundState, RoundOutput]:
     """One speculative round with draft bucket ``k``; ``active [B]``
-    masks occupied slots (intersected with ``~state.done``)."""
+    masks occupied slots (intersected with ``~state.done``); ``plan``:
+    the serving mesh's, None on one card."""
     assert drafter.spec == spec, (
         "drafter was built from a different SpecDecodeConfig than the round")
     policy = build_policy(spec)
@@ -109,7 +116,7 @@ def spec_decode_round_impl(params_t, params_d, cfg_t: ModelConfig,
                                sl_i, policy,
                                lambda j: uniforms(PURPOSE_DRAFT, j), live,
                                params_t=params_t,
-                               target_cache=state.target_cache)
+                               target_cache=state.target_cache, plan=plan)
         sl_i = torch.minimum(sl_i, prop.eff_sl)
         draft_tokens, drafted_cache = prop.tokens, prop.cache
     else:
@@ -128,7 +135,7 @@ def spec_decode_round_impl(params_t, params_d, cfg_t: ModelConfig,
                  & live[:, None])
     t_logits, t_cache_v = forward(params_t, cfg_t, verify_tokens,
                                   cache=state.target_cache, mode="decode",
-                                  write_mask=verify_wm)
+                                  write_mask=verify_wm, plan=plan)
 
     # --- 3. rejection sampling ----------------------------------------------
     if k > 0:
@@ -155,9 +162,9 @@ def spec_decode_round_impl(params_t, params_d, cfg_t: ModelConfig,
     # --- 5. commit ------------------------------------------------------------
     n_committed = (1 + rej.num_accepted) * live.to(torch.int32)
     t_cache = commit(params_t, cfg_t, verify_tokens, state.target_cache,
-                     t_cache_v, n_committed)
+                     t_cache_v, n_committed, plan)
     d_cache = (drafter.commit(params_d, verify_tokens, state.draft_cache,
-                              drafted_cache, n_committed)
+                              drafted_cache, n_committed, plan=plan)
                if k > 0 else state.draft_cache)
 
     # --- 6. device-side termination -------------------------------------------
@@ -201,7 +208,7 @@ def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
                      base_seed: int = 0, drafter: Optional[Drafter] = None,
                      dtype=torch.float32, device="cuda",
                      kv_quant: str = "none",
-                     enc_len: Optional[int] = None) -> RoundState:
+                     enc_len: Optional[int] = None, plan=None) -> RoundState:
     """Fresh round state on ``device``: the target's cache — a dense ring
     (``paged=None``) or the block-paged pool (``paged=(num_blocks,
     block_size)``, stored as ``kv_quant`` says) — plus the drafter's
@@ -211,7 +218,8 @@ def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
     :func:`models.transformer.encode` (the drafter's cache keeps one
     empty slot, as the reference's does).  The termination fields
     default to "never terminate" (the engine sets them per slot at
-    prefill)."""
+    prefill).  ``plan``: the caches hold this rank's shards (a serving
+    mesh's layouts, ``models/cache.py``); everything else is whole."""
     if kv_quant not in cache_lib.KV_QUANT_MODES:
         raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
     if kv_quant != "none" and paged is None:
@@ -224,15 +232,15 @@ def init_round_state(cfg_t: ModelConfig, cfg_d: Optional[ModelConfig],
     i32 = dict(dtype=torch.int32, device=device)
     if paged is None:
         t_cache = cache_lib.cache_struct(cfg_t, batch, max_len, dtype, device,
-                                         enc_len=enc_len)
+                                         enc_len=enc_len, plan=plan)
     else:
         t_cache = cache_lib.paged_cache_struct(cfg_t, batch, max_len,
                                                *paged, dtype, device,
-                                               kv_quant=kv_quant)
+                                               kv_quant=kv_quant, plan=plan)
     return RoundState(
         target_cache=t_cache,
         draft_cache=drafter.init_cache(batch, max_len, paged, dtype, device,
-                                       kv_quant=kv_quant),
+                                       kv_quant=kv_quant, plan=plan),
         policy_state=policy.init_state(batch, device),
         pending=torch.zeros((batch,), **i32),
         sl_next=policy.initial_sl(batch, device),

@@ -123,8 +123,9 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     can address (B x MAXB x BS slots a call)."""
     counter = _counter()
     if any(hasattr(x, "device_mesh") for x in (q, pool_k, block_table)):
-        raise NotImplementedError("a block pool on a mesh is the serving "
-                                  "engine's mesh path (ROADMAP A10)")
+        raise NotImplementedError(
+            "the dry run costs no block pool on a mesh: the serving "
+            "engine's mesh path runs it on local shards (core/tp.py)")
     b, t, h, d = q.shape
     bs, kv = pool_k.shape[1], pool_k.shape[2]
     slots = block_table.shape[1] * bs

@@ -17,22 +17,18 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 from typing import Iterator, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.core.tp import axis_sizes  # noqa: F401  (re-exported)
 
 
 class MeshShape(NamedTuple):
     """A mesh's axis names and sizes, without devices."""
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
-
-
-def axis_sizes(mesh) -> dict:
-    """``{axis name: size}`` of a :class:`MeshShape` or a
-    ``DeviceMesh``."""
-    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
-    return dict(zip(names, tuple(mesh.shape)))
 
 
 def production_shape(multi_pod: bool = False) -> MeshShape:
@@ -100,19 +96,52 @@ def single_device_mesh(axes: Tuple[str, ...] = ("data", "model")):
     return make_mesh_from_shape((1,) * len(axes), axes)
 
 
-def serving_mesh(spec: str) -> MeshShape:
-    """Parse a ``DxM`` serving-mesh flag ("1x4", "2x2") into the
-    ``(data, model)`` shape of the serving engine's mesh, and check that
-    this host has D*M cards.  Serving on it is ROADMAP A10: the engine's
-    mesh path builds its ``DeviceMesh`` over NCCL from this shape."""
+def parse_mesh(spec: str) -> Tuple[int, int]:
+    """``(D, M)`` of a ``DxM`` serving-mesh flag ("1x4", "2x2")."""
     try:
         d, m = (int(x) for x in spec.lower().split("x"))
     except ValueError:
         raise ValueError(
             f"mesh spec must be DxM (e.g. 1x4, 2x2), got {spec!r}") from None
+    return d, m
+
+
+def serving_mesh(spec: str, device_type: str = "cuda",
+                 share_card: bool = False):
+    """The serving engine's ``(data, model)`` ``DeviceMesh`` of a ``DxM``
+    flag ("1x4", "2x2") over the initialised process group, whose size
+    must be D*M.  On ``cuda`` each rank takes a card of its own, so the
+    host must show D*M cards, unless ``share_card`` (ranks that share one
+    card over gloo: a check of the mesh path on a one-card host)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    d, m = parse_mesh(spec)
     n = d * m
-    have = torch.cuda.device_count()
-    if have < n:
-        raise RuntimeError(f"mesh {spec} needs {n} cards but torch sees "
-                           f"{have}")
-    return MeshShape(("data", "model"), (d, m))
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise RuntimeError(f"mesh {spec} needs a process group of {n} ranks "
+                           f"(init_serving_world under torchrun "
+                           f"--nproc-per-node {n}); it has {have}")
+    if device_type == "cuda" and not share_card:
+        have = torch.cuda.device_count()
+        if have < n:
+            raise RuntimeError(f"mesh {spec} needs {n} cards but torch sees "
+                               f"{have}")
+    return init_device_mesh(device_type, (d, m),
+                            mesh_dim_names=("data", "model"))
+
+
+def init_serving_world() -> Tuple[int, int, int]:
+    """Under ``torchrun``: the NCCL process group of ``WORLD_SIZE`` ranks,
+    this process on ``cuda:LOCAL_RANK``.  Returns (rank, world size,
+    local rank).  (The CPU tests make their own gloo group.)"""
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", rank=rank, world_size=world,
+                            device_id=torch.device("cuda", local))
+    return rank, world, local

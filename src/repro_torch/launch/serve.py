@@ -19,16 +19,22 @@
                      it needs no card.
 
 The serving modes run on the CUDA card unless ``--device cpu`` is
-given.  ``--mesh`` (multi-card serving) is ROADMAP A10.
+given.  ``--demo --mesh DxM`` serves on a ``(data, model)`` mesh of D*M
+ranks started by ``torchrun --nproc-per-node D*M``: NCCL, one card a
+rank (``--device cpu``: gloo on the CPU), each rank its shards of the
+weights, rank 0 printing the summary; dense archs only.  The HTTP front
+door, prefix caching and the other families on a mesh are ROADMAP A10.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo --paged --prefix-share 0.5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --http --paged --pipelined
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --shape decode_32k
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch smollm-135m --demo --mesh 1x2
 """
 import argparse
 import json
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -94,11 +100,13 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                          "is BASE + PER_TOK * max_new_tokens seconds")
     ap.add_argument("--pipelined", action="store_true",
                     help="reconcile the host one round behind the device")
-    ap.add_argument("--mesh", default=None, metavar="DxM")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="demo only: serve on a (data, model) mesh of the "
+                         "D*M ranks torchrun started")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.mesh:
-        ap.error("--mesh (multi-card serving) is not ported: ROADMAP A10")
+        check_mesh_args(ap, args)
     if not (args.demo or args.http or args.http_smoke):
         # production path: the dry run of the serve step
         rec = dryrun_one(args.arch, args.shape, args.multi_pod,
@@ -116,10 +124,66 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             ap.error("--slo-deadline expects BASE,PER_TOK floats")
         deadline = base_s + per_tok_s * args.max_new
 
+    if args.mesh:
+        return serve_on_mesh(args, deadline)
     eng, cfg = build_demo_engine(args)
     rng = np.random.RandomState(0)
     if args.http or args.http_smoke:
         return serve_http(args, eng, cfg, rng)
+    m = eng.run(demo_requests(args, cfg, rng, deadline))
+    print({k: round(v, 3) if isinstance(v, float) else v
+           for k, v in m.items()})
+    return m
+
+
+def check_mesh_args(ap, args) -> None:
+    """``--mesh``'s refusals, before any process group: the modes and
+    families that the engine's mesh path does not run."""
+    if not args.demo or args.http or args.http_smoke:
+        ap.error("--mesh serves --demo; the HTTP front door on a mesh is "
+                 "ROADMAP A10")
+    family = get_config(args.arch).family
+    if family != "dense":
+        ap.error(f"--mesh serves dense archs; {args.arch} ({family}) on a "
+                 "mesh is ROADMAP A10")
+    if args.prefix_share > 0:
+        ap.error("--prefix-share on a mesh is ROADMAP A10")
+    if "RANK" not in os.environ:
+        ap.error(f"--mesh {args.mesh} runs under torchrun --nproc-per-node "
+                 "D*M")
+
+
+def serve_on_mesh(args, deadline: Optional[float]) -> Dict:
+    """The demo on the ``(data, model)`` mesh of the ranks torchrun
+    started: every rank serves the same requests with its shards; rank 0
+    prints the summary."""
+    import torch.distributed as dist
+    from repro_torch.core.tp import MeshPlan
+    from repro_torch.launch.mesh import init_serving_world, serving_mesh
+
+    if args.device == "cpu":
+        dist.init_process_group("gloo")
+        mesh = serving_mesh(args.mesh, device_type="cpu")
+    else:
+        init_serving_world()
+        mesh = serving_mesh(args.mesh)
+    try:
+        plan = MeshPlan.for_mesh(mesh, 4)
+        eng, cfg = build_demo_engine(args, plan)
+        rng = np.random.RandomState(0)
+        m = eng.run(demo_requests(args, cfg, rng, deadline))
+        m["mesh"] = args.mesh
+        if dist.get_rank() == 0:
+            print({k: round(v, 3) if isinstance(v, float) else v
+                   for k, v in m.items()}, flush=True)
+        return m
+    finally:
+        dist.destroy_process_group()
+
+
+def demo_requests(args, cfg, rng, deadline) -> List[Request]:
+    """The demo's seeded requests (with ``--prefix-share`` a common head
+    of whole blocks)."""
     head: List[int] = []
     if args.prefix_share > 0:
         # a shared head of whole KV blocks, so that its full blocks are
@@ -128,28 +192,25 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         n = int(round(args.prefix_share / (1 - args.prefix_share) * tail))
         n = max(n // 16 * 16, 16)
         head = rng.randint(0, cfg.vocab_size, size=n).tolist()
-    reqs = [Request(i, prompt=head + rng.randint(
+    return [Request(i, prompt=head + rng.randint(
         0, cfg.vocab_size, size=rng.randint(6, 20)).tolist(),
         max_new_tokens=args.max_new, slo_deadline_s=deadline)
         for i in range(args.requests)]
-    m = eng.run(reqs)
-    print({k: round(v, 3) if isinstance(v, float) else v
-           for k, v in m.items()})
-    return m
 
 
-def build_demo_engine(args):
+def build_demo_engine(args, plan=None):
     """The engine of every mode: the reduced config, seeded weights
     (target seed 1; a model drafter's draft = target + 0.03 x a seed-7
     draw), batch 4 and 256 tokens, on the ring or, with ``--paged``,
     ``--prefix-share`` or ``--kv-quant``, on a pool of half the ring's
-    bytes."""
+    bytes.  ``plan`` (a ``core.tp.MeshPlan``): the weights are drawn as
+    this rank's shards, and the engine serves on its mesh."""
     cfg = get_config(args.arch).reduced()
-    pt = init_params(cfg, seed=1, device=args.device)
+    pt = init_params(cfg, seed=1, device=args.device, plan=plan)
     spec = SpecDecodeConfig(policy=args.policy, drafter=args.drafter)
     pd = cfg_d = None
     if build_drafter(spec, cfg, cfg).uses_draft_model():
-        noise = init_params(cfg, seed=7, device=args.device)
+        noise = init_params(cfg, seed=7, device=args.device, plan=plan)
         pd, cfg_d = map_params(lambda a, b: a + 0.03 * b, pt, noise), cfg
     caching = args.prefix_share > 0
     quant = args.kv_quant != "none"
@@ -160,7 +221,7 @@ def build_demo_engine(args):
         kv_quant=args.kv_quant,
         num_kv_blocks=4 * (256 // 16) // 2 if paged else None)
     return ServingEngine(pt, cfg, pd, cfg_d, spec, serving,
-                         device=args.device), cfg
+                         device=args.device, mesh=plan), cfg
 
 
 def serve_http(args, eng, cfg, rng) -> Dict:

@@ -22,9 +22,16 @@ form (``Shard(dim)`` or ``Replicate()`` per mesh axis).  The rule
 functions read only the mesh's axis names and sizes, so they take a
 ``DeviceMesh`` or a ``launch.mesh.MeshShape``.
 
-The serve rule set of the reference (``serve_rules``, ``kv_head_axis``,
-``serve_cache_shardings``, ``round_state_shardings``, ``ServeMeshPlan``)
-belongs to the engine's mesh path, ROADMAP A10, and is not here.
+The serving engine's rule set (the reference's ``serve_rules``,
+``kv_head_axis``, ``serve_cache_shardings``, ``round_state_shardings``)
+states the reference's layout of the live data plane on a ``(data,
+model)`` mesh, leaf by leaf; the tests hold these tables to the
+reference's.  The engine runs on plain local shards
+(:class:`~repro_torch.core.tp.MeshPlan`): its parameters are cut by the
+same guarded specs (:func:`leaf_spec`), and its caches hold the cache
+table's local shapes but for one dim, the KV-group cut of
+``core.tp.HeadLayout`` (where query heads split over KV heads that
+replicate, a rank keeps only the KV heads its query heads read).
 """
 from __future__ import annotations
 
@@ -35,22 +42,12 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.core.config import InputShape, ShardingConfig
-from repro_torch.launch.mesh import axis_sizes
+from repro_torch.core.tp import (axis_sizes, batch_axes, canonical_spec,
+                                 guarded_spec)
+from repro_torch.core.tp import serve_rules  # noqa: F401  (re-exported)
+from repro_torch.core.tp import spec_names as _names
 from repro_torch.models.weights import (Params, Spec, logical_to_pspec,
                                         map_params)
-
-
-def canonical_spec(*parts) -> Tuple:
-    """THE spec constructor: trims trailing ``None`` dims so equal
-    layouts are equal tuples (the reference's rule JX003)."""
-    out = list(parts)
-    while out and out[-1] is None:
-        out.pop()
-    return tuple(out)
-
-
-def _names(part) -> Tuple[str, ...]:
-    return part if isinstance(part, tuple) else (part,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,42 +86,11 @@ class NamedSharding:
                      for d, p in zip(shape, parts))
 
 
-def guarded_spec(shape: Tuple[int, ...], pspec: Tuple, mesh) -> Tuple:
-    """``pspec`` with each dim that its mesh axes do not divide, or that
-    reuses a mesh axis an earlier dim took, replicated (the reference's
-    divisibility guard: 9 heads over 16 model shards replicate)."""
-    sizes = axis_sizes(mesh)
-    parts = tuple(pspec) + (None,) * (len(shape) - len(pspec))
-    fixed, used = [], set()
-    for dim, part in zip(shape, parts):
-        if part is None:
-            fixed.append(None)
-            continue
-        names = _names(part)
-        if dim % math.prod(sizes[n] for n in names) or used & set(names):
-            fixed.append(None)
-            continue
-        used.update(names)
-        fixed.append(part)
-    return canonical_spec(*fixed)
-
-
-def _batch_axes(mesh, global_batch: int) -> Tuple[str, ...]:
-    """Largest prefix of (pod, data) whose product divides the batch."""
-    sizes = axis_sizes(mesh)
-    chosen, prod = [], 1
-    for a in ("pod", "data"):
-        if a in sizes and global_batch % (prod * sizes[a]) == 0:
-            chosen.append(a)
-            prod *= sizes[a]
-    return tuple(chosen)
-
-
 def make_rules(mesh, shape: InputShape, *, expert_parallel: bool = False,
                cache_seq_axis: Optional[str] = "model") -> ShardingConfig:
     train = shape.kind == "train"
     return ShardingConfig(
-        batch=_batch_axes(mesh, shape.global_batch),
+        batch=batch_axes(mesh, shape.global_batch),
         heads="model",
         mlp="model",
         vocab="model",
@@ -199,12 +165,112 @@ def attn_head_sharding(mesh, rules: ShardingConfig):
 
 def moe_shardings(mesh, rules: ShardingConfig):
     """Dispatch-buffer constraints for moe_apply: capacity dim over the
-    batch axes, token dim likewise."""
+    batch axes, token dim likewise (a table: the engine's mesh path runs
+    dense targets only, ROADMAP A10)."""
     b = tuple(rules.batch) if rules.batch else None
     if b is None:
         return None
     return {"cap": NamedSharding(mesh, canonical_spec(None, b, None)),
             "tok": NamedSharding(mesh, canonical_spec(b, None))}
+
+
+# ---------------------------------------------------------------------------
+# Serving mesh (DESIGN.md §5): the ServingEngine's live data plane
+# ---------------------------------------------------------------------------
+
+def _axes_size(mesh, names) -> int:
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[n] for n in _names(names))
+
+
+def kv_head_axis(n_kv_heads: int, mesh, rules: ShardingConfig
+                 ) -> Optional[str]:
+    """Uneven-KV-head guard: GQA miniatures carry 1-2 (padded) KV heads,
+    which rarely divide the model axis, so such caches REPLICATE their
+    head dim (vLLM's KV-head replication) instead of sharding it."""
+    if rules.heads is None or rules.heads not in axis_sizes(mesh):
+        return None
+    return (rules.heads if n_kv_heads % _axes_size(mesh, rules.heads) == 0
+            else None)
+
+
+def serve_cache_shardings(cache: dict, mesh, rules: ShardingConfig) -> dict:
+    """``{leaf name: NamedSharding}`` of a *serving* cache (dense rows,
+    paged pools, per-row prefill groups, or a drafter's token history),
+    keyed by leaf name and WHOLE shape: the reference's layout, whose
+    local shapes the engine's caches hold but for the KV-group cut
+    (module docstring).  Layout contract (DESIGN.md §5):
+
+    * KV buffers: head dim over *model* (uneven counts replicate); dense
+      rows also split batch over *data*; paged POOLS keep the block axis
+      whole — any sequence's table may address any block;
+    * int8 pool scales follow their value pool's head split;
+    * recurrent rows (ssd/lru/conv) and the n-gram token history: batch
+      over *data*;
+    * every int32 control leaf (length, kv_pos maps, block tables,
+      enc_valid): replicated — the host rewrites those rows piecemeal
+      each round and every shard needs the full table to address the
+      shared pool."""
+    paged = "block_table" in cache
+    data = tuple(rules.batch) if rules.batch else None
+
+    def bp(dim: int):
+        if data is None or dim % _axes_size(mesh, data) != 0:
+            return None
+        return data
+
+    def one(name: str, leaf) -> NamedSharding:
+        s = tuple(leaf.shape)
+        if name in ("k", "v", "cross_k", "cross_v"):
+            kvp = kv_head_axis(s[3], mesh, rules)
+            if paged:            # pool [L, n_blocks, bs, KV, D]
+                return NamedSharding(mesh, canonical_spec(None, None, None,
+                                                          kvp))
+            return NamedSharding(mesh, canonical_spec(None, bp(s[1]), None,
+                                                      kvp))
+        if name in ("k_scale", "v_scale"):   # [L, n_blocks, bs, KV]
+            kvp = kv_head_axis(s[3], mesh, rules)
+            return NamedSharding(mesh, canonical_spec(None, None, None, kvp))
+        if name in ("ssd", "lru", "conv"):   # [L, B, ...] per-slot rows
+            return NamedSharding(mesh, canonical_spec(None, bp(s[1])))
+        if name == "tokens":                 # n-gram history [B, H]
+            return NamedSharding(mesh, canonical_spec(bp(s[0])))
+        return NamedSharding(mesh, ())
+    return {k: one(k, v) for k, v in cache.items()}
+
+
+def round_state_shardings(state, mesh, rules: ShardingConfig):
+    """A ``core.spec_decode.RoundState`` of NamedShardings: the caches
+    through :func:`serve_cache_shardings`; every [B] control leaf
+    (pending / sl_next / seed / round_idx / done / tokens_budget /
+    eos_id), the base seed and the policy state replicated — they are
+    tiny, the host rewrites them per admission, and replication keeps
+    the bucket pick and the engine's per-slot updates identical on every
+    rank."""
+    rep = replicated(mesh)
+
+    def rep_tree(tree):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: rep_tree(v) for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(rep_tree(v) for v in tree))
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(rep_tree(v) for v in tree)
+        return rep
+
+    def cache_sh(tree):
+        if isinstance(tree, dict):
+            return serve_cache_shardings(tree, mesh, rules)
+        return rep_tree(tree)
+
+    return state._replace(
+        target_cache=cache_sh(state.target_cache),
+        draft_cache=cache_sh(state.draft_cache),
+        policy_state=rep_tree(state.policy_state), base_seed=rep,
+        pending=rep, sl_next=rep, seed=rep, round_idx=rep, done=rep,
+        tokens_budget=rep, eos_id=rep)
 
 
 def sharded_empty(shape: Tuple[int, ...], dtype, sharding: NamedSharding,

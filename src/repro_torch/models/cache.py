@@ -68,6 +68,12 @@ write by scattering it to the out-of-range flat slot ``num_blocks * bs``
 and is never referenced by a block table.  Selecting the kept writes
 with a boolean mask instead would make the host wait for the device at
 every layer.
+
+On a serving mesh (``plan``, a ``core.tp.MeshPlan``) every K/V leaf
+holds the KV heads this rank keeps (``HeadLayout.cache_heads``); a
+ring's, and the n-gram history's, rows split over *data* where the batch
+divides (``MeshPlan.ring_rows``), while ``kv_pos``, ``length`` and the
+block tables stay whole; a pool keeps every block on every rank.
 """
 from __future__ import annotations
 
@@ -135,8 +141,15 @@ def eff_kv_heads(cfg: ModelConfig) -> int:
 
 
 def kv_buf_shape(cfg: ModelConfig, batch: int, window: int,
-                 layers: int) -> Tuple[int, ...]:
-    return (layers, batch, window, eff_kv_heads(cfg), cfg.resolved_head_dim)
+                 layers: int, plan=None) -> Tuple[int, ...]:
+    heads = eff_kv_heads(cfg) if plan is None else plan.layout(cfg).cache_heads
+    return (layers, batch, window, heads, cfg.resolved_head_dim)
+
+
+def _local_rows(batch: int, plan, whole_rows: bool) -> int:
+    """The ring rows this rank holds of ``batch``."""
+    rows = None if plan is None or whole_rows else plan.ring_rows(batch)
+    return batch if rows is None else rows[1] - rows[0]
 
 
 def recurrent_rows(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -163,10 +176,13 @@ def recurrent_rows(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                  dtype=torch.float32, device="cpu",
-                 enc_len: Optional[int] = None) -> CacheT:
+                 enc_len: Optional[int] = None, plan=None,
+                 whole_rows: bool = False) -> CacheT:
     """Fresh dense-ring cache: zero rings, every slot empty, every length
     0, zero recurrent rows (the reference's ``cache_struct``); an audio
-    cache adds ``enc_len`` zero cross slots (default 1), none valid."""
+    cache adds ``enc_len`` zero cross slots (default 1), none valid.
+    ``plan``: this rank's K/V heads, and its rows of a batch that splits
+    over *data* unless ``whole_rows`` (a prefill group's fresh rows)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no dense ring in the port")
     cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -175,7 +191,8 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
         return cache
     w = (_local_window(cfg, max_len) if cfg.family == "hybrid"
          else _kv_window(cfg, max_len))
-    shape = kv_buf_shape(cfg, batch, w, paged_kv_layers(cfg))
+    shape = kv_buf_shape(cfg, _local_rows(batch, plan, whole_rows), w,
+                         paged_kv_layers(cfg), plan)
     cache.update(k=torch.zeros(shape, dtype=dtype, device=device),
                  v=torch.zeros(shape, dtype=dtype, device=device),
                  kv_pos=torch.full((batch, w), -1, dtype=torch.int32,
@@ -360,12 +377,13 @@ def equal_byte_blocks(cfg: ModelConfig, fp_blocks: int, block_size: int,
 def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                        num_blocks: int, block_size: int,
                        dtype=torch.float32, device="cpu",
-                       kv_quant: str = "none") -> CacheT:
+                       kv_quant: str = "none", plan=None) -> CacheT:
     """Fresh paged cache: zero pools of ``num_blocks`` blocks plus the
     drop block, every slot empty, every table entry unallocated, every
     length 0 (a hybrid stack: pools of its attention layers, plus zero
     dense recurrent rows).  ``kv_quant="int8"`` stores the pools as int8
-    and adds the fp32 scale pools, drop block included."""
+    and adds the fp32 scale pools, drop block included.  ``plan``: the
+    pools hold this rank's K/V heads, every block."""
     if not supports_paged(cfg):
         raise ValueError(f"family {cfg.family!r} has no paged KV layout")
     if kv_quant not in KV_QUANT_MODES:
@@ -374,7 +392,8 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
         raise ValueError(f"family {cfg.family!r} has no quantized KV layout")
     maxb = max_blocks_per_seq(max_len, block_size)
     shape = (paged_kv_layers(cfg), num_blocks + 1, block_size,
-             eff_kv_heads(cfg), cfg.resolved_head_dim)
+             eff_kv_heads(cfg) if plan is None
+             else plan.layout(cfg).cache_heads, cfg.resolved_head_dim)
     i32 = dict(dtype=torch.int32, device=device)
     pool_dtype = torch.int8 if kv_quant == "int8" else dtype
     cache = {"length": torch.zeros((batch,), **i32),

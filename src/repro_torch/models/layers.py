@@ -7,6 +7,11 @@ Plain functions on tensors over the reference's parameter layouts
 (``repro.models.layers``): ``wq [d, H, D]``, ``wo [H, D, d]``, norms as
 offsets from 1.  The einsums of the reference are written as matrix
 products over the flattened head axes, which is the same contraction.
+
+On a serving mesh the functions take this rank's shards (the query
+heads, the MLP width); :func:`attn_output` and :func:`mlp_apply` end in
+the all-reduce over *model* when given the plan whose shards they
+contract (``core/tp.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.core.tp import all_reduce_model
 
 NEG_INF = -1e30
 
@@ -115,14 +121,20 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def attn_output(p: dict, out: torch.Tensor) -> torch.Tensor:
-    """``einsum("bthk,hkd->btd")`` as one matrix product."""
+def attn_output(p: dict, out: torch.Tensor, reduce_plan=None) -> torch.Tensor:
+    """``einsum("bthk,hkd->btd")`` as one matrix product; with
+    ``reduce_plan`` (heads split over *model*) a partial sum, all-reduced
+    over *model*."""
     b, t, h, hd = out.shape
     wo = p["wo"]
-    return (out.reshape(b * t, h * hd) @ wo.reshape(h * hd, -1)).reshape(
+    y = (out.reshape(b * t, h * hd) @ wo.reshape(h * hd, -1)).reshape(
         b, t, -1)
+    return y if reduce_plan is None else all_reduce_model(y, reduce_plan)
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, reduce_plan=None) -> torch.Tensor:
+    """SwiGLU; with ``reduce_plan`` (the width split over *model*) the
+    down projection's partial sum, all-reduced over *model*."""
     gate = torch.nn.functional.silu(x @ p["w_gate"])
-    return (gate * (x @ p["w_up"])) @ p["w_down"]
+    y = (gate * (x @ p["w_up"])) @ p["w_down"]
+    return y if reduce_plan is None else all_reduce_model(y, reduce_plan)

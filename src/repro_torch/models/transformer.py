@@ -59,6 +59,15 @@ cache dict shares the pool tensors with the one passed in, but holds new
 recurrent tensors.  ``commit`` is length arithmetic on the verified
 cache for the attention families, and the reference's masked re-advance
 from the pre-round snapshot for the recurrent ones.
+
+On a serving mesh (``plan``, a ``core.tp.MeshPlan``; dense targets) the
+parameters and caches are this rank's shards: the lookup is
+vocab-parallel, each attention sublayer runs its query heads over the KV
+heads its cache keeps (``HeadLayout``), ``attn_output`` and the MLP end
+in the all-reduce over *model* where they contract a split dim, and the
+logits are gathered whole over the vocabulary.  On a ring whose rows
+split over *data* the call runs this rank's rows (``kv_pos``, ``length``
+and the tokens stay whole) and gathers the logits' rows.
 """
 from __future__ import annotations
 
@@ -71,6 +80,7 @@ from repro_torch.core.config import FAMILIES, ModelConfig
 from repro_torch.kernels.paged_attention import paged_ragged_attention
 from repro_torch.kernels.paged_attention_quant import paged_ragged_attention_quant
 from repro_torch.kernels.ragged_attention import ragged_attention
+from repro_torch.core import tp as tp_lib
 from repro_torch.core.cost_hooks import fill_skipped, trips
 from repro_torch.core.dtensor_ops import (attend_sharded, batch_only,
                                           embed_sharded, gather_fsdp,
@@ -130,26 +140,32 @@ def _attention(fn, q, k, v, **kw) -> torch.Tensor:
     return attend_sharded(fn, q, k, v, **kw)
 
 
-def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(table: torch.Tensor, tokens: torch.Tensor, plan=None,
+           layout=None) -> torch.Tensor:
     """The token embeddings: rows of ``table``; a DTensor table (the dry
     run) looks up vocab-parallel (``core.dtensor_ops.embed_sharded``)
-    where indexing would gather the whole table."""
-    if not _sharded(table):
-        return table[tokens.long()]
-    return embed_sharded(table, tokens)
+    where indexing would gather the whole table; a serving mesh's
+    vocab-split table too, on local rows (``core.tp.embed_lookup``)."""
+    if _sharded(table):
+        return embed_sharded(table, tokens)
+    if layout is not None and layout.vocab:
+        return tp_lib.embed_lookup(table, tokens, layout.vocab_lo, plan)
+    return table[tokens.long()]
 
 
 def _pad_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cache's copy of fresh K/V under ``kv_head_pad``: padded head j
-    is real head j // r, matching the query heads' grouping exactly."""
+    is real head j // r, matching the query heads' grouping exactly.  On
+    a mesh ``k``/``v`` hold a rank's run of real heads, each repeated r
+    times as well."""
     pad = cfg.kv_head_pad
-    if pad is None or k.shape[2] >= pad:
+    if pad is None or cfg.num_kv_heads >= pad:
         return k, v
     b, t, kv, d = k.shape
-    r = pad // kv
-    return tuple(x[:, :, :, None].expand(b, t, kv, r, d).reshape(b, t, pad, d)
-                 for x in (k, v))
+    r = pad // cfg.num_kv_heads
+    return tuple(x[:, :, :, None].expand(b, t, kv, r, d)
+                 .reshape(b, t, kv * r, d) for x in (k, v))
 
 
 def _pin_heads(x: torch.Tensor, attn_sharding) -> torch.Tensor:
@@ -180,8 +196,13 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                    cache: Optional[cache_lib.CacheT],
                    slots: Optional[torch.Tensor],
                    window: Optional[int], causal: bool = True,
-                   attn_sharding=None) -> torch.Tensor:
+                   attn_sharding=None, plan=None) -> torch.Tensor:
     q, k, v = qkv_project(p, cfg, x, rope)
+    layout = None if plan is None else plan.layout(cfg)
+    reduce_plan = plan if layout is not None and layout.heads else None
+    if layout is not None and layout.real_kv is not None:
+        # query heads split over KV heads that replicate: the group they read
+        k, v = k[:, :, layout.real_kv], v[:, :, layout.real_kv]
     b, t = x.shape[:2]
     quant = cache is not None and cache_lib.is_quantized(cache)
     ring = cache is not None and not cache_lib.is_paged(cache)
@@ -202,7 +223,7 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
             out = _attention(attend, q, ka, va, q_pos=positions,
                              kv_pos=positions, kv_valid=valid, window=window,
                              causal=causal)
-        k, v = _pad_kv(cfg, k, v)
+        k, v = _cache_heads(cfg, k, v, layout)
         if quant:
             cache_lib.write_kv_paged_quant(cache["k"][layer], cache["v"][layer],
                                            *scales, k, v, slots)
@@ -211,9 +232,9 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
         elif cache is not None:
             cache_lib.write_kv_paged(cache["k"][layer], cache["v"][layer], k, v,
                                      slots)
-        return attn_output(p, out)
+        return attn_output(p, out, reduce_plan)
     pool_k, pool_v = cache["k"][layer], cache["v"][layer]
-    k, v = _pad_kv(cfg, k, v)
+    k, v = _cache_heads(cfg, k, v, layout)
     if ring:
         cache_lib.write_kv(pool_k, pool_v, k, v, slots)
         out = ragged_attention(q.contiguous(), pool_k, pool_v, positions,
@@ -229,7 +250,17 @@ def _attn_sublayer(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
         out = paged_ragged_attention(q.contiguous(), pool_k, pool_v,
                                      cache["block_table"], positions,
                                      cache["kv_pos"], window=window)
-    return attn_output(p, out)
+    return attn_output(p, out, reduce_plan)
+
+
+def _cache_heads(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, layout
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fresh K/V as the cache stores them: padded (``_pad_kv``), then on
+    a mesh cut to the KV heads this rank's cache keeps."""
+    k, v = _pad_kv(cfg, k, v)
+    if layout is not None and layout.cache_kv is not None:
+        k, v = k[:, :, layout.cache_kv], v[:, :, layout.cache_kv]
+    return k, v
 
 
 def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
@@ -237,19 +268,21 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
            input_mask: Optional[torch.Tensor],
            cache: Optional[cache_lib.CacheT],
            slots: Optional[torch.Tensor], attn_sharding=None,
-           moe_sharding=None) -> Tuple[torch.Tensor, dict]:
+           moe_sharding=None, plan=None) -> Tuple[torch.Tensor, dict]:
     """One pre-norm layer: attention, then the MLP or the MoE block, each
     residual.  Returns (x, the MoE block's aux; empty for dense)."""
     x = _residual(x, _attn_sublayer(
         p["attn"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)), layer,
         mode, positions, rope, input_mask, cache, slots,
-        cfg.attention_window, attn_sharding=attn_sharding))
+        cfg.attention_window, attn_sharding=attn_sharding, plan=plan))
     h = _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps))
     if cfg.family == "moe":
         h, aux = (moe_apply(p["moe"], cfg.moe, h) if moe_sharding is None
                   else moe_apply(p["moe"], cfg.moe, h, shardings=moe_sharding))
         return _residual(x, h), aux
-    return _residual(x, mlp_apply(p["mlp"], h)), {}
+    reduce_plan = (plan if plan is not None and plan.layout(cfg).mlp
+                   else None)
+    return _residual(x, mlp_apply(p["mlp"], h, reduce_plan)), {}
 
 
 def _ssm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -427,7 +460,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             enc_valid: Optional[torch.Tensor] = None,
             remat: bool = False, with_aux: bool = False,
             act_sharding=None,
-            attn_sharding=None, moe_sharding=None):
+            attn_sharding=None, moe_sharding=None, plan=None):
     """Returns (logits [B, T, Vp] float32, cache), and the MoE blocks'
     aux losses averaged over the layers as a third item with
     ``with_aux`` (the reference's ``aux``; empty for the other
@@ -457,7 +490,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     train and prefill attention, ``moe_sharding`` the MoE dispatch
     buffers.  On DTensors they redistribute; on plain tensors they do
     nothing.  The layer stacks iterate by ``core.cost_hooks.trips``:
-    ``range`` outside the dry run's weighting counter."""
+    ``range`` outside the dry run's weighting counter.
+
+    ``plan`` (a ``core.tp.MeshPlan``; the serving engine on a mesh, dense
+    family only): ``params`` and ``cache`` are this rank's shards, and
+    the logits come back whole on every rank (module docstring)."""
     assert mode in ("train", "prefill", "decode")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -465,12 +502,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             f"family {cfg.family!r} (ROADMAP A7)")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
+    if plan is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"the serving mesh runs dense targets; family {cfg.family!r} on "
+            "a mesh is ROADMAP A10")
+    layout = None if plan is None else plan.layout(cfg)
+    ring = (cache is not None and "kv_pos" in cache
+            and not cache_lib.is_paged(cache))
+    # a ring whose rows split over data: this rank runs its own rows
+    rows = tp_lib.split_rows(cache, plan) if ring else None
+    if rows is not None:
+        tokens = tokens[rows[0]:rows[1]]
     sharded = _sharded(params["embed"])
     if sharded:
         params = dict(params, **gather_fsdp(
             {k: params[k] for k in ("embed", "final_norm", "lm_head",
                                     "enc_norm") if k in params}))
-    x = embeds if embeds is not None else _embed(params["embed"], tokens)
+    x = (embeds if embeds is not None
+         else _embed(params["embed"], tokens, plan, layout))
     if sharded:
         x = batch_only(x)
     b, t = x.shape[:2]
@@ -478,7 +527,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     if mode == "decode":
         positions = cache["length"][:, None] + ar
     else:
-        positions = ar.expand(b, t)
+        positions = ar.expand(b if rows is None else cache["length"].shape[0],
+                              t)
+    # the positions of every row (kv_pos is whole), then of this rank's
+    pos_all = positions
+    if rows is not None:
+        positions = positions[rows[0]:rows[1]]
     if (mode == "prefill" and input_mask is not None and update_mask is None
             and has_recurrent_state(cfg)):
         # right-padded ragged prompts: the recurrent state must not
@@ -491,9 +545,18 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                         cfg.mrope_sections))
     slots = None
     valid = input_mask if mode == "prefill" else None
-    if cache is not None and "kv_pos" in cache and not cache_lib.is_paged(cache):
-        slots = cache_lib.ring_slots(positions, cache_lib.cache_window(cache))
-        cache_lib.write_pos(cache["kv_pos"], positions, slots, valid=valid)
+    attn_cache = cache
+    if ring:
+        w = cache_lib.cache_window(cache)
+        slots = cache_lib.ring_slots(positions, w)
+        # kv_pos is whole on every rank; the K/V rows and the attention
+        # are this rank's
+        cache_lib.write_pos(cache["kv_pos"], pos_all,
+                            slots if rows is None
+                            else cache_lib.ring_slots(pos_all, w),
+                            valid=valid)
+        if rows is not None:
+            attn_cache = dict(cache, kv_pos=cache["kv_pos"][rows[0]:rows[1]])
     elif cache is not None and "kv_pos" in cache:
         slots = cache_lib.write_slots(
             positions, cache["block_table"], cache["kv_pos"].shape[1],
@@ -557,13 +620,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
         for i in trips(cfg.num_layers, heavy_first=True):
             x, aux_i = _run(_block, remat, _layer(params, i, sharded=sharded),
                             cfg, x, i,
-                            mode, positions, rope, input_mask, cache, slots,
-                            attn_sharding, moe_sharding)
+                            mode, positions, rope, input_mask, attn_cache,
+                            slots, attn_sharding, moe_sharding, plan)
             x = between(x)
             aux = {k: aux.get(k, 0.0) + a for k, a in aux_i.items()}
     x = _tp_in(rmsnorm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head).float()
+    if layout is not None and layout.vocab:
+        logits = tp_lib.gather_vocab(logits, plan)
+    if rows is not None:
+        logits = tp_lib.gather_rows(logits, plan)
     out = (logits, None if cache is None else dict(cache, **new_state))
     if not with_aux:
         return out
@@ -572,7 +639,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
 
 def commit(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            snapshot: cache_lib.CacheT, verified: cache_lib.CacheT,
-           n_committed: torch.Tensor) -> cache_lib.CacheT:
+           n_committed: torch.Tensor, plan=None) -> cache_lib.CacheT:
     """Commit ``n_committed[b]`` of the ``tokens [B, T]`` just verified.
 
     Attention families (dense, moe, vlm, audio): the ring or pool
@@ -584,7 +651,8 @@ def commit(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     identities, so the state holds exactly the accepted prefix.  Its K/V
     writes are kept to the accepted positions (``write_mask``): on a pool
     they land where the verify pass wrote the same bits, the rest on the
-    drop block; a ring rewrites slots of the round's own positions."""
+    drop block; a ring rewrites slots of the round's own positions.
+    ``plan``: as :func:`forward` takes it."""
     new_len = snapshot["length"] + n_committed.to(torch.int32)
     if not has_recurrent_state(cfg):
         return cache_lib.commit_length(verified, new_len)
@@ -592,7 +660,8 @@ def commit(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     accepted = (torch.arange(t, device=tokens.device)[None]
                 < n_committed[:, None])
     _, advanced = forward(params, cfg, tokens, cache=snapshot, mode="decode",
-                          update_mask=accepted.float(), write_mask=accepted)
+                          update_mask=accepted.float(), write_mask=accepted,
+                          plan=plan)
     return cache_lib.commit_length(advanced, new_len)
 
 

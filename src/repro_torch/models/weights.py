@@ -229,7 +229,8 @@ def count_params(cfg: ModelConfig,
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 dtype=torch.float32, rng_device="cpu",
-                vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE) -> Params:
+                vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE,
+                plan=None) -> Params:
     """The port's own seeded init: the reference's shapes and scales,
     drawn from one ``torch.Generator`` on ``rng_device`` and moved to
     ``device``.  With the default CPU generator the same seed gives the
@@ -238,20 +239,46 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     billions of parameters needs to start in seconds.  It cannot
     reproduce ``jax.random`` draws; parity tests convert reference
     parameters with :func:`from_reference` instead.
-    ``vocab_pad_multiple``: as :func:`param_shapes` takes it."""
+    ``vocab_pad_multiple``: as :func:`param_shapes` takes it.
+
+    ``plan`` (a ``core.tp.MeshPlan``): each leaf is cut to this rank's
+    shard right after it is drawn, so no rank holds more than one whole
+    leaf at a time, and the shards of all ranks are the whole draw's."""
     device = resolve_device(device)
     gen = torch.Generator(device=resolve_device(rng_device)).manual_seed(seed)
 
     def make(leaf: Spec) -> torch.Tensor:
-        shape, init, scale, _ = leaf
+        shape, init, scale, axes = leaf
         if init in ("zeros", "ones"):
+            if plan is not None:
+                shape = plan.local_shape(shape, plan.param_spec(shape, axes))
             fill = torch.zeros if init == "zeros" else torch.ones
             return fill(shape, dtype=dtype, device=device)
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)
+        if plan is not None:
+            t = plan.local_slice(t, plan.param_spec(shape, axes))
         return t.mul_(scale).to(device=device, dtype=dtype)
 
     return map_params(make, param_shapes(cfg, vocab_pad_multiple))
+
+
+def shard_params(params: Params, cfg: ModelConfig, plan,
+                 vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE) -> Params:
+    """``params`` (``cfg``'s whole tree, e.g. from :func:`from_reference`)
+    cut leaf by leaf to this rank's shards under ``plan`` (a
+    ``core.tp.MeshPlan``: the ``serve`` rules' guarded specs, the
+    reference's ``param_shardings``).  A leaf already at its local shape
+    (an :func:`init_params` with ``plan``) stays as it is."""
+    def cut(leaf: Spec, x: torch.Tensor) -> torch.Tensor:
+        spec = plan.param_spec(leaf.shape, leaf.axes)
+        if tuple(x.shape) == tuple(leaf.shape):
+            return plan.local_slice(x, spec)
+        if tuple(x.shape) != plan.local_shape(leaf.shape, spec):
+            raise ValueError(f"parameter of shape {tuple(x.shape)} is neither "
+                             f"{leaf.shape} nor its shard")
+        return x
+    return map_params(cut, param_shapes(cfg, vocab_pad_multiple), params)
 
 
 def map_params(fn, *trees: Params) -> Params:

@@ -30,10 +30,19 @@ Two schedules share every phase:
 ``ServingEngine(...).run(requests)`` is the entry point.  It runs on
 ``device="cuda"`` unless the caller passes ``device="cpu"``; asking for
 CUDA where there is none raises.
+
+On a ``(data, model)`` serving mesh (``mesh=``, a ``DeviceMesh`` over the
+process group, or a ``core.tp.MeshPlan``) the engine runs SPMD: every
+rank runs this same host loop over the same requests, its parameters
+and caches are its shards under the ``serve`` rules (``core/tp.py``),
+and the round's outputs reach every host whole.  Every clock reading is
+rank 0's, broadcast over the CPU control group, so every rank admits,
+gates and picks buckets alike.  Dense targets only (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -43,13 +52,15 @@ import torch
 
 from repro_torch.core import prefill as prefill_lib
 from repro_torch.core import spec_decode as sd
+from repro_torch.core import tp
 from repro_torch.core.config import ModelConfig, ServingConfig, SpecDecodeConfig
 from repro_torch.core.drafters import build_drafter
 from repro_torch.core.policies import build_policy
 from repro_torch.core.sampling import counter_uniform, sample_token
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.transformer import has_recurrent_state
-from repro_torch.models.weights import Params, map_params, resolve_device
+from repro_torch.models.weights import (Params, map_params, resolve_device,
+                                        shard_params)
 from repro_torch.serving.latency_model import RoundLatencyModel
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.scheduler import LookaheadScheduler
@@ -98,7 +109,8 @@ class ServingEngine:
                  cfg_draft: Optional[ModelConfig],
                  spec: SpecDecodeConfig, serving: ServingConfig,
                  seed: int = 0, device="cuda",
-                 latency_model: Optional[RoundLatencyModel] = None):
+                 latency_model: Optional[RoundLatencyModel] = None,
+                 mesh=None):
         """``params_*`` are parameter trees (``models/weights.py``); they
         are moved to ``device`` if they live elsewhere.  The KV layout is
         the dense ring or, with ``serving.paged_kv``, the block-paged
@@ -109,8 +121,33 @@ class ServingEngine:
         warm-started from a calibration sweep's round log), or None for a
         fresh one.  The engine feeds it one sample per collected round
         and installs it on the scheduler, where the ``slo`` policy's
-        bucket pick and the admission gate read it."""
+        bucket pick and the admission gate read it.
+
+        ``mesh``: None (one card, unchanged), or a ``(data, model)``
+        ``DeviceMesh`` (``launch.mesh.serving_mesh``) or ``core.tp
+        .MeshPlan`` for this rank: whole ``params_*`` are cut to this
+        rank's shards (``models.weights.shard_params``; shards from
+        ``init_params(plan=)`` stay), the caches hold its shards, and
+        every rank must be given the same requests.  Dense families only:
+        another raises ``NotImplementedError`` (ROADMAP A10)."""
         self.device = resolve_device(device)
+        b = serving.max_batch_size
+        plan = (mesh if mesh is None or isinstance(mesh, tp.MeshPlan)
+                else tp.MeshPlan.for_mesh(mesh, b))
+        if plan is not None:
+            families = {cfg_target.family} | (
+                {cfg_draft.family} if cfg_draft is not None else set())
+            if families != {"dense"}:
+                raise NotImplementedError(
+                    f"the serving mesh runs dense targets and drafts; "
+                    f"{sorted(families)} on a mesh is ROADMAP A10")
+            if serving.prefix_caching:
+                raise NotImplementedError(
+                    "prefix caching on a serving mesh is ROADMAP A10")
+        self.mesh_plan = plan
+        # every clock reading of the host loop: rank 0's on a mesh
+        self._clock = (time.monotonic if plan is None
+                       else functools.partial(tp.host_clock, plan))
         drafter = build_drafter(spec, cfg_target, cfg_draft)
         if drafter.uses_draft_model() and (params_draft is None
                                            or cfg_draft is None):
@@ -148,6 +185,10 @@ class ServingEngine:
                              "has no quantized paged layout (supported: "
                              "dense/moe/vlm)")
         to_dev = lambda t: t.to(self.device)   # noqa: E731
+        if plan is not None:
+            params_target = shard_params(params_target, cfg_target, plan)
+            if params_draft is not None:
+                params_draft = shard_params(params_draft, cfg_draft, plan)
         self.pt = map_params(to_dev, params_target)
         self.pd = (map_params(to_dev, params_draft)
                    if params_draft is not None else None)
@@ -171,14 +212,14 @@ class ServingEngine:
         self.latency_model = (latency_model if latency_model is not None
                               else RoundLatencyModel())
         self.scheduler.latency_model = self.latency_model
+        self.scheduler.clock = self._clock
         self.seed = seed
-        b = serving.max_batch_size
         self.state = sd.init_round_state(
             cfg_target, cfg_draft, spec, b, serving.max_seq_len,
             paged=((self.scheduler.kv_blocks_total(), serving.kv_block_size)
                    if self.paged else None),
             base_seed=seed, drafter=drafter, device=self.device,
-            kv_quant=self.kv_quant)
+            kv_quant=self.kv_quant, plan=plan)
         # host mirror of state.sl_next, refreshed once per collect; ONE
         # ROUND STALE at a pipelined dispatch (block planning adds slack)
         self._sl_next_host = np.full((b,), self.policy.initial_sl_value(),
@@ -206,6 +247,10 @@ class ServingEngine:
         self._prefix_hit_tok_logged = 0
 
     def submit(self, req: Request) -> None:
+        if self.mesh_plan is not None:
+            # deadlines count from rank 0's arrival stamp
+            req.arrival_time = tp.broadcast_host(req.arrival_time,
+                                                 self.mesh_plan)
         self.scheduler.submit(req)
 
     # --------------------------------------------------------- host <-> device
@@ -333,7 +378,7 @@ class ServingEngine:
         it runs; cold groups keep the full-prompt path."""
         groups: Dict[Tuple[bool, int], List[Request]] = {}
         admitted = self.scheduler.admit()
-        now = time.monotonic()
+        now = self._clock()
         for req in admitted:
             if req.first_dispatch_time is None:
                 req.first_dispatch_time = now
@@ -378,6 +423,11 @@ class ServingEngine:
             req.cache_len = int(n)
         self._prefill_tokens_pending += int(tails.sum())
         idx = self._to_device(np.asarray(slots, np.int64))
+        # a ring or history whose rows split over data: this rank's rows
+        own = (None if self.mesh_plan is None else
+               self.mesh_plan.own_rows(slots, self.serving.max_batch_size))
+        if own is not None:
+            own = tuple(self._to_device(np.asarray(x, np.int64)) for x in own)
         toks_t = self._to_device(toks)
         plen_t = self._to_device(plens)
         rows_t = None
@@ -410,19 +460,22 @@ class ServingEngine:
                 view, last = prefill_lib.prefill_paged_rows(
                     self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"],
                     rows_t, toks_t, plen_t, tc.get("k_scale"),
-                    tc.get("v_scale"))
+                    tc.get("v_scale"), plan=self.mesh_plan)
             tc = prefill_lib.scatter_paged_rows(tc, view, idx)
         else:
             rows, last = prefill_lib.prefill_rows(
-                self.pt, self.cfg_t, toks_t, plen_t, self.serving.max_seq_len)
-            tc = prefill_lib.set_slots(self.state.target_cache, rows, idx)
+                self.pt, self.cfg_t, toks_t, plen_t, self.serving.max_seq_len,
+                plan=self.mesh_plan)
+            tc = prefill_lib.set_slots(self.state.target_cache, rows, idx,
+                                       own)
         st = self.state
         rows_mask = torch.zeros((self.serving.max_batch_size,),
                                 dtype=torch.bool, device=dev)
         rows_mask[idx] = True
         # a token-history drafter takes the full prefix (prompt + output
         # on a readmit); a model drafter prefills its own cache
-        dc = self.drafter.reset_rows(st.draft_cache, rows_mask)
+        dc = self.drafter.reset_rows(st.draft_cache, rows_mask,
+                                     plan=self.mesh_plan)
         mirror_rows = rows_t if self.drafter.mirrors_kv() else None
         if warm:
             # a token-history drafter takes the FULL prefix whatever the
@@ -443,7 +496,8 @@ class ServingEngine:
         else:
             dc = self.drafter.prefill(self.pd, dc, idx, toks_t, plen_t,
                                       mirror_rows,
-                                      max_len=self.serving.max_seq_len)
+                                      max_len=self.serving.max_seq_len,
+                                      plan=self.mesh_plan, own=own)
         # first token of a fresh request: keyed by the request's identity
         # alone, so it does not depend on admission grouping
         ids = self._to_device(np.asarray([req.request_id for req in reqs],
@@ -502,7 +556,7 @@ class ServingEngine:
         pend_np = pend.cpu().numpy()
         for req in self._commit_first_tokens(
                 [(req, int(pend_np[i])) for i, req in fresh],
-                time.monotonic()):
+                self._clock()):
             self.scheduler.release(req)
             self._finished_at_prefill.append(req)
 
@@ -553,10 +607,10 @@ class ServingEngine:
         k = (self._planned_k if self._planned_k is not None
              else self.policy.pick_bucket(self._host_context()))
         self._planned_k = None
-        t_dispatch = time.monotonic()
+        t_dispatch = self._clock()
         self.state, out = sd.spec_decode_round(
             self.pt, self.pd, self.cfg_t, self.drafter, self.spec, k,
-            self.state, active)
+            self.state, active, self.mesh_plan)
         self.rounds += 1
         self.draft_steps += (k + 1) if k > 0 else 0
         admits = self._pending_admits
@@ -579,7 +633,7 @@ class ServingEngine:
         return the speculative tail blocks.  Under the pipelined schedule
         this runs while the next round is in flight, so the slot table
         may already differ from the one the round saw."""
-        t0 = time.monotonic()
+        t0 = self._clock()
         if rec.ready is not None:
             rec.ready.synchronize()
         o = rec.out
@@ -587,7 +641,7 @@ class ServingEngine:
             x.numpy() for x in (o.emitted, o.num_emitted, o.num_accepted,
                                 o.num_proposed, o.finished, o.live))
         sl_next = rec.sl_next.numpy()
-        host_blocked = time.monotonic() - t0
+        host_blocked = self._clock() - t0
         # refresh the SL mirror only for slots still owned by the request
         # the round ran (a slot readmitted since carries its new
         # occupant's initial SL)
@@ -595,7 +649,7 @@ class ServingEngine:
             if self.scheduler.slots[slot] is req:
                 self._sl_next_host[slot] = sl_next[slot]
         self.scheduler.update_predictions(self._sl_next_host)
-        now = time.monotonic()
+        now = self._clock()
         finished: List[Request] = []
         # (a) first tokens of the admission waves riding this round.  A
         # request preempted before the round dispatched (not in its rows)
@@ -698,7 +752,7 @@ class ServingEngine:
         if self._inflight is not None and self._inflight is not rec:
             log["wall_s"] = self._inflight.t_dispatch - rec.t_dispatch
         else:
-            log["wall_s"] = time.monotonic() - rec.t_dispatch
+            log["wall_s"] = self._clock() - rec.t_dispatch
         b_eff = len(rec.rows)
         log["b_eff"] = float(b_eff)
         log["prefill_tokens"] = float(rec.prefill_tokens)
@@ -749,7 +803,7 @@ class ServingEngine:
 
     def run(self, requests: Sequence[Request],
             max_rounds: Optional[int] = None) -> Dict[str, float]:
-        t0 = time.monotonic()
+        t0 = self._clock()
         for r in requests:
             self.submit(r)
         done: List[Request] = []
@@ -758,7 +812,7 @@ class ServingEngine:
             if max_rounds is not None and self.rounds >= max_rounds:
                 break
         done += self.drain()
-        return self.summary(done, time.monotonic() - t0)
+        return self.summary(done, self._clock() - t0)
 
     def summary(self, done: Sequence[Request], wall: float) -> Dict[str, float]:
         """Run-level metrics over a set of terminal requests (the

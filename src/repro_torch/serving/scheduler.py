@@ -256,6 +256,9 @@ class LookaheadScheduler:
         # SLO admission: the engine installs its RoundLatencyModel here;
         # without one (or before it is ready) admission is deadline-blind
         self.latency_model: Optional[Any] = None
+        # the host clock every admission and SLO reading takes; on a
+        # serving mesh the engine installs rank 0's (``core.tp.host_clock``)
+        self.clock = time.monotonic
         self._slo_risk: List[Request] = []
         self.slo_predicted_violations = 0
         self.slo_deferrals_total = 0
@@ -289,7 +292,7 @@ class LookaheadScheduler:
         tokens_rem = np.zeros((b,), np.int64)
         if any(r is not None and r.slo_deadline_s is not None
                for r in self.slots):
-            now = time.monotonic() if now is None else now
+            now = self.clock() if now is None else now
         for i, r in enumerate(self.slots):
             if r is None:
                 continue
@@ -415,7 +418,7 @@ class LookaheadScheduler:
                     and not self._is_readmit(req)
                     and self.latency_model is not None
                     and self.latency_model.ready()):
-                now = time.monotonic() if now is None else now
+                now = self.clock() if now is None else now
                 t_pred = self.predict_completion_s(req)
                 if (t_pred is not None and
                         now + t_pred > req.arrival_time + req.slo_deadline_s):
@@ -490,7 +493,7 @@ class LookaheadScheduler:
             req.admit_seq = self._admit_seq
             self._admit_seq += 1
             if req.admit_time is None:       # readmits keep the first wait
-                req.admit_time = time.monotonic()
+                req.admit_time = self.clock()
             self.slots[i] = req
             admitted.append(req)
         return admitted
@@ -498,7 +501,7 @@ class LookaheadScheduler:
     def _reject_head(self, req: Request) -> None:
         self.queue.popleft()
         req.state = RequestState.REJECTED
-        req.finish_time = time.monotonic()
+        req.finish_time = self.clock()
         self._rejected.append(req)
 
     def register_prefix(self, req: Request) -> None:

@@ -1,0 +1,176 @@
+"""One rank of a serving-mesh world on the CPU, for
+``tests/test_torch_serving_mesh.py`` (imports no jax).
+
+    python tests/_mesh_worker.py RANK WORLD STORE JOB OUT
+
+The ranks meet over a gloo ``FileStore`` at STORE, build the ``DxM``
+``DeviceMesh`` that JOB names and run its cases in order, every rank the
+same.  JOB (``torch.save``) holds ``mesh``, ``configs`` (name ->
+``ModelConfig`` field overrides of ``smollm-135m.reduced()``), ``params``
+(name -> a whole parameter tree of numpy arrays) and ``cases`` (dicts,
+by ``kind``: ``serve``, ``forward``, ``layout``).  OUT gets this rank's
+results, one per case, by case name.
+"""
+import dataclasses
+import hashlib
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+
+def config(overrides):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("smollm-135m").reduced(), **overrides)
+
+
+def params_of(job, name):
+    from repro_torch.models.weights import from_reference
+    return from_reference(job["params"][name], device="cpu")
+
+
+def serve(job, case, mesh):
+    from repro_torch.core import tp
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+
+    cfg = config(job["configs"][case.get("config", "small")])
+    model = case.get("drafter", "model") == "model"
+    spec = SpecDecodeConfig(policy=case.get("policy", "dsde"),
+                            drafter=case.get("drafter", "model"),
+                            temperature=0.0,
+                            self_draft_layers=case.get("self_layers", 1))
+    sv = ServingConfig(max_batch_size=case.get("batch", 2),
+                       max_seq_len=case.get("max_seq", 128),
+                       paged_kv=case.get("paged", False),
+                       kv_block_size=case.get("bs", 16),
+                       num_kv_blocks=case.get("nblocks"),
+                       pipelined=case.get("pipelined", False),
+                       kv_quant=case.get("kv_quant", "none"))
+    pt = params_of(job, case.get("target", "pt"))
+    pd = params_of(job, case.get("draft", "pd")) if model else None
+    skew = case.get("skew", {}).get(str(dist.get_rank()))
+    real = time.monotonic
+    if skew is not None:
+        time.monotonic = lambda: real() + skew
+    try:
+        eng = ServingEngine(pt, cfg, pd, cfg if model else None, spec, sv,
+                            seed=0, device="cpu",
+                            mesh=None if case.get("unmeshed") else mesh)
+        deadlines = case.get("deadlines")
+        reqs = [Request(i, prompt=p, max_new_tokens=case.get("max_new", 10),
+                        slo_deadline_s=None if deadlines is None
+                        else deadlines[i])
+                for i, p in enumerate(case["prompts"])]
+        tp.reset_counts()
+        m = eng.run(reqs)
+    finally:
+        time.monotonic = real
+    out = {"streams": [r.output for r in reqs],
+           "finished": m["requests_finished"],
+           "preemptions": m["preemptions"], "rounds": m["rounds"],
+           "admit_order": [r.admit_seq for r in reqs],
+           "slots": [r.slot for r in reqs],
+           "slo_predicted_violations": m["slo_predicted_violations"],
+           "slo_deferrals": m["slo_deferrals"],
+           "counts": dict(tp.COUNTS)}
+    st = eng.state
+    if case.get("digest"):
+        tc = st.target_cache
+        out["pool_digest"] = {
+            k: hashlib.sha256(tc[k].contiguous().numpy().tobytes()).hexdigest()
+            for k in ("k", "v", "kv_pos", "block_table", "k_scale", "v_scale")
+            if k in tc}
+    if case.get("shapes"):
+        def shapes(tree):
+            if isinstance(tree, dict):
+                return {k: shapes(v) for k, v in tree.items()}
+            if isinstance(tree, (tuple, list)):
+                return [shapes(v) for v in tree]
+            return tuple(tree.shape) if hasattr(tree, "shape") else None
+        out["shapes"] = {"pt": shapes(eng.pt), "pd": shapes(eng.pd),
+                         "target_cache": shapes(st.target_cache),
+                         "draft_cache": shapes(st.draft_cache),
+                         "control": {k: tuple(getattr(st, k).shape) for k in
+                                     ("pending", "sl_next", "seed",
+                                      "round_idx", "done", "tokens_budget",
+                                      "eos_id")}}
+    return out
+
+
+def forward_case(job, case, mesh):
+    """Meshed logits of a prefill over ``tokens`` and of one decode step
+    after it, on the layout the case names."""
+    from repro_torch.core.tp import MeshPlan
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.transformer import forward
+    from repro_torch.models.weights import shard_params
+
+    cfg = config(job["configs"][case.get("config", "small")])
+    plan = MeshPlan.for_mesh(mesh, case["batch"])
+    pt = shard_params(params_of(job, case.get("target", "pt")), cfg, plan)
+    toks = torch.tensor(case["tokens"], dtype=torch.int32)
+    b, s = toks.shape
+    prompt, last = toks[:, :-1], toks[:, -1:]
+    if case.get("paged"):
+        nb, bs = 8 * b, 16
+        cache = cache_lib.paged_cache_struct(cfg, b, 128, nb, bs, plan=plan)
+        per = cache["block_table"].shape[1]
+        cache["block_table"] = torch.arange(b * per, dtype=torch.int32
+                                            ).reshape(b, per)
+    else:
+        cache = cache_lib.cache_struct(cfg, b, 128, plan=plan)
+    lp, cache = forward(pt, cfg, prompt, cache=cache, mode="prefill",
+                        plan=plan)
+    cache["length"] = torch.full((b,), s - 1, dtype=torch.int32)
+    ld, _ = forward(pt, cfg, last, cache=cache, mode="decode", plan=plan)
+    return {"prefill": lp.numpy(), "decode": ld.numpy()}
+
+
+def layout_case(job, case, mesh):
+    """The plan's layout of a config and the local shapes of its params
+    and caches (no serve)."""
+    from repro_torch.core.tp import MeshPlan
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models.weights import init_params
+
+    cfg = config(job["configs"][case["config"]])
+    plan = MeshPlan.for_mesh(mesh, case["batch"])
+    lay = plan.layout(cfg)
+    pt = init_params(cfg, seed=0, device="cpu", plan=plan)
+    ring = cache_lib.cache_struct(cfg, case["batch"], 64, plan=plan)
+    pool = cache_lib.paged_cache_struct(cfg, case["batch"], 64, 8, 16,
+                                        plan=plan)
+    return {"layout": dataclasses.asdict(lay),
+            "model_rank": plan.model_rank, "data_rank": plan.data_rank,
+            "wq": tuple(pt["layers"]["attn"]["wq"].shape),
+            "wk": tuple(pt["layers"]["attn"]["wk"].shape),
+            "ring_k": tuple(ring["k"].shape),
+            "pool_k": tuple(pool["k"].shape)}
+
+
+KINDS = {"serve": serve, "forward": forward_case, "layout": layout_case}
+
+
+def main(rank, world, store_path, job_path, out_path):
+    from repro_torch.launch.mesh import serving_mesh
+
+    torch.set_num_threads(1)
+    job = torch.load(job_path, weights_only=False)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        mesh = serving_mesh(job["mesh"], device_type="cpu")
+        results = {}
+        for case in job["cases"]:
+            results[case["name"]] = KINDS[case.get("kind", "serve")](
+                job, case, mesh)
+        torch.save(results, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])

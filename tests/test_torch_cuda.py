@@ -5,6 +5,8 @@ runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import warnings
+
 import pytest
 import torch
 
@@ -57,10 +59,12 @@ def _paged(b, t, h, kv, d, n, bs, maxb, dtype, device, seed=0):
 # by one bf16 ulp of the output (rtol) or a few ulps near 0 (atol)
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 1e-4),
                                              (torch.bfloat16, 2e-3, 1e-2)])
+# (4, 11, 3, 1, ...): a rank's heads of smollm-135m on a 1 x 3 mesh
 @pytest.mark.parametrize("shape", [(4, 1, 9, 3, 64, 40, 16, 8),
                                    (4, 11, 9, 3, 64, 40, 16, 8),
                                    (3, 6, 8, 8, 32, 30, 8, 9),
-                                   (2, 3, 4, 1, 128, 20, 32, 6)])
+                                   (2, 3, 4, 1, 128, 20, 32, 6),
+                                   (4, 11, 3, 1, 64, 40, 16, 8)])
 def test_paged_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
                                               window):
     args = _paged(*shape, dtype=dtype, device=cuda)
@@ -76,7 +80,9 @@ def test_paged_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
                                              (torch.bfloat16, 2e-3, 1e-2)])
 @pytest.mark.parametrize("shape", [(4, 1, 9, 3, 64, 40, 16, 8),
                                    (4, 11, 9, 3, 64, 40, 16, 8),
-                                   (3, 6, 8, 8, 32, 30, 8, 9)])
+                                   (3, 6, 8, 8, 32, 30, 8, 9),
+                                   (4, 1, 3, 1, 64, 40, 16, 8),
+                                   (4, 11, 3, 1, 64, 40, 16, 8)])
 def test_quant_attention_kernel_matches_plain(cuda, shape, dtype, atol, rtol,
                                               window):
     """B4 on the int8 pool: the same ragged tables (a -1 hole, a row with
@@ -1277,3 +1283,64 @@ def test_shape_only_branch(cuda, kernel, dtype):
                                              else maxb * bs)
     assert (dict(ra.LAUNCHES), dict(pa.LAUNCHES),
             dict(pq.LAUNCHES)) == launches
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "pool"])
+def test_nccl_one_rank_mesh_engine_matches_unmeshed(cuda, paged):
+    """A real NCCL communicator of one rank (``launch.mesh.serving_mesh``
+    1 x 1): a group of one rank makes the mesh path's collectives no-ops,
+    so the meshed engine launches none, its streams equal the unmeshed
+    engine's on the card and its dispatch makes no synchronising call;
+    the communicator's own all-reduce and all-gather are enqueued on the
+    stream with no synchronising call either."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.core import tp
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg, pt, pd = _small_pair()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = serving_mesh("1x1")
+        outs, syncs = [], []
+        for m in (None, mesh):
+            eng = ServingEngine(pt, cfg, pd, cfg, SpecDecodeConfig(),
+                                ServingConfig(max_batch_size=2,
+                                              max_seq_len=96,
+                                              paged_kv=paged),
+                                device=cuda, mesh=m)
+            syncs = _dispatch_syncs(eng)
+            tp.reset_counts()
+            reqs = [Request(i, prompt=list(range(5 + i, 14 + 3 * i)),
+                            max_new_tokens=20) for i in range(4)]
+            eng.run(reqs)
+            outs.append([r.output for r in reqs])
+        assert not any(tp.COUNTS.values()), tp.COUNTS
+        assert outs[0] == outs[1]
+        assert syncs == [], [str(w.message) for w in syncs]
+        group = mesh.get_group("model")
+        x = torch.arange(64, dtype=torch.float32, device=cuda)
+        parts = [torch.empty_like(x)]
+        torch.cuda.synchronize()
+        # switched outside the watched region: its first switch warns
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                dist.all_reduce(x, group=group)
+                dist.all_gather(parts, x, group=group)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert not [str(w.message) for w in caught
+                    if "synchroniz" in str(w.message)]
+        want = torch.arange(64, dtype=torch.float32, device=cuda)
+        assert torch.equal(x, want) and torch.equal(parts[0], want)
+    finally:
+        dist.destroy_process_group()

@@ -39,7 +39,7 @@ def test_import_port_leaves_jax_out():
         "          'configs.qwen2_vl_2b', 'configs.seamless_m4t_medium',\n"
         "          'launch.mesh', 'launch.sharding', 'launch.steps',\n"
         "          'launch.op_cost', 'launch.dryrun', 'core.dtensor_ops',\n"
-        "          'core.cost_hooks', 'kernels.shape_only'):\n"
+        "          'core.cost_hooks', 'kernels.shape_only', 'core.tp'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "import torch.distributed as dist\n"
         "assert 'torch.testing._internal.distributed.fake_pg' not in "
