@@ -153,7 +153,8 @@ Phases, each printing one JSON line:
              and pipelined; a 5-layer hybrid on the pool, on a ring of 80
              slots that wraps, and on a pool that forces preemption).
              The kernel phase adds B1 and B5 at the hybrid's heads (D 256
-             and 320, ctx / W 256 and 2064) and B2 at V 256128.
+             and 320, ctx / W 256 and 2064; one launch a call up to 128
+             query rows a KV head) and B2 at V 256128.
 8. multimodal — the vlm and audio families (``MULTIMODAL_SERVES``):
              qwen2-vl-2b (28 layers, d 1536, H 12 / KV 2 / D 128, qkv
              bias, M-RoPE, vocab 151936 padded to 152064) at full width
@@ -255,7 +256,7 @@ unpacked with ``git archive``) and on this tree's in turns, parent,
 change, change, parent, each in its own process on this card (rows
 tagged ``ab_run`` and ``tree``; one timing harness for both trees; rows
 of features the parent lacks are left out of its runs), and ptxas's
-report of both trees' B3 source.  It prints no result line.
+report of both trees' ``AB_PTXAS_SOURCES``.  It prints no result line.
 """
 import collections
 import json
@@ -877,16 +878,16 @@ HYBRID_WINDOW, HYBRID_RING = 2048, 2064
 
 def wide_rows(flush):
     """B1 and B5 at the hybrid family's heads (``WIDE_HEADS``, the wide
-    CUDA-core kernel): draft step (T 1) and verify (T 11: G * T 110 query
-    rows a KV head at G 10, four launches of <= 32 rows a call), ctx / W
+    heads' tensor-core kernel): draft step (T 1) and verify (T 11: G * T
+    110 query rows a KV head at G 10, one launch a call), ctx / W
     256 (full) and 2064 (B1: a full context, B5: a ring that has wrapped,
     both under the window 2048 the serves attend with), fp32 and bf16;
     B1's tolerances, each call launched twice for the same bits.  Bound:
     bytes, and the operations of the (query, slot) pairs inside the
     window at the card's peak for the operand type
-    (:func:`attention_flop_s`, as every attention row), though the wide
-    kernel runs on the CUDA cores.  SDPA over the same view and mask is
-    the library yardstick.  Returns each kernel's largest error."""
+    (:func:`attention_flop_s`, as every attention row).  SDPA over the
+    same view and mask is the library yardstick.  Returns each kernel's
+    largest error."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_attention as ra
@@ -1993,7 +1994,7 @@ def family_forward(cfg, params, smi) -> dict:
     tokens, 3 accepted a row), work the attention families' round does
     not have: wall ms a call over 10 calls with a synchronise after
     them, and the attention kernels' launches in one call (T 11 is cut
-    into query groups: two at D 128 G 4, four at D 256 G 10).  Bound:
+    into query groups: two at D 128 G 4, one at D 256 G 10).  Bound:
     the target's weight bytes over 3.35 TB/s, which every pass reads.
     Returns the row."""
     import torch
@@ -3416,14 +3417,15 @@ def train_phase(smi):
 # the device kernels of the port's CUDA sources, by name; the attention
 # kernels' names carry their addressing policy (pv::TableAddr for B1 and
 # B4, pv::RingAddr for B5) as the first template argument
-PORT_KERNELS = ("pv::verify_kernel", "pv::wide_kernel", "pv::merge_kernel",
+PORT_KERNELS = ("pv::verify_kernel", "pv::wide_mma_kernel", "pv::merge_kernel",
                 "kld_accept_kernel", "ngram_match_kernel")
 
 
-# rounds a profiled run traces (formerly 6, then 3: the traces'
+# rounds a profiled run traces (formerly 6, then 3, then 2: the traces'
 # processing on the host, about 1 ms a kernel launch traced, took a
-# quarter to a third of the script's time)
-PROFILE_ROUNDS = 2
+# quarter to a third of the script's time, and at 2 rounds still 205 s
+# of a 1173.6 s run on an H100 80GB HBM3 with a slow host)
+PROFILE_ROUNDS = 1
 
 
 def profile_phase(serve, engine, reqs) -> None:
@@ -3584,8 +3586,9 @@ def serve_ab_phase(parent: Path) -> None:
                 emit(dict(json.loads(line), ab_run=i, tree=tag))
 
 
-# the sources whose ptxas reports the A/B compares (B3: this change's)
-AB_PTXAS_SOURCES = ("ngram_match",)
+# the sources whose ptxas reports the A/B compares (B1 and B5: the wide
+# heads' kernel of this change)
+AB_PTXAS_SOURCES = ("paged_attention", "ragged_attention")
 
 
 def ab_phase(parent: Path) -> None:
@@ -4408,6 +4411,7 @@ ONLY = {
     "multimodal-kernels": lambda smi: multimodal_rows(torch_flush()),
     "multimodal": multimodal_phase,
     "multimodal-checks": lambda smi: multimodal_check_phase(),
+    "recurrent": recurrent_phase,
     "train-family": family_train_phase,
     "flash": flash_rows,
 }

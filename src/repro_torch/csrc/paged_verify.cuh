@@ -37,8 +37,8 @@
 //   4-byte cp.async, once per slot; the next stage loads while this one
 //   computes.  cp.async needs 16-byte aligned sources: a K/V row is
 //   D * sizeof(storage) bytes, a multiple of 16 for every D the wrappers
-//   take (32, 64, 128) in int8, bf16 and fp32, and the tensors are
-//   contiguous from an aligned base.  A slot staged empty (position -1,
+//   take (32, 64, 128 in int8, bf16 and fp32; 256 and 320 in bf16 and
+//   fp32), and the tensors are contiguous from an aligned base.  A slot staged empty (position -1,
 //   zero K/V, no copy) adds nothing: its probability is 0.
 //   - TableAddr: a stage is 64 / BS consecutive table entries; the entries
 //     are read one stage further ahead, and an entry of -1 stages empty.
@@ -91,9 +91,12 @@
 //   probabilities feed PV straight from the QK^T accumulators.
 //
 // * Wide heads.  D 256 and 320 (recurrentgemma-2b's local attention and
-//   its draft) take `wide_kernel`, a separate CUDA-core kernel at the end
-//   of this file with the same grid, splits, partials and merge; the
-//   tensor-core body keeps MT * D <= 256 and its bits at D <= 128.
+//   its draft) take `wide_mma_kernel`, at the end of this file: the same
+//   function, split ranges, partials and merge, on tensor cores with
+//   cp.async staging, but the head dim's PV columns split over the warps
+//   and up to 128 query rows a KV head in one launch (row tiles of 32 in
+//   the grid).  Its own notes say what bounds it and what it does about
+//   that; the body above keeps MT * D <= 256 and its bits at D <= 128.
 //
 // Shared memory (bytes, `Layout::kBytes`): the stage ring (or, after the
 // sweep, the warps' merge buffers, whichever is larger), q in operand form,
@@ -791,203 +794,486 @@ int launch_mt(const Args& a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // Wide heads (D 256 and 320, fp32 or bf16 storage): recurrentgemma-2b's
 // attention layers (H 10 / KV 1 / D 256) and its draft's (H 2 / KV 1 /
-// D 320).  The tensor-core body above keeps MT * D <= 256 accumulators a
-// thread (acc[MT][D/8][4]) and so stops at D 128 (one row tile at 256, none
-// at 320); these head dims take a separate, simple CUDA-core kernel, and the
-// bits of D <= 128 are untouched.
+// D 320).  The body above keeps every query row's PV accumulators of the
+// whole head dim in each warp (acc[MT][D/8][4], MT * D <= 256) and so stops
+// at D 128; `wide_mma_kernel` splits the head dim over the warps instead.
+// Same function, split ranges, partial format [B,KV,S,rows,D] and merge
+// (`merge_kernel`) as `verify_kernel`; the bits of D <= 128 are untouched.
 //
-// Same function, grid (B, KV, S), split ranges, partial format and merge as
-// `verify_kernel`, so `merge_kernel` combines its splits.  A block has D
-// threads; thread c owns head-dim column c of the PV accumulator for every
-// query row of the launch (at most kWideRows = 32: the wrapper's query
-// groups cut G * T into launches of <= 32 rows).  A stage is kWideTile = 32
-// logical slots (the pool's table order, or the ring's slots); their
-// positions are read first, and a stage with no slot valid for any query of
-// the call is skipped whole (kv_pos-first, as B5's ring skip; no K/V read).
-// A live stage's K and V rows are loaded (converted to fp32) into shared
-// memory, K rows padded to D + 1 floats so the 32 slots a warp reads sit in
-// 32 banks; each (row, slot) score is an fp32 dot product over D (fmaf, in
-// column order: no tensor-core rounding, so fp32 is exact to fp32 sums);
-// then one warp per row runs the online softmax over the stage, and thread c
-// folds the stage's probabilities into column c of every row.  No atomics:
-// two launches give the same bits.
+// Bound.  Per (sequence, KV head) the kernel must read the K/V of the
+// slots valid for the call once (2 * D * sizeof(T) bytes a slot) and their
+// positions, and do 4 * G*T * slots * D operations.  At recurrentgemma-2b's
+// verify (B 4, G*T 110, D 256, ctx 256) that is 2.1 MB of fp32 K/V
+// (0.63 us at 3.35 TB/s) against 115 MFLOP (0.70 us at 3xTF32's 495/3
+// TFLOP/s; 0.12 us in bf16): about a microsecond either way, so what a
+// call costs is its fixed chain -- launches, dependent global reads
+// (table, then positions, then K/V), the product chain of a stage, the
+// partials' round trip through the merge -- not its bytes or operations.
+// What the design does about it:
+// * One launch a call for up to 128 query rows a KV head (kWideMaxTiles
+//   row tiles of kWideRows = 32), where the CUDA-core kernel this replaces
+//   took 32 and the wrapper cut recurrentgemma-2b's T-11 verify (G 10: 110
+//   rows) into four launches, each re-reading K/V and copying q slices.
+//   Grid (B, KV * row tiles, S): the row tiles of a split are blocks of
+//   their own that each stage the split's K/V, the first from device
+//   memory, the others mostly from L2 (they run at the same time; 50 MB
+//   holds every cache these shapes reach).  The other design, every row in
+//   one block, does not fit: q of 128 rows at D 320 fp32 is 160 KB, and the
+//   two K/V stages are another 160 KB, against the 227 KB a block may hold;
+//   its PV accumulators (128 x 320 fp32) would need 16 warps at 80
+//   registers a thread.  Row tiles also give the grid more blocks:
+//   `wide_split_plan` (kernels/paged_attention.py) counts B * KV * tiles * S
+//   towards two blocks an SM.
+// * Tensor cores (mma.sync), as the body above and with its fragments
+//   (`k_frag`, `v_frag`, `mma_terms`).  A stage is kWideTile = 32 slots;
+//   warp w computes QK^T for all 32 rows over slots 8w .. 8w + 7 (one
+//   n-tile), in two accumulators (even and odd depth steps, added at the
+//   end) so each row tile runs two product chains at once.  bf16: m16n8k16, exact
+//   products summed in fp32; P enters PV as hi + lo bf16 terms.  fp32:
+//   3xTF32 on m16n8k8 (big/small split of q, K, P and V; about 2^-21
+//   relative error a product).  Where the CUDA-core kernel summed exact
+//   fp32 products with fmaf in column order, the fp32 path now carries
+//   3xTF32's rounding, far inside the fp32 tolerance (atol 2e-5 / rtol
+//   1e-4); single-pass TF32 (2^-11) would not be.  q is staged raw (fp32
+//   or bf16) and split into its TF32 terms as its fragments load: staged
+//   split it would not fit beside two fp32 stages at D 320.
+// * The PV accumulators' D columns are split over the 4 warps: warp w owns
+//   columns [w * D/4, (w + 1) * D/4), all 32 rows, acc[2][D/32][4] (64 fp32
+//   registers a thread at D 256, 80 at D 320).  So every warp needs the
+//   probabilities of every slot of the stage: the softmax statistics of a
+//   row are merged across warps through shared memory in a fixed order --
+//   each warp writes its row maxima, every warp reads the 4 in warp order
+//   and takes the same running max m and rescale alpha, each warp writes
+//   its probabilities (in PV's A-fragment order, so a thread's writes are
+//   one 16-byte word) and its row sums, and every warp adds the 4 sums in
+//   warp order into the same l.  No cross-warp merge at the end: each warp
+//   writes its columns.  Three barriers a stage.
+// * Positions first.  A split's slots are scanned kWideSeg = 32 stages
+//   (1024 slots) at a time before any K/V is read: a slot's storage row
+//   (the table entry, or the ring row) and position go to shared memory,
+//   a slot valid for no query of the call (0 <= kv_pos <= max q_pos and,
+//   with a window, kv_pos > min q_pos - window) is kept as empty, and the
+//   stages holding a valid slot are compacted into a list, in order.  A
+//   stage not on the list is neither copied nor multiplied -- the decision
+//   is block-uniform -- and costs the same bits as computing it (its
+//   probabilities are all 0).  An empty slot of a live stage is staged as
+//   zero K/V with no copy, so nothing outside the valid slots is read.
+// * Staging: 16-byte cp.async of the live stages' K and V rows into a
+//   2-stage ring (the next live stage loads while this one computes), and
+//   of the tile's q rows in the prologue.
+// No atomics: partials merge in split order (`merge_kernel`), so one input
+// gives the same bits on every call, and a row with no valid slot comes out
+// exactly 0.
 //
-// Shared memory at D 320: q 32 x 320, K 32 x 321, V 32 x 320, P 32 x 33
-// floats, about 127 KB; at D 256 about 102 KB (opted in above 48 KB).
-constexpr int kWideRows = 32;            // query rows a launch
-constexpr int kWideTile = 32;            // slots a stage
+// Shared memory (`WideLayout::kBytes`): two stages of K and V (32 rows
+// each, padded 32 / 16 bytes in fp32, 16 in bf16, so a warp's fragment
+// loads hit distinct banks), q (32 rows padded as K), the P fragments (8
+// KB), the scan's rows and positions (8 KB), the warps' row maxima and
+// sums (1 KB) and the rows' positions and live list (0.3 KB):
+//   fp32 D 256: 134 144 + 33 792 + 17 796 = 185 732 bytes
+//   fp32 D 320: 166 912 + 41 984 + 17 796 = 226 692 bytes
+//   bf16 D 256:  67 584 + 16 896 + 17 796 = 102 276 bytes
+//   bf16 D 320:  83 968 + 20 992 + 17 796 = 122 756 bytes
+// of the 232 448 a block may opt into; a 64-slot stage would not fit
+// double-buffered in fp32.
+constexpr int kWideRows = 32;            // query rows a block (a row tile)
+constexpr int kWideMaxTiles = 4;         // row tiles a launch: 128 rows
+constexpr int kWideTile = 32;            // slots a stage, 8 a warp
+constexpr int kWideSeg = 32;             // stages a scan of positions
 
-template <int D>
+template <class T, int D>
 struct WideLayout {
-  static constexpr int kQ = kWideRows * D;
-  static constexpr int kKRow = D + 1;
-  static constexpr int kK = kWideTile * kKRow;
-  static constexpr int kV = kWideTile * D;
-  static constexpr int kPRow = kWideTile + 1;
-  static constexpr int kP = kWideRows * kPRow;
-  static constexpr int kFloats = kQ + kK + kV + kP + 3 * kWideRows;
-  static constexpr int kBytes = 4 * kFloats + 4 * (kWideRows + 2 * kWideTile);
-  static_assert(D % 32 == 0, "a block is D threads, whole warps");
+  static constexpr bool kTf32 = std::is_same<T, float>::value;
+  static constexpr bool kInt8 = false;
+  static constexpr int kKK = kTf32 ? 8 : 16;            // depth of one mma
+  static constexpr int kTerms = kTf32 ? 2 : 1;          // of q, K and V
+  static constexpr int kKvTerms = kTerms;
+  static constexpr int kMT = kWideRows / 16;
+  static constexpr int kCols = D / kWarps;              // PV columns a warp
+  static constexpr int kDN = kCols / 8;
+  static constexpr int kKRow = D * (int)sizeof(T) + (kTf32 ? 32 : 16);
+  static constexpr int kVRow = D * (int)sizeof(T) + 16;
+  static constexpr int kQRow = kKRow;
+  static constexpr int kStage = kWideTile * (kKRow + kVRow);
+  static constexpr int kQ = kWideRows * kQRow;
+  static constexpr int kP = kWarps * kMT * 2 * 32 * 16; // [warp][mt][term][lane]
+  static constexpr int kSegSlots = kWideSeg * kWideTile;
+  static constexpr int kBytes = kStages * kStage + kQ + kP + 2 * kSegSlots * 4
+                                + 2 * kWarps * kWideRows * 4 + kWideRows * 4
+                                + 2 * kWideSeg * 4 + 4;
+  static_assert(kCols % 8 == 0 && D % kKK == 0 && (D / kKK) % 2 == 0,
+                "unsupported head dim");
+  static_assert(kSegSlots % kThreads == 0 && kWideTile == 8 * kWarps,
+                "a warp takes one n-tile of a stage");
+  static_assert(kBytes <= 232448, "over the shared memory a block may hold");
 };
 
-template <class Addr, class T, int D>
-__global__ void __launch_bounds__(D)
-wide_kernel(const Args a) {
-  using L = WideLayout<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);      // [rows][D]
-  float* k_s = q_s + L::kQ;                         // [tile][D + 1]
-  float* v_s = k_s + L::kK;                         // [tile][D]
-  float* p_s = v_s + L::kV;                         // [rows][tile + 1]
-  float* m_s = p_s + L::kP;                         // [rows]
-  float* l_s = m_s + kWideRows;
-  float* al_s = l_s + kWideRows;
-  int* qp_s = reinterpret_cast<int*>(al_s + kWideRows);
-  int* pos_s = qp_s + kWideRows;                    // [tile], -1 = not valid
-  int* row_s = pos_s + kWideTile;                   // storage row, -1 = none
-
-  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
-  const int c = threadIdx.x, lane = c & 31, warp = c >> 5;
-  const int grp = a.n_h / a.n_kv;
-  const int rows = grp * a.n_t;
-  const int bs = 1 << a.bs_log2;
-  const int per = (a.maxb + a.splits - 1) / a.splits;
-  const int e_begin = min(split * per, a.maxb);
-  const int e_end = min(e_begin + per, a.maxb);
-  const int s_end = e_end << a.bs_log2;
-  const T* q = static_cast<const T*>(a.q);
-  const T* pk = static_cast<const T*>(a.pk);
-  const T* pvv = static_cast<const T*>(a.pv);
-
-  for (int r = 0; r < rows; ++r)
-    q_s[r * D + c] =
-        to_f(q[((size_t)(b * a.n_t + r / grp) * a.n_h + kvh * grp + r % grp) * D + c]);
-  if (c < kWideRows) {
-    qp_s[c] = c < rows ? a.q_pos[b * a.n_t + c / grp] : -1;
-    m_s[c] = kNegInf;
-    l_s[c] = 0.f;
-  }
-  __syncthreads();
-  int qp_min = 0x7fffffff, qp_max = -1;
-  for (int t = 0; t < a.n_t; ++t) {
-    qp_min = min(qp_min, qp_s[t * grp]);
-    qp_max = max(qp_max, qp_s[t * grp]);
-  }
-
-  float acc[kWideRows];
-#pragma unroll
-  for (int r = 0; r < kWideRows; ++r) acc[r] = 0.f;
-
-  for (int s0 = e_begin << a.bs_log2; s0 < s_end; s0 += kWideTile) {
-    bool live = false;
-    if (c < kWideTile) {
-      const int ls = s0 + c;
-      int row = -1, p = -1;
-      if (ls < s_end) {
-        if constexpr (Addr::kRing) {
-          if (ls < a.ring_w) row = b * a.ring_w + ls;
-        } else {
-          const int e = a.table[(size_t)b * a.maxb + (ls >> a.bs_log2)];
-          if (e >= 0) row = e * bs + (ls & (bs - 1));
-        }
-        if (row >= 0) p = a.kv_pos[row];
-      }
-      live = p >= 0 && p <= qp_max && (a.window <= 0 || p > qp_min - a.window);
-      pos_s[c] = live ? p : -1;
-      row_s[c] = live ? row : -1;
-    }
-    if (!__syncthreads_or(live)) continue;          // block-uniform
-
-#pragma unroll 4
-    for (int s = 0; s < kWideTile; ++s) {
-      const int row = row_s[s];
-      float kx = 0.f, vx = 0.f;
-      if (row >= 0) {
-        const size_t off = ((size_t)row * a.n_kv + kvh) * D + c;
-        kx = to_f(pk[off]);
-        vx = to_f(pvv[off]);
-      }
-      k_s[s * L::kKRow + c] = kx;
-      v_s[s * D + c] = vx;
-    }
-    __syncthreads();
-
-    // scores: (row, slot) pairs, a warp's 32 pairs share a row
-    for (int i = c; i < rows * kWideTile; i += D) {
-      const int r = i / kWideTile, s = i % kWideTile;
-      const int p = pos_s[s], qp = qp_s[r];
-      float sc = kNegInf;
-      if (p >= 0 && p <= qp && (a.window <= 0 || qp - p < a.window)) {
-        const float* qr = q_s + r * D;
-        const float* kr = k_s + s * L::kKRow;
-        float dot = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < D; ++k) dot = fmaf(qr[k], kr[k], dot);
-        sc = dot * a.scale;
-      }
-      p_s[r * L::kPRow + s] = sc;
-    }
-    __syncthreads();
-
-    // online softmax, one warp a row, lane = slot; a masked slot is kNegInf
-    for (int r = warp; r < rows; r += D / 32) {
-      const float sc = p_s[r * L::kPRow + lane];
-      float mx = sc;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float pr = sc > kNegInf ? expf(sc - m_new) : 0.f;
-      float sum = pr;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[r * L::kPRow + lane] = pr;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        al_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kWideRows; ++r) {
-      if (r < rows) {
-        float o = acc[r] * al_s[r];
-        const float* pr = p_s + r * L::kPRow;
-#pragma unroll 8
-        for (int s = 0; s < kWideTile; ++s) o = fmaf(pr[s], v_s[s * D + c], o);
-        acc[r] = o;
-      }
-    }
-    __syncthreads();                                // the stage is free again
-  }
-
-  T* out = static_cast<T*>(a.out);
-  const size_t parts = (size_t)a.n_b * a.n_kv * a.splits * rows;
-#pragma unroll
-  for (int r = 0; r < kWideRows; ++r) {
-    if (r >= rows) continue;
-    if (a.splits == 1) {
-      store(&out[((size_t)(b * a.n_t + r / grp) * a.n_h + kvh * grp + r % grp) * D + c],
-            acc[r] / fmaxf(l_s[r], 1e-30f));
-    } else {
-      const size_t p = ((size_t)(b * a.n_kv + kvh) * a.splits + split) * rows + r;
-      a.part[p * D + c] = acc[r];
-      if (c == 0) {
-        a.part[parts * D + p] = m_s[r];
-        a.part[parts * (D + 1) + p] = l_s[r];
-      }
-    }
+// q's A fragment of QK^T for rows r, r + 8 at depth step kk, from the raw
+// staged rows (fp32: split into TF32 big / small here).
+template <class L>
+__device__ __forceinline__ void wide_q_frag(const unsigned char* q_s, int r, int kk,
+                                            int t4, uint32_t (&qa)[L::kTerms][4]) {
+  if constexpr (L::kTf32) {
+    const float2 lo = *reinterpret_cast<const float2*>(
+        reinterpret_cast<const float*>(q_s + r * L::kQRow) + kk * 8 + 2 * t4);
+    const float2 hi = *reinterpret_cast<const float2*>(
+        reinterpret_cast<const float*>(q_s + (r + 8) * L::kQRow) + kk * 8 + 2 * t4);
+    split_tf32(lo.x, qa[0][0], qa[1][0]);
+    split_tf32(hi.x, qa[0][1], qa[1][1]);
+    split_tf32(lo.y, qa[0][2], qa[1][2]);
+    split_tf32(hi.y, qa[0][3], qa[1][3]);
+  } else {
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(q_s + r * L::kQRow) + kk * 8 + t4;
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(q_s + (r + 8) * L::kQRow) + kk * 8 + t4;
+    qa[0][0] = q0[0];
+    qa[0][1] = q1[0];
+    qa[0][2] = q0[4];
+    qa[0][3] = q1[4];
   }
 }
 
 template <class Addr, class T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_mma_kernel(const Args a) {
+  using L = WideLayout<T, D>;
+  constexpr bool kRing = Addr::kRing;
+  constexpr int kMT = L::kMT;
+  constexpr int kCh = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  constexpr int kScanIt = L::kSegSlots / kThreads;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                                   // 2 stages
+  unsigned char* q_s = ring + kStages * L::kStage;              // [rows][kQRow]
+  uint32_t* p_s = reinterpret_cast<uint32_t*>(q_s + L::kQ);     // P fragments
+  int* row_s = reinterpret_cast<int*>(q_s + L::kQ + L::kP);     // [seg slots]
+  int* pos_s = row_s + L::kSegSlots;                            // -1 = empty
+  float* mx_s = reinterpret_cast<float*>(pos_s + L::kSegSlots); // [warp][row]
+  float* sum_s = mx_s + kWarps * kWideRows;
+  int* qp_s = reinterpret_cast<int*>(sum_s + kWarps * kWideRows);
+  int* flag_s = qp_s + kWideRows;                               // [seg stages]
+  int* list_s = flag_s + kWideSeg;                              // live stages, count
+
+  const int b = blockIdx.x, split = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int grp = a.n_h / a.n_kv;
+  const int rows = grp * a.n_t;
+  const int tiles = (rows + kWideRows - 1) / kWideRows;
+  const int kvh = blockIdx.y / tiles, r0 = (blockIdx.y % tiles) * kWideRows;
+  const int bs = 1 << a.bs_log2;
+  const int per = (a.maxb + a.splits - 1) / a.splits;
+  const int e_begin = min(split * per, a.maxb);
+  const int e_end = min(e_begin + per, a.maxb);
+  const int s_begin = e_begin << a.bs_log2, s_end = e_end << a.bs_log2;
+  const int col0 = warp * L::kCols;     // this warp's PV columns
+  const int sb = warp * 8;              // this warp's QK^T slots in a stage
+
+  // prologue: the tile's q rows by cp.async (row r <-> t = r / G, head
+  // kvh * G + r % G; rows past G*T are zero), their positions, and the
+  // range of the call's query positions (every warp reduces it alike)
+  const T* q = static_cast<const T*>(a.q);
+  for (int i = tid; i < kWideRows * kCh; i += kThreads) {
+    const int r = i / kCh, ch = i % kCh, rr = r0 + r;
+    unsigned char* dst = q_s + r * L::kQRow + ch * 16;
+    if (rr < rows) {
+      const T* src = q + ((size_t)(b * a.n_t + rr / grp) * a.n_h + kvh * grp + rr % grp) * D;
+      cp_async16(dst, reinterpret_cast<const unsigned char*>(src) + ch * 16);
+    } else {
+      *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
+    }
+  }
+  cp_commit();
+  if (tid < kWideRows)
+    qp_s[tid] = r0 + tid < rows ? a.q_pos[b * a.n_t + (r0 + tid) / grp] : -1;
+  int qp_min = 0x7fffffff, qp_max = -1;
+  for (int t = lane; t < a.n_t; t += 32) {
+    const int p = a.q_pos[b * a.n_t + t];
+    qp_min = min(qp_min, p);
+    qp_max = max(qp_max, p);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    qp_min = min(qp_min, __shfl_xor_sync(0xffffffffu, qp_min, o));
+    qp_max = max(qp_max, __shfl_xor_sync(0xffffffffu, qp_max, o));
+  }
+
+  // positions first: slots [seg, seg + kSegSlots) of the split, slot j of
+  // the scan read by thread j % 128, so warp w reads stages w + 4k whole
+  // and one ballot marks a stage live
+  auto scan = [&](int seg) {
+    int row[kScanIt], pos[kScanIt];
+#pragma unroll
+    for (int k = 0; k < kScanIt; ++k) {
+      const int ls = seg + tid + k * kThreads;
+      row[k] = -1;
+      if (ls < s_end) {
+        if constexpr (kRing) {
+          if (ls < a.ring_w) row[k] = b * a.ring_w + ls;
+        } else {
+          const int e = a.table[(size_t)b * a.maxb + (ls >> a.bs_log2)];
+          if (e >= 0) row[k] = e * bs + (ls & (bs - 1));
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kScanIt; ++k) pos[k] = row[k] >= 0 ? a.kv_pos[row[k]] : -1;
+#pragma unroll
+    for (int k = 0; k < kScanIt; ++k) {
+      const int p = pos[k];
+      const bool live = p >= 0 && p <= qp_max && (a.window <= 0 || p > qp_min - a.window);
+      row_s[tid + k * kThreads] = live ? row[k] : -1;
+      pos_s[tid + k * kThreads] = live ? p : -1;
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) flag_s[warp + kWarps * k] = m != 0u;
+    }
+  };
+
+  auto issue = [&](int st, int buf) {
+    unsigned char* k_s = ring + buf * L::kStage;
+    unsigned char* v_s = k_s + kWideTile * L::kKRow;
+    for (int i = tid; i < 2 * kWideTile * kCh; i += kThreads) {
+      const int which = i / (kWideTile * kCh);      // 0: K, 1: V
+      const int s = (i / kCh) % kWideTile, ch = i % kCh;
+      const int row = row_s[st * kWideTile + s];
+      unsigned char* dst = (which ? v_s + s * L::kVRow : k_s + s * L::kKRow) + ch * 16;
+      if (row < 0) {
+        *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
+        continue;
+      }
+      const unsigned char* src = static_cast<const unsigned char*>(which ? a.pv : a.pk)
+                                 + ((size_t)row * a.n_kv + kvh) * (D * sizeof(T)) + ch * 16;
+      cp_async16(dst, src);
+    }
+  };
+
+  float acc[kMT][L::kDN][4];
+  float m_r[kMT][2], l_r[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int dn = 0; dn < L::kDN; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dn][e] = 0.f;
+    m_r[mt][0] = m_r[mt][1] = kNegInf;
+    l_r[mt][0] = l_r[mt][1] = 0.f;
+  }
+
+  // one live stage: st its index in the scan, buf its stage buffer
+  auto compute = [&](int st, int buf) {
+    const unsigned char* k_s = ring + buf * L::kStage;
+    const unsigned char* v_s = k_s + kWideTile * L::kKRow;
+    const int* pos = pos_s + st * kWideTile;
+
+    // S = Q K^T: 32 rows x this warp's 8 slots
+    float s[kMT][4], s2[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][e] = s2[mt][e] = 0.f;
+    auto qk = [&](int kk, float (&c)[kMT][4]) {
+      uint32_t kb[L::kTerms][2];
+      k_frag<L, T>(k_s + (sb + g) * L::kKRow, kk, t4, kb);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t qa[L::kTerms][4];
+        wide_q_frag<L>(q_s, mt * 16 + g, kk, t4, qa);
+        mma_terms<L::kTf32>(c[mt], qa, kb);
+      }
+    };
+#pragma unroll 4
+    for (int kk = 0; kk < D / L::kKK; kk += 2) {
+      qk(kk, s);
+      qk(kk + 1, s2);
+    }
+
+    // masked scores, the warp's row maxima over its slots (this thread
+    // holds slots sb + 2*t4 + e of rows mt*16 + g + 8*hh)
+    int kp[2];
+    kp[0] = pos[sb + 2 * t4];
+    kp[1] = pos[sb + 2 * t4 + 1];
+    bool ok[kMT][2][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qp = qp_s[mt * 16 + g + 8 * hh];
+        float mx = kNegInf;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = kp[e];
+          ok[mt][hh][e] = p >= 0 && p <= qp && (a.window <= 0 || qp - p < a.window);
+          const float x = s[mt][2 * hh + e] + s2[mt][2 * hh + e];
+          s[mt][2 * hh + e] = ok[mt][hh][e] ? x * a.scale : kNegInf;
+          mx = fmaxf(mx, s[mt][2 * hh + e]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (t4 == 0) mx_s[warp * kWideRows + mt * 16 + g + 8 * hh] = mx;
+      }
+    __syncthreads();
+
+    // the stage's row maxima in warp order -> the same m and alpha in
+    // every warp; this warp's probabilities and row sums
+    float alpha[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = mt * 16 + g + 8 * hh;
+        float mx = mx_s[r];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, mx_s[w * kWideRows + r]);
+        const float m_new = fmaxf(m_r[mt][hh], mx);
+        alpha[mt][hh] = expf(m_r[mt][hh] - m_new);
+        m_r[mt][hh] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ok[mt][hh][e] ? expf(s[mt][2 * hh + e] - m_new) : 0.f;
+          s[mt][2 * hh + e] = p;
+          sum += p;
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (t4 == 0) sum_s[warp * kWideRows + r] = sum;
+      }
+    // P in PV's A-fragment order: fp32 m16n8k8 (k = t4 <-> slot 2*t4,
+    // k = t4 + 4 <-> slot 2*t4 + 1, the body's permutation), a k-step of 8
+    // slots = one warp's; bf16 m16n8k16, a k-step of 16 slots = two warps'
+    // (this warp's registers 0-1 or 2-3)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int at = ((warp * kMT + mt) * 2) * 32 + lane;
+      if constexpr (L::kTf32) {
+        uint4 big, small;
+        split_tf32(s[mt][0], big.x, small.x);
+        split_tf32(s[mt][2], big.y, small.y);
+        split_tf32(s[mt][1], big.z, small.z);
+        split_tf32(s[mt][3], big.w, small.w);
+        reinterpret_cast<uint4*>(p_s)[at] = big;
+        reinterpret_cast<uint4*>(p_s)[at + 32] = small;
+      } else {
+        uint2 hi, lo;
+        split_bf16(s[mt][0], s[mt][1], hi.x, lo.x);
+        split_bf16(s[mt][2], s[mt][3], hi.y, lo.y);
+        reinterpret_cast<uint2*>(p_s)[at] = hi;
+        reinterpret_cast<uint2*>(p_s)[at + 32] = lo;
+      }
+    }
+    __syncthreads();
+
+    // the row sums in warp order -> the same l in every warp; rescale
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = mt * 16 + g + 8 * hh;
+        float sum = sum_s[r];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) sum += sum_s[w * kWideRows + r];
+        l_r[mt][hh] = l_r[mt][hh] * alpha[mt][hh] + sum;
+#pragma unroll
+        for (int dn = 0; dn < L::kDN; ++dn) {
+          acc[mt][dn][2 * hh] *= alpha[mt][hh];
+          acc[mt][dn][2 * hh + 1] *= alpha[mt][hh];
+        }
+      }
+
+    // acc += P V over this warp's columns
+    constexpr int kSteps = kWideTile / L::kKK;
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      uint32_t pa[kMT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int term = 0; term < 2; ++term) {
+          if constexpr (L::kTf32) {
+            const uint4 x = reinterpret_cast<const uint4*>(p_s)[((j * kMT + mt) * 2 + term) * 32 + lane];
+            pa[mt][term][0] = x.x; pa[mt][term][1] = x.y;
+            pa[mt][term][2] = x.z; pa[mt][term][3] = x.w;
+          } else {
+            const uint2 x0 = reinterpret_cast<const uint2*>(p_s)[((2 * j * kMT + mt) * 2 + term) * 32 + lane];
+            const uint2 x1 = reinterpret_cast<const uint2*>(p_s)[(((2 * j + 1) * kMT + mt) * 2 + term) * 32 + lane];
+            pa[mt][term][0] = x0.x; pa[mt][term][1] = x0.y;
+            pa[mt][term][2] = x1.x; pa[mt][term][3] = x1.y;
+          }
+        }
+#pragma unroll
+      for (int dn = 0; dn < L::kDN; ++dn) {
+        uint32_t vb[L::kTerms][2];
+        v_frag<L, T>(v_s, j * L::kKK + 2 * t4, col0 + dn * 8 + g, vb);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) mma_terms<L::kTf32>(acc[mt][dn], pa[mt], vb);
+      }
+    }
+  };
+
+  // the split, a scan of positions at a time; in a scan, its live stages
+  // in order through the 2-stage ring (stage i + 1 loads while i computes)
+  int buf = 0;
+  for (int seg = s_begin; seg < s_end; seg += L::kSegSlots) {
+    __syncthreads();              // the last sweep no longer reads rows, positions
+    scan(seg);
+    __syncthreads();
+    if (warp == 0) {
+      const unsigned m = __ballot_sync(0xffffffffu, flag_s[lane] != 0);
+      if (m >> lane & 1u) list_s[__popc(m & ((1u << lane) - 1u))] = lane;
+      if (lane == 0) list_s[kWideSeg] = __popc(m);
+    }
+    __syncthreads();
+    const int n = list_s[kWideSeg];
+    if (n > 0) issue(list_s[0], buf);
+    cp_commit();
+    for (int i = 0; i < n; ++i) {
+      cp_wait<0>();
+      __syncthreads();            // stage i (and q) landed; stage i - 1 no longer read
+      if (i + 1 < n) issue(list_s[i + 1], buf ^ 1);
+      cp_commit();
+      compute(list_s[i], buf);
+      buf ^= 1;
+    }
+  }
+  cp_wait<0>();
+
+  // each warp writes its columns of the tile's rows; m and l are the same
+  // in every warp, warp 0 writes them
+  T* out = static_cast<T*>(a.out);
+  const size_t parts = (size_t)a.n_b * a.n_kv * a.splits * rows;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + mt * 16 + g + 8 * hh;
+      if (r >= rows) continue;
+      if (a.splits == 1) {
+        const float den = fmaxf(l_r[mt][hh], 1e-30f);
+        T* o = out + ((size_t)(b * a.n_t + r / grp) * a.n_h + kvh * grp + r % grp) * D
+               + col0 + 2 * t4;
+#pragma unroll
+        for (int dn = 0; dn < L::kDN; ++dn) {
+          store(o + dn * 8, acc[mt][dn][2 * hh] / den);
+          store(o + dn * 8 + 1, acc[mt][dn][2 * hh + 1] / den);
+        }
+      } else {
+        const size_t p = ((size_t)(b * a.n_kv + kvh) * a.splits + split) * rows + r;
+        float* o = a.part + p * D + col0 + 2 * t4;
+#pragma unroll
+        for (int dn = 0; dn < L::kDN; ++dn)
+          *reinterpret_cast<float2*>(o + dn * 8) =
+              make_float2(acc[mt][dn][2 * hh], acc[mt][dn][2 * hh + 1]);
+        if (warp == 0 && t4 == 0) {
+          a.part[parts * D + p] = m_r[mt][hh];
+          a.part[parts * (D + 1) + p] = l_r[mt][hh];
+        }
+      }
+    }
+}
+
+template <class Addr, class T, int D>
 int launch_wide(const Args& a, cudaStream_t stream) {
-  using L = WideLayout<D>;
-  auto kernel = wide_kernel<Addr, T, D>;
+  using L = WideLayout<T, D>;
+  auto kernel = wide_mma_kernel<Addr, T, D>;
   static unsigned opted = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -998,10 +1284,11 @@ int launch_wide(const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     opted |= 1u << (dev & 31);
   }
-  kernel<<<dim3(a.n_b, a.n_kv, a.splits), D, L::kBytes, stream>>>(a);
+  const int rows = (a.n_h / a.n_kv) * a.n_t;
+  const int tiles = (rows + kWideRows - 1) / kWideRows;
+  kernel<<<dim3(a.n_b, a.n_kv * tiles, a.splits), kThreads, L::kBytes, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return (int)e;
-  const int rows = (a.n_h / a.n_kv) * a.n_t;
   merge_kernel<Addr, T><<<dim3(rows, a.n_kv, a.n_b), D, 0, stream>>>(a, D);
   return (int)cudaGetLastError();
 }
@@ -1020,7 +1307,7 @@ int launch_d(const Args& a, int mt, cudaStream_t stream) {
 // Launches on `stream` (the split kernel and, for S > 1, the merge);
 // returns cudaGetLastError() after the last launch.  Takes D 32, 64 or 128,
 // G*T <= 64 rows (<= 32 at D 128), and, with fp32 or bf16 storage, D 256
-// or 320 at G*T <= 32 rows (`wide_kernel`); BS a power of two <= 32
+// or 320 at G*T <= 128 rows (`wide_mma_kernel`); BS a power of two <= 32
 // (RingAddr: units of 16 slots, MAXB = ceil(W / 16)), S >= 1.
 template <class Addr, class Q, class KT>
 int launch(const Args& a, int d, cudaStream_t stream) {
@@ -1032,7 +1319,7 @@ int launch(const Args& a, int d, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<Q, KT>::value) {
     if (d == 256 || d == 320) {
-      if (rows > kWideRows) return (int)cudaErrorInvalidValue;
+      if (rows > kWideRows * kWideMaxTiles) return (int)cudaErrorInvalidValue;
       return d == 256 ? launch_wide<Addr, Q, 256>(a, stream)
                       : launch_wide<Addr, Q, 320>(a, stream);
     }

@@ -17,11 +17,13 @@ see their headers for the design and bound.
   the launch.
 * :func:`paged_ragged_attention` — the dispatcher: the plain version for
   tensors on the CPU, the kernel for CUDA tensors, nothing else.
-* :func:`split_plan` / :func:`split_ranges` — the kernels' split of each
-  sequence's units (table entries; the dense ring's 16-slot chunks) over
-  S thread blocks, chosen from the shapes and the card's SM count alone
-  (never from a device tensor, so a launch makes no host sync), shared
-  with the int8 and ring kernels through :func:`plan_splits`.
+* :func:`split_plan` / :func:`wide_split_plan` / :func:`split_ranges` —
+  the kernels' split of each sequence's units (table entries; the dense
+  ring's 16-slot chunks) over S thread blocks, chosen from the shapes and
+  the card's SM count alone (never from a device tensor, so a launch
+  makes no host sync): ``split_plan`` for the tensor-core body at D <=
+  128, ``wide_split_plan`` for the wide heads' kernel at D 256 and 320,
+  shared with the int8 and ring kernels through :func:`plan_splits`.
 * :func:`check_verify_shape` / :func:`query_groups` — what one launch of
   the three verify kernels takes, and the launches a call's T query
   positions are cut into so that each one fits.
@@ -52,6 +54,29 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132                # SMs of an H100 SXM: the plan's default card
 NEG_INF = -1e30          # the kernels' "no score yet"
 STAGE_SLOTS = 64         # slots a thread block stages at a time
+# the wide heads' kernel (csrc/paged_verify.cuh, `wide_mma_kernel`): its
+# head dims, the query rows of one of its thread blocks (a row tile) and
+# the slots it stages at a time
+WIDE_DIMS = (256, 320)
+WIDE_TILE_ROWS = 32
+WIDE_STAGE_SLOTS = 32
+
+
+def _splits(blocks: int, bs: int, maxb: int, stage_slots: int, rows: int,
+            sms: int) -> int:
+    """S for a grid of ``blocks`` thread blocks a split (each writing an
+    fp32 partial of ``rows`` query rows and staging ``stage_slots`` slots
+    at a time): enough that blocks * S is about twice ``sms``, but at most
+    one stage of units per split and at most MAXB * BS / rows splits, then
+    cut to the splits that hold a unit."""
+    if maxb <= 0:
+        return 1
+    want = -(-2 * sms // max(1, blocks))
+    stages = -(-maxb * bs // stage_slots)
+    cap = max(1, maxb * bs // max(1, rows))
+    s = max(1, min(want, maxb, stages, cap))
+    per = -(-maxb // s)
+    return -(-maxb // per)
 
 
 @functools.lru_cache(maxsize=256)
@@ -67,14 +92,25 @@ def split_plan(b: int, t: int, h: int, kv: int, bs: int, maxb: int,
     most MAXB * BS / (G * T) splits, so that the fp32 partials the splits
     write (G * T rows of D each) never outgrow the K they read.  Then cut
     to the splits that hold a unit."""
-    if maxb <= 0:
-        return 1
-    want = -(-2 * sms // max(1, b * kv))
-    stages = -(-maxb * bs // STAGE_SLOTS)
-    cap = max(1, maxb * bs // max(1, (h // kv) * t))
-    s = max(1, min(want, maxb, stages, cap))
-    per = -(-maxb // s)
-    return -(-maxb // per)
+    return _splits(b * kv, bs, maxb, STAGE_SLOTS, (h // kv) * t, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def wide_split_plan(b: int, t: int, h: int, kv: int, bs: int, maxb: int,
+                    sms: int = SMS) -> int:
+    """S for the wide heads' kernel (D 256 and 320), whose grid is (B,
+    KV * row tiles, S) with a row tile of :data:`WIDE_TILE_ROWS` query rows:
+    from the shapes and the card's SM count ``sms`` alone, enough that B *
+    KV * tiles * S is about twice ``sms``, but at most one
+    :data:`WIDE_STAGE_SLOTS`-slot stage of units per split, and at most
+    MAXB * BS / R splits for a tile of R rows, so that the fp32 partial a
+    thread block writes (R rows of D) never outgrows the K it reads.  Then
+    cut to the splits that hold a unit.  :func:`split_plan` keeps its
+    values for D <= 128."""
+    rows = (h // kv) * t
+    tiles = -(-rows // WIDE_TILE_ROWS)
+    return _splits(b * kv * tiles, bs, maxb, WIDE_STAGE_SLOTS,
+                   min(rows, WIDE_TILE_ROWS), sms)
 
 
 def split_ranges(maxb: int, splits: int):
@@ -111,31 +147,32 @@ def split_scratch(b: int, t: int, h: int, kv: int, d: int, splits: int,
 
 # query rows (G * T) one launch takes a KV head, by head dim: the
 # tensor-core body's M tile (64 rows, 32 at D 128) and, at D 256 and 320,
-# the wide CUDA-core kernel's 32 (csrc/paged_verify.cuh)
-ROWS_PER_LAUNCH = {32: 64, 64: 64, 128: 32, 256: 32, 320: 32}
+# the wide kernel's four row tiles of 32 (csrc/paged_verify.cuh)
+ROWS_PER_LAUNCH = {32: 64, 64: 64, 128: 32, 256: 128, 320: 128}
 
 
 def check_verify_shape(h: int, kv: int, t: int, d: int, bs: int) -> None:
     """What one launch of the paged kernels takes: D 32, 64, 128, 256 or
     320 (the int8 pool's kernel stops at 128), G * T query rows per KV
-    head within :data:`ROWS_PER_LAUNCH` (64; 32 at D 128 and above), a
-    block size that is a power of two <= 32.  Raises ValueError on
+    head within :data:`ROWS_PER_LAUNCH` (64; 32 at D 128; 128 at D 256 and
+    320), a block size that is a power of two <= 32.  Raises ValueError on
     anything else."""
     rows = (h // kv) * t
     if (d not in ROWS_PER_LAUNCH or rows > ROWS_PER_LAUNCH[d]
             or not 0 < bs <= 32 or bs & (bs - 1)):
         raise ValueError(f"paged verify kernel takes D 32/64/128/256/320, "
-                         f"G*T <= 64 (<= 32 at D >= 128), block size a "
-                         f"power of two <= 32; got D {d}, G*T {rows}, block "
-                         f"size {bs}")
+                         f"G*T <= 64 (<= 32 at D 128, <= 128 at D 256/320), "
+                         f"block size a power of two <= 32; got D {d}, G*T "
+                         f"{rows}, block size {bs}")
 
 
 def query_groups(h: int, kv: int, t: int, d: int):
     """The verify kernels' launches over the T query positions:
     consecutive positions [begin, end) whose G * (end - begin) rows fit
-    one launch (:data:`ROWS_PER_LAUNCH`: 64 rows a KV head, 32 at D 128
-    and above); one group at smollm's shapes, four for recurrentgemma-2b's
-    T-11 verify pass (G 10: 3 positions a launch)."""
+    one launch (:data:`ROWS_PER_LAUNCH`: 64 rows a KV head, 32 at D 128,
+    128 at D 256 and 320); one group at smollm's shapes and at
+    recurrentgemma-2b's T-11 verify pass (G 10: 110 rows), two for
+    granite-8b's (G 4 at D 128)."""
     step = max(1, ROWS_PER_LAUNCH.get(d, 64) // max(1, h // kv))
     return [(i, min(i + step, t)) for i in range(0, t, step)]
 
@@ -169,9 +206,11 @@ def sm_count(device: torch.device) -> int:
 def plan_splits(b: int, t: int, h: int, kv: int, d: int, bs: int, maxb: int,
                 splits: Optional[int], device: torch.device) -> int:
     """The kernels' S after :func:`check_verify_shape`: ``splits`` when
-    forced (>= 1), else :func:`split_plan` for ``device``'s SM count."""
+    forced (>= 1), else :func:`split_plan` (:func:`wide_split_plan` at D
+    256 and 320) for ``device``'s SM count."""
     check_verify_shape(h, kv, t, d, bs)
-    s = (split_plan(b, t, h, kv, bs, maxb, sm_count(device)) if splits is None
+    plan = wide_split_plan if d in WIDE_DIMS else split_plan
+    s = (plan(b, t, h, kv, bs, maxb, sm_count(device)) if splits is None
          else int(splits))
     if s < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
@@ -265,7 +304,7 @@ def paged_ragged_verify_attention_cuda(q: torch.Tensor, pool_k: torch.Tensor,
     """The CUDA kernel on CUDA tensors (same arguments as the plain
     version).  q and the pools share a dtype (float32 or bfloat16);
     indices are int32; everything is contiguous on one device.
-    ``splits`` forces S (tests); by default :func:`split_plan` picks it.
+    ``splits`` forces S (tests); by default :func:`plan_splits` picks it.
     Query rows past one launch's (:func:`query_groups`) go to further
     launches of the same call."""
     b, t, h, d = q.shape

@@ -19,7 +19,7 @@ design and bound.
   tensors on the CPU, the kernel for CUDA tensors, nothing else.
 * :func:`ring_split_ranges` — the kernel's split of a row's W slots:
   its ceil(W / 16) chunks cut by ``paged_attention.split_ranges``, S from
-  ``paged_attention.split_plan`` over the chunks (shapes and SM count
+  ``paged_attention.plan_splits`` over the chunks (shapes and SM count
   alone, so a launch makes no host sync).
 * :func:`ragged_verify_attention_split_plain` — the kernel's algorithm in
   plain PyTorch (live-chunk skip, split, merge in split order), for the
@@ -130,7 +130,7 @@ def ragged_verify_attention_cuda(q: torch.Tensor, k_buf: torch.Tensor,
     """The CUDA kernel on CUDA tensors (same arguments as the plain
     version).  q and the rings share a dtype (float32 or bfloat16);
     positions are int32; everything is contiguous on one device.
-    ``splits`` forces S (tests); by default ``split_plan`` picks it over
+    ``splits`` forces S (tests); by default ``plan_splits`` picks it over
     the ring's 16-slot chunks.  Query rows past one launch's (see
     ``query_groups``) go to further launches of the same call."""
     b, t, h, d = q.shape

@@ -940,32 +940,79 @@ def _to(params, device):
 
 # --------------------------------------------------------------------------
 # B1 and B5 at recurrentgemma-2b's head dims (D 256 and 320, the wide
-# CUDA-core kernel of csrc/paged_verify.cuh)
+# heads' tensor-core kernel of csrc/paged_verify.cuh: up to 128 query rows a
+# KV head in one launch)
 # --------------------------------------------------------------------------
 
 # (H, KV, D): the target's local attention (G 10) and its draft's (G 2)
 WIDE_HEADS = [(10, 1, 256), (2, 1, 320)]
+# the row limit, G*T 128 a KV head: (H, KV, D, T)
+WIDE_LIMIT = [(16, 1, 256, 8), (2, 1, 320, 64)]
+
+
+def _c_calls(monkeypatch, mod):
+    """The list each call of ``mod``'s C entry point appends to: one call
+    launches the split kernel and at most one merge."""
+    calls, real = [], mod._lib
+
+    def counted():
+        fn = real()
+
+        def call(*args):
+            calls.append(args)
+            return fn(*args)
+        return call
+    monkeypatch.setattr(mod, "_lib", counted)
+    return calls
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", TOLS)
 @pytest.mark.parametrize("heads", WIDE_HEADS)
-# T 1 (G*T 10 / 2) and T 11 (110 / 22 query rows a KV head: four launches
-# of <= 32 rows at G 10), over 2 sequences with the helper's holes
+# T 1 (G*T 10 / 2) and T 11 (110 / 22 query rows a KV head, one launch),
+# over 3 sequences with the helper's holes and a row with no block
 @pytest.mark.parametrize("t", [1, 11])
 @pytest.mark.parametrize("window", [None, 12])
 def test_paged_attention_wide_heads_match_plain(cuda, t, heads, dtype, atol,
-                                                rtol, window):
+                                                rtol, window, monkeypatch):
     h, kv, d = heads
     args = _paged(3, t, h, kv, d, 40, 16, 8, dtype, cuda, seed=d + t)
+    calls = _c_calls(monkeypatch, pa)
     got = pa.paged_ragged_verify_attention_cuda(*args, window=window)
     again = pa.paged_ragged_verify_attention_cuda(*args, window=window)
     want = pa.paged_ragged_verify_attention_plain(*args, window=window)
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
-    groups = pa.query_groups(h, kv, t, d)
-    assert all((h // kv) * (hi - lo) <= 32 for lo, hi in groups)
-    if (h // kv) * t > 32:
-        assert len(groups) > 1
+    assert bool((got[0] == 0).all())          # the row with no valid slot
+    assert pa.query_groups(h, kv, t, d) == [(0, t)]
+    assert len(calls) == 2                    # one launch a call
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("shape", WIDE_LIMIT)
+@pytest.mark.parametrize("splits", [None, 3])
+def test_wide_heads_at_the_row_limit(cuda, shape, dtype, atol, rtol, splits,
+                                     monkeypatch):
+    """G*T 128 a KV head, four row tiles of 32, in one launch on the pool
+    and on the wrapped window ring; 129 rows raise."""
+    h, kv, d, t = shape
+    calls = {m: _c_calls(monkeypatch, m) for m in (pa, ra)}
+    args = _paged(3, t, h, kv, d, 40, 16, 8, dtype, cuda, seed=d)
+    got = pa.paged_ragged_verify_attention_cuda(*args, splits=splits)
+    want = pa.paged_ragged_verify_attention_plain(*args)
+    assert torch.equal(got, pa.paged_ragged_verify_attention_cuda(
+        *args, splits=splits))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())
+    ring = _ring(2, t, h, kv, d, 2064, dtype, cuda, seed=d, wrap=True)
+    got = ra.ragged_verify_attention_cuda(*ring, window=2048, splits=splits)
+    want = ra.ragged_verify_attention_plain(*ring, window=2048)
+    assert torch.equal(got, ra.ragged_verify_attention_cuda(
+        *ring, window=2048, splits=splits))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())
+    assert len(calls[pa]) == 2 and len(calls[ra]) == 2
+    with pytest.raises(ValueError):
+        pa.check_verify_shape(129, 1, 1, d, 16)
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", TOLS)
@@ -974,27 +1021,66 @@ def test_paged_attention_wide_heads_match_plain(cuda, t, heads, dtype, atol,
 @pytest.mark.parametrize("splits", [None, 1, 5])
 def test_ragged_attention_wide_heads_on_a_wrapped_window_ring(cuda, splits, t,
                                                               heads, dtype,
-                                                              atol, rtol):
+                                                              atol, rtol,
+                                                              monkeypatch):
     """The hybrid's ring at full width: W 2064 (window 2048 + 16 slack),
-    rows that have run past W, window 2048; forced splits too."""
+    rows that have run past W, window 2048, row 0 empty; forced splits
+    too; one launch a call."""
     h, kv, d = heads
     args = _ring(2, t, h, kv, d, 2064, dtype, cuda, seed=d + t, wrap=True)
     kw = dict(window=2048, splits=splits)
+    calls = _c_calls(monkeypatch, ra)
     got = ra.ragged_verify_attention_cuda(*args, **kw)
     again = ra.ragged_verify_attention_cuda(*args, **kw)
     want = ra.ragged_verify_attention_plain(*args, window=2048)
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert bool((got[0] == 0).all())          # the row with no valid slot
+    assert len(calls) == 2
 
 
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
 @pytest.mark.parametrize("heads", WIDE_HEADS)
-def test_wide_heads_forced_splits_on_the_pool(cuda, heads):
+def test_wide_heads_forced_splits_on_the_pool(cuda, heads, dtype, atol, rtol):
+    """S 1 to past the table's 8 entries (empty splits), each launched
+    twice for the same bits; a window that leaves some queries' slots in
+    the table's hole."""
     h, kv, d = heads
-    args = _paged(3, 11, h, kv, d, 40, 16, 8, torch.float32, cuda, seed=7)
-    want = pa.paged_ragged_verify_attention_plain(*args)
-    for splits in (1, 2, 7, 11):
-        got = pa.paged_ragged_verify_attention_cuda(*args, splits=splits)
-        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    args = _paged(3, 11, h, kv, d, 40, 16, 8, dtype, cuda, seed=7)
+    for window in (None, 12):
+        want = pa.paged_ragged_verify_attention_plain(*args, window=window)
+        for splits in (1, 2, 7, 11):
+            got = pa.paged_ragged_verify_attention_cuda(*args, window=window,
+                                                        splits=splits)
+            assert torch.equal(got, pa.paged_ragged_verify_attention_cuda(
+                *args, window=window, splits=splits))
+            torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                       rtol=rtol)
+            assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+@pytest.mark.parametrize("heads", WIDE_HEADS)
+def test_wide_heads_forced_splits_on_a_partial_ring(cuda, heads, dtype, atol,
+                                                    rtol):
+    """A ring of 300 slots (a ragged last chunk and stage) whose rows hold
+    fewer positions than W, the rest of the ring NaN: the positions-first
+    scan must stage none of the empty slots; S 1 to past the 19 chunks."""
+    h, kv, d = heads
+    q, kb, vb, q_pos, kv_pos = _ring(3, 11, h, kv, d, 300, dtype, cuda,
+                                     seed=11)
+    kb = kb.masked_fill((kv_pos < 0)[:, :, None, None], float("nan"))
+    vb = vb.masked_fill((kv_pos < 0)[:, :, None, None], float("nan"))
+    args = [q, kb, vb, q_pos, kv_pos]
+    want = ra.ragged_verify_attention_plain(
+        q, kb.nan_to_num(0.0), vb.nan_to_num(0.0), q_pos, kv_pos)
+    for splits in (None, 1, 2, 6, 22):
+        got = ra.ragged_verify_attention_cuda(*args, splits=splits)
+        assert torch.equal(got, ra.ragged_verify_attention_cuda(
+            *args, splits=splits))
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        assert bool((got[0] == 0).all())
 
 
 def test_int8_kernel_refuses_wide_heads(cuda):

@@ -28,6 +28,12 @@ PAGED_SHAPES = [
     (3, 1, 9, 3, 64, 14, 16, 4),        # draft step, smollm grouping (G=3)
     (3, 11, 9, 3, 64, 14, 16, 4),       # verify at K+1 = 11
     (2, 6, 8, 8, 32, 12, 8, 5),         # MHA
+    # recurrentgemma-2b's local attention (G 10 at D 256) and its draft's
+    # (G 2 at D 320): the wide heads' kernel, draft step and verify
+    (3, 1, 10, 1, 256, 14, 16, 4),
+    (3, 11, 10, 1, 256, 14, 16, 4),
+    (3, 1, 2, 1, 320, 14, 16, 4),
+    (3, 11, 2, 1, 320, 14, 16, 4),
 ]
 
 
@@ -75,10 +81,26 @@ def test_plain_paged_attention_matches_pallas_and_oracle(shape, window):
     np.testing.assert_allclose(got, np.asarray(kern), atol=2e-5, rtol=1e-4)
     # the jnp oracle softmaxes a fully masked row uniformly where the
     # kernel (and the plain version) return 0: compare rows with a slot
+    # (row 0 has none; with a window, a query whose window falls in the
+    # table's hole has none either)
     want = np.asarray(ref.paged_ragged_verify_attention_ref(*jargs,
                                                             window=window))
-    assert np.all(got[0] == 0.0)
-    np.testing.assert_allclose(got[1:], want[1:], atol=2e-5, rtol=1e-4)
+    has_slot = _has_valid_slot(*args[3:], window)
+    assert not has_slot[0].any()
+    assert np.all(got[~has_slot] == 0.0)
+    np.testing.assert_allclose(got[has_slot], want[has_slot], atol=2e-5,
+                               rtol=1e-4)
+
+
+def _has_valid_slot(table, q_pos, kv_pos, window):
+    """[B,T] bool: the query has a slot with 0 <= kv_pos <= q_pos (and
+    q_pos - kv_pos < window) among its table's blocks."""
+    pos = np.where(table[:, :, None] >= 0, kv_pos[np.maximum(table, 0)], -1)
+    pos = pos.reshape(table.shape[0], 1, -1)
+    ok = (pos >= 0) & (pos <= q_pos[:, :, None])
+    if window is not None:
+        ok &= q_pos[:, :, None] - pos < window
+    return ok.any(-1)
 
 
 @pytest.mark.parametrize("b,t,v,bv", [(2, 3, 1000, 256), (4, 10, 1030, 512),

@@ -39,6 +39,12 @@ SHAPES = [
     (2, 11, 12, 4, 128, 96),    # verify, SL_max+1 queries
     (1, 4, 4, 1, 32, 512),      # MQA
     (2, 3, 16, 16, 64, 160),    # non-pow2 ring
+    # recurrentgemma-2b's local attention (G 10 at D 256) and its draft's
+    # (G 2 at D 320): the wide heads' kernel, draft step and verify
+    (2, 1, 10, 1, 256, 80),
+    (2, 11, 10, 1, 256, 80),
+    (2, 1, 2, 1, 320, 80),
+    (2, 11, 2, 1, 320, 80),
 ]
 
 

@@ -68,10 +68,12 @@ def test_split_plan_reads_shapes_only():
     assert pa.split_plan(4, 11, 9, 3, 16, 128, sms=1) >= 1
 
 
+# the wide heads (D 256, 320) take up to 128 query rows a KV head in one
+# launch: four row tiles of 32
 @pytest.mark.parametrize("d,rows,bs", [(48, 3, 16), (64, 65, 16),
                                        (128, 33, 16), (64, 3, 12),
-                                       (64, 3, 64), (256, 33, 16),
-                                       (320, 40, 16), (192, 3, 16)])
+                                       (64, 3, 64), (256, 129, 16),
+                                       (320, 129, 16), (192, 3, 16)])
 def test_kernel_shape_limits_raise(d, rows, bs):
     with pytest.raises(ValueError):
         pa.check_verify_shape(rows, 1, 1, d, bs)
@@ -79,9 +81,72 @@ def test_kernel_shape_limits_raise(d, rows, bs):
 
 @pytest.mark.parametrize("d,rows,bs", [(64, 33, 16), (128, 32, 8),
                                        (32, 64, 32), (64, 1, 1),
-                                       (256, 32, 16), (320, 22, 16)])
+                                       (256, 32, 16), (320, 22, 16),
+                                       (256, 33, 16), (320, 40, 16),
+                                       (256, 110, 16), (256, 128, 16),
+                                       (320, 128, 32)])
 def test_kernel_shape_limits_accept(d, rows, bs):
     pa.check_verify_shape(rows, 1, 1, d, bs)
+
+
+WIDE_PLAN_SHAPES = [
+    # b, t, h, kv, bs, maxb: recurrentgemma-2b's target (G 10) and draft
+    # (G 2) at T 1 and 11 on its pool (ctx 256) and its ring (W 2064 in
+    # 16-slot chunks), a one-row call, an empty table, the row limit
+    (4, 1, 10, 1, 16, 16), (4, 11, 10, 1, 16, 16), (4, 11, 2, 1, 16, 16),
+    (4, 1, 10, 1, 16, 129), (4, 11, 10, 1, 16, 129), (4, 11, 2, 1, 16, 129),
+    (1, 1, 1, 1, 32, 3), (3, 11, 10, 1, 16, 0), (2, 64, 2, 1, 8, 40),
+]
+
+
+@pytest.mark.parametrize("shape", WIDE_PLAN_SHAPES)
+def test_wide_split_plan_bounds(shape):
+    """The wide kernel's plan: at least one split, none of them empty,
+    never more than the partial cap (a thread block's fp32 partial of R
+    rows stays within the R slots of K it reads) or one 32-slot stage a
+    split allows, and B * KV * row tiles * S near two blocks an SM."""
+    b, t, h, kv, bs, maxb = shape
+    s = pa.wide_split_plan(*shape)
+    assert s >= 1 and s == pa.wide_split_plan(*shape)
+    if not maxb:
+        assert s == 1
+        return
+    rows = (h // kv) * t
+    tiles = -(-rows // pa.WIDE_TILE_ROWS)
+    assert s <= max(1, maxb * bs // min(rows, pa.WIDE_TILE_ROWS))
+    assert s <= -(-maxb * bs // pa.WIDE_STAGE_SLOTS) and s <= maxb
+    assert all(hi > lo for lo, hi in pa.split_ranges(maxb, s))
+    assert b * kv * tiles * s <= 2 * pa.SMS + b * kv * tiles
+
+
+def test_wide_split_plan_reads_shapes_only():
+    """Plain ints in (the shapes and the SM count): no device tensor is
+    read, so a launch costs no host synchronisation; a card with fewer
+    SMs gets no more splits, never fewer than one."""
+    params = inspect.signature(pa.wide_split_plan).parameters
+    assert list(params) == ["b", "t", "h", "kv", "bs", "maxb", "sms"]
+    assert all(p.annotation in (int, "int") for p in params.values())
+    for shape in WIDE_PLAN_SHAPES:
+        full = pa.wide_split_plan(*shape)
+        for sms in (66, 16, 1):
+            assert 1 <= pa.wide_split_plan(*shape, sms=sms) <= full
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 320])
+def test_plan_splits_keeps_split_plan_below_256(shape, d, monkeypatch):
+    """The wrappers' S: ``split_plan`` at D <= 128, whose values fix the
+    tensor-core body's merge order (and so its bits), and
+    ``wide_split_plan`` only at D 256 and 320 (the card's SM count stood
+    in by the H100's and by half of it)."""
+    b, t, h, kv, bs, maxb = shape
+    t = min(t, pa.ROWS_PER_LAUNCH[d] // (h // kv))
+    plan = pa.wide_split_plan if d in pa.WIDE_DIMS else pa.split_plan
+    for sms in (pa.SMS, pa.SMS // 2):
+        monkeypatch.setattr(pa, "sm_count", lambda device: sms)
+        got = pa.plan_splits(b, t, h, kv, d, bs, maxb, None,
+                             torch.device("cpu"))
+        assert got == plan(b, t, h, kv, bs, maxb, sms)
 
 
 SHAPES = [
