@@ -48,8 +48,8 @@ Phases, each printing one JSON line:
              launch during it; ``dispatch`` runs under
              ``torch.cuda.set_sync_debug_mode("warn")`` and must make
              no synchronising call; a serve with a twin must emit its
-             twin's greedy streams.  Then some
-             serves again under ``torch.profiler`` for a few rounds
+             twin's greedy streams.  Then (in the side processes, below)
+             some serves again under ``torch.profiler`` for a few rounds
              (device busy share, top kernels, the port's own kernels
              and host calls), and the paths at the reduced width on the
              card and on the CPU (plain versions) must emit the same
@@ -79,7 +79,25 @@ Phases, each printing one JSON line:
              syncs; the ranks' kernel launches join the kernels line;
              ``mesh-launcher``: ``torchrun --nproc-per-node 1 -m
              repro_torch.launch.serve --demo --mesh 1x1`` must exit 0 and
-             print its summary.  ``--only mesh-witness`` (a measurement,
+             print its summary.
+4c. mesh-families — every non-dense family on the mesh (its world and
+             launcher run beside the mesh phase's, their twins served
+             before either starts; ``--only mesh-families`` runs it
+             alone):
+             granite-moe-3b-a800m on the ring (each data rank gathers
+             the call's rows to route them), mamba2-130m on the ring,
+             recurrentgemma-2b on the pool (a local-attention layer and
+             two RG-LRU layers; its draft's D-320 attention too),
+             qwen2-vl-2b on the pool and seamless-m4t-medium on the ring
+             (its empty encoder context), at full width and the depths
+             of ``MESH_FAMILY_LAYERS``, each first on one card (the
+             twins), then on 2 x 2 ranks sharing card 0 over gloo
+             (``--mesh-family-rank``) beside the launcher's ``--demo
+             --mesh 1x1`` of mamba2-130m under torchrun; each rank's
+             streams must equal its twin's with 0 synchronising calls
+             in dispatch, each row prints tok/s meshed and twin,
+             collectives a round and the ranks' launches, which join
+             the kernels line.  ``--only mesh-witness`` (a measurement,
              not in the default run): the damped n-gram x int8 serve at
              all 30 layers on one card and on 1 x 3 ranks sharing the
              card, every K/V quantization recorded; prints where one
@@ -88,7 +106,8 @@ Phases, each printing one JSON line:
              that round the first fp32 gap, the first int8 value apart
              (its quanta, its distance from the rounding boundary) and
              the cascade after them.
-5. frontdoor — the serving front door at smollm-135m full width:
+5. frontdoor — the serving front door at smollm-135m full width, 10 of
+             its 30 layers (``FRONTDOOR_LAYERS``):
              prefix caching (``WARM_SERVES``: a 512-token head seeded by
              one request, then a partial hit with a 100-token tail, the
              head alone, a full block-aligned repeat that forks a block
@@ -195,7 +214,7 @@ Phases, each printing one JSON line:
              2e-3); then the reference benchmark's draft/target pair
              (``benchmarks/common.build_pair("llama")``'s recipe: four
              Markov corpora, target 1600 steps, draft 1000) trained on
-             the card from seeded inits, each final loss within 5% of
+             the card from seeded inits (by the ``train`` side process, below), each final loss within 5% of
              the reference's, and served on code and on dialogue prompts
              with ``common.serve``'s settings (``PAIR_SERVES``: the model
              drafter under static SL 4 and dsde on the fp32 pool, dsde
@@ -229,6 +248,20 @@ Phases, each printing one JSON line:
              ``max_memory_allocated``; each prints its median ms and
              roofline share.
 
+The default run gives what times nothing the script reports as the
+card's rate to two processes of this script (``--side DUTY DIR``, 2 CPU
+threads each) that start after the kernel phase and run beside the
+others: ``train``, the train phase's corpus and pair training, then
+every profile; ``checks``, the reduced-width card == CPU checks of the
+serve, frontdoor, families, recurrent and multimodal phases.  The main
+process loads the corpus and the pair's params from DIR when its train
+phase needs them (``side-file``: the seconds it waited), stops both
+while the shared-card mesh worlds run (``side-pause``; never inside the
+pair's training or a profiled run), and relays their rows at the end
+(``"process": "side-train"`` / ``"side-checks"``), after each one's
+``side-wait``.  Every phase row carries ``t``, the seconds since its
+process started.
+
 It ends with the script's seconds so far, the kernels line, the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits
@@ -259,6 +292,7 @@ of features the parent lacks are left out of its runs), and ptxas's
 report of both trees' ``AB_PTXAS_SOURCES``.  It prints no result line.
 """
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -280,7 +314,13 @@ BF16_FLOP_S = 989e12         # H100 SXM bf16 tensor cores, dense
 NGRAM_DAMP = 2e-4
 
 
+# every phase row carries ``t``: the seconds since its process started
+T_START = time.monotonic()
+
+
 def emit(obj) -> None:
+    if "phase" in obj and "t" not in obj:
+        obj = {**obj, "t": round(time.monotonic() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1208,11 +1248,12 @@ def serve_engine(cfg, pt, pd, sv, mesh=None):
                          serving, seed=0, device="cuda", mesh=mesh)
 
 
-def serve_requests(cfg, sv):
+def serve_requests(cfg, sv, new=SERVE_NEW):
     from repro_torch.serving.request import Request
-    return [Request(i, prompt=p, max_new_tokens=SERVE_NEW,
+    return [Request(i, prompt=p, max_new_tokens=new,
                     slo_deadline_s=((0.05 if i % 2 else 60.0)
-                                    if sv.deadlines else None))
+                                    if getattr(sv, "deadlines", False)
+                                    else None))
             for i, p in enumerate(serve_prompts(cfg.vocab_size, sv.drafter))]
 
 
@@ -1221,7 +1262,10 @@ def serve_requests(cfg, sv):
 SERVE_STREAMS = {}
 
 
-def serve_phase():
+def serve_phase(profile=True):
+    """The full-width serves of ``SERVES`` and (``profile``; the default
+    run leaves them to the side processes) the ``PROFILED`` ones again
+    under the profiler; returns the serves' launches."""
     import torch
     from repro_torch.serving.request import Request
 
@@ -1300,7 +1344,7 @@ def serve_phase():
         if sv.name != "serve-ngram-undamped":
             for k in total:
                 total[k] += launches[k]
-        if sv.name in PROFILED:
+        if profile and sv.name in PROFILED:
             profiled.append((sv.name, engine, reqs))
     # dense and paged may sum attention in other orders, so random-weight
     # argmax streams may part at a near tie: printed, not required
@@ -1311,7 +1355,6 @@ def serve_phase():
                                                        streams["serve"]))})
     for args in profiled:
         timed_phase("profile", profile_phase, *args)
-    timed_phase("check", check_phase, cfg)
     return total
 
 
@@ -1802,11 +1845,7 @@ def frontend_runs(cfg, pt, pd, smi):
 def http_runs(cfg, pt, pd, smi) -> None:
     """HTTP over a real loopback socket at full width (the fp32 pool with
     prefix caching, pipelined): one non-streaming and one streaming
-    completion, each equal to ``run()``'s stream for the prompt; then
-    the serve launcher's ``--http-smoke`` and ``--demo --paged
-    --prefix-share 0.5`` as subprocesses on the card (reduced width),
-    each of which must exit 0."""
-    import os
+    completion, each equal to ``run()``'s stream for the prompt."""
     import numpy as np
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
     from repro_torch.serving.engine import ServingEngine
@@ -1843,12 +1882,20 @@ def http_runs(cfg, pt, pd, smi) -> None:
     if not ok:
         raise AssertionError(f"HTTP streams differ from run(): {res} "
                              f"{want.output}")
+
+
+def start_frontdoor_launchers():
+    """The serve launcher's ``--http-smoke`` and ``--demo --paged
+    --prefix-share 0.5`` as subprocesses on the card (reduced width),
+    both at once (each mostly its own start-up), started when the
+    frontdoor phase starts.  Returns (their directory, the runs, the
+    start time)."""
+    import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     tmp = Path(tempfile.mkdtemp(prefix="frontdoor-", dir=ROOT / "build"))
     runs = []
     t0 = time.monotonic()
-    # both launchers at once (each mostly its own start-up)
     for i, args in enumerate((["--http-smoke"],
                               ["--demo", "--paged", "--prefix-share", "0.5"])):
         with open(tmp / f"{i}.out", "w") as out, \
@@ -1857,6 +1904,12 @@ def http_runs(cfg, pt, pd, smi) -> None:
                 [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
                  "smollm-135m", *args], cwd=ROOT, env=env, stdout=out,
                 stderr=err)))
+    return tmp, runs, t0
+
+
+def finish_frontdoor_launchers(launchers) -> None:
+    """Each launcher of :func:`start_frontdoor_launchers` must exit 0."""
+    tmp, runs, t0 = launchers
     for args, i, proc in runs:
         proc.wait(timeout=300)
         emit({"phase": "frontdoor-launcher", "args": args,
@@ -1868,23 +1921,39 @@ def http_runs(cfg, pt, pd, smi) -> None:
                                  + (tmp / f"{i}.err").read_text()[-3000:])
 
 
+# the front door's depth: smollm-135m's first 10 of 30 layers at full
+# width (30 until the phase took 140.4 s of an 886.6 s run on an H100
+# 80GB HBM3, 700.00 W with a slow host)
+FRONTDOOR_LAYERS = 10
+
+
 def frontdoor_phase(smi):
     """The serving front door (prefix caching, the front-end, HTTP, the
-    serve launcher) at smollm-135m full width; returns the launches of
+    serve launcher) at smollm-135m full width and ``FRONTDOOR_LAYERS``
+    deep, the launcher's runs beside the others; returns the launches of
     its measured runs."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.weights import init_params, map_params
 
     t0 = time.monotonic()
-    cfg = get_config("smollm-135m")
-    pt = init_params(cfg, seed=0, device="cuda")
-    pd = map_params(lambda a, n: a + 0.03 * n, pt,
-                    init_params(cfg, seed=1, device="cuda"))
-    total = warm_serves(cfg, pt, pd, smi)
-    timed_phase("warm-check", warm_check_phase, cfg)
-    for kernel, n in frontend_runs(cfg, pt, pd, smi).items():
-        total[kernel] += n
-    http_runs(cfg, pt, pd, smi)
+    launchers = start_frontdoor_launchers()
+    try:
+        cfg = dataclasses.replace(get_config("smollm-135m"),
+                                  num_layers=FRONTDOOR_LAYERS)
+        pt = init_params(cfg, seed=0, device="cuda")
+        pd = map_params(lambda a, n: a + 0.03 * n, pt,
+                        init_params(cfg, seed=1, device="cuda"))
+        total = warm_serves(cfg, pt, pd, smi)
+        for kernel, n in frontend_runs(cfg, pt, pd, smi).items():
+            total[kernel] += n
+        http_runs(cfg, pt, pd, smi)
+    except BaseException:
+        for _, _, proc in launchers[1]:
+            proc.kill()
+            proc.wait()
+        raise
+    finish_frontdoor_launchers(launchers)
     emit({"phase": "frontdoor-total", "seconds": time.monotonic() - t0})
     return total
 
@@ -2086,21 +2155,57 @@ def time_commits():
     return stop
 
 
-def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
+def family_engine(cfg, dcfg, pt, pd, sv):
+    """The engine builder of the family serve ``sv``: ``cfg``'s target
+    ``pt`` (damped by ``sv.damp``) and, for the model drafter, the draft
+    ``dcfg`` / ``pd``."""
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    model = sv.drafter == "model"
+    serving = ServingConfig(max_batch_size=4, max_seq_len=sv.max_len,
+                            pipelined=sv.pipelined,
+                            paged_kv=sv.nblocks is not None,
+                            kv_block_size=16, num_kv_blocks=sv.nblocks,
+                            kv_quant=sv.kv_quant)
+    target = damped(pt, sv.damp)
+
+    def engine():
+        return ServingEngine(target, cfg, pd if model else None,
+                             dcfg if model else None,
+                             SpecDecodeConfig(drafter=sv.drafter),
+                             serving, seed=0, device="cuda")
+    return engine
+
+
+def family_requests(cfg, sv):
+    """The family serve ``sv``'s requests (``sv.prompts``: their lengths,
+    random tokens; None: the 8 of :func:`serve_prompts`)."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.RandomState(0)
+    prompts = (serve_prompts(cfg.vocab_size, sv.drafter)
+               if sv.prompts is None else
+               [rng.randint(0, cfg.vocab_size, size=n).tolist()
+                for n in sv.prompts])
+    return [Request(i, prompt=p, max_new_tokens=sv.new)
+            for i, p in enumerate(prompts)]
+
+
+FAMILY_PROFILED = ("moe-serve",)
+
+
+def family_serves(smi, serves=FAMILY_SERVES, profiled_names=FAMILY_PROFILED):
     """The full-width ``serves``, each target built once and freed before
     the next; then the ``profiled_names`` serves again under the
     profiler.  A recurrent target's commits are timed inside the serve
     (:func:`time_commits`).  Returns the launches summed over the
     serves."""
     import gc
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
     from repro_torch.models import cache as cache_lib
     from repro_torch.models.transformer import has_recurrent_state
     from repro_torch.models.weights import init_params
-    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
     total = {k: 0 for k in read_launches()}
@@ -2119,27 +2224,8 @@ def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
         profiled = []
         for sv in (sv for sv in serves if sv.arch == arch):
             model = sv.drafter == "model"
-            serving = ServingConfig(max_batch_size=4, max_seq_len=sv.max_len,
-                                    pipelined=sv.pipelined,
-                                    paged_kv=sv.nblocks is not None,
-                                    kv_block_size=16,
-                                    num_kv_blocks=sv.nblocks,
-                                    kv_quant=sv.kv_quant)
-            target = damped(pt, sv.damp)
-
-            def engine(target=target, model=model, sv=sv, serving=serving):
-                return ServingEngine(target, cfg, pd if model else None,
-                                     dcfg if model else None,
-                                     SpecDecodeConfig(drafter=sv.drafter),
-                                     serving, seed=0, device="cuda")
-
-            rng = np.random.RandomState(0)
-            prompts = (serve_prompts(cfg.vocab_size, sv.drafter)
-                       if sv.prompts is None else
-                       [rng.randint(0, cfg.vocab_size, size=n).tolist()
-                        for n in sv.prompts])
-            reqs = [Request(i, prompt=p, max_new_tokens=sv.new)
-                    for i, p in enumerate(prompts)]
+            engine = family_engine(cfg, dcfg, pt, pd, sv)
+            reqs = family_requests(cfg, sv)
             engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
             eng = engine()
             syncs = count_syncs(eng)
@@ -2223,7 +2309,7 @@ def family_serves(smi, serves=FAMILY_SERVES, profiled_names=("moe-serve",)):
                 total[k] += launches[k]
             if sv.name in profiled_names:
                 profiled.append((sv.name, engine, reqs))
-            del target, eng
+            del engine, eng
         for args in profiled:
             timed_phase("profile", profile_phase, *args)
         del pt, pd, profiled
@@ -2359,12 +2445,14 @@ def family_check_phase() -> None:
         transformer.moe_apply = orig
 
 
-def families_phase(smi):
-    """The full-width serves and the reduced-width checks of the dense
-    remainder and the MoE family; returns the serves' launches."""
+def families_phase(smi, side=False):
+    """The full-width serves of the dense remainder and the MoE family,
+    and (unless ``side``: the side processes take them) the MoE serve's
+    profile; their reduced-width checks run in a side process (or
+    ``--only checks``).  Returns the serves' launches."""
     t0 = time.monotonic()
-    launches = family_serves(smi)
-    timed_phase("family-check", family_check_phase)
+    launches = family_serves(smi, FAMILY_SERVES,
+                             () if side else FAMILY_PROFILED)
     emit({"phase": "families-total", "seconds": time.monotonic() - t0})
     return launches
 
@@ -2478,12 +2566,15 @@ def recurrent_check_phase() -> None:
                                  f"{ring}-slot ring")
 
 
-def recurrent_phase(smi):
-    """The full-width serves and the reduced-width checks of the
-    recurrent families; returns the serves' launches."""
+def recurrent_phase(smi, side=False):
+    """The full-width serves of the recurrent families and, unless
+    ``side`` (the side processes take them), their profiles and
+    reduced-width checks; returns the serves' launches."""
     t0 = time.monotonic()
-    launches = family_serves(smi, RECURRENT_SERVES, RECURRENT_PROFILED)
-    timed_phase("recurrent-check", recurrent_check_phase)
+    launches = family_serves(smi, RECURRENT_SERVES,
+                             () if side else RECURRENT_PROFILED)
+    if not side:
+        timed_phase("recurrent-check", recurrent_check_phase)
     emit({"phase": "recurrent-total", "seconds": time.monotonic() - t0})
     return launches
 
@@ -2824,16 +2915,19 @@ def multimodal_check_phase() -> None:
                              f"{runs['cuda'][0]} vs {runs['cpu'][0]}")
 
 
-def multimodal_phase(smi):
+def multimodal_phase(smi, side=False):
     """The full-width serves of the vlm and audio families, the vision
-    stub's image prefill, the encoder-conditioned round, and the
+    stub's image prefill, the encoder-conditioned round, and, unless
+    ``side`` (the side processes take them), the serves' profiles and the
     reduced-width checks; returns the serves' and rounds' launches."""
     t0 = time.monotonic()
-    launches = family_serves(smi, MULTIMODAL_SERVES, MULTIMODAL_PROFILED)
+    launches = family_serves(smi, MULTIMODAL_SERVES,
+                             () if side else MULTIMODAL_PROFILED)
     vlm_image_phase(smi)
     for kernel, n in audio_encdec_phase(smi).items():
         launches[kernel] += n
-    timed_phase("multimodal-check", multimodal_check_phase)
+    if not side:
+        timed_phase("multimodal-check", multimodal_check_phase)
     emit({"phase": "multimodal-total", "seconds": time.monotonic() - t0})
     return launches
 
@@ -3393,13 +3487,15 @@ def pair_card_equal_cpu(pair, streams) -> None:
                                      "streams differ")
 
 
-def train_phase(smi):
+def train_phase(smi, side=None):
     """Training on the card, then the trained pair served through the
-    DSDE round; returns the serves' kernel launches."""
+    DSDE round (the corpus built and the pair trained here, or by the
+    ``train`` side process ``side``); returns the serves' kernel
+    launches."""
     t0 = time.monotonic()
     train_demo(smi)
     t1 = time.monotonic()
-    stream = mixed_stream()
+    stream = side_stream(side) if side else mixed_stream()
     emit({"phase": "train-corpus", "tokens": int(stream.shape[0]),
           "seconds": time.monotonic() - t1})
     train_full_width(stream, smi)
@@ -3407,7 +3503,7 @@ def train_phase(smi):
     family_train_phase(smi, stream)
     train_full_width(stream, smi, b=2, s=2048, steps=5, skip=2,
                      must_fall=False)
-    pair = train_pair(stream, smi)
+    pair = side_pair(side) if side else train_pair(stream, smi)
     launches, streams = pair_serves(pair, smi)
     pair_card_equal_cpu(pair, streams)
     emit({"phase": "train-total", "seconds": time.monotonic() - t0})
@@ -3424,13 +3520,17 @@ PORT_KERNELS = ("pv::verify_kernel", "pv::wide_mma_kernel", "pv::merge_kernel",
 # rounds a profiled run traces (formerly 6, then 3, then 2: the traces'
 # processing on the host, about 1 ms a kernel launch traced, took a
 # quarter to a third of the script's time, and at 2 rounds still 205 s
-# of a 1173.6 s run on an H100 80GB HBM3 with a slow host)
+# of a 1173.6 s run on an H100 80GB HBM3 with a slow host), and the
+# requests it admits (formerly 4: the ten profiles took 115 s of a
+# 929.6 s run on an H100 80GB HBM3, 700.00 W; fewer requests, fewer
+# prefills traced)
 PROFILE_ROUNDS = 1
+PROFILE_REQUESTS = 2
 
 
 def profile_phase(serve, engine, reqs) -> None:
-    """The first four requests of ``serve`` again, for their prefill and
-    first ``PROFILE_ROUNDS`` rounds, under ``torch.profiler``: device kernel time
+    """The first ``PROFILE_REQUESTS`` requests of ``serve`` again, for
+    their prefill and first ``PROFILE_ROUNDS`` rounds, under ``torch.profiler``: device kernel time
     against the run's wall (the device's busy share), the kernels that
     take it, and on the host the operator and CUDA runtime calls that
     take the most time (a synchronising call shows as
@@ -3443,14 +3543,15 @@ def profile_phase(serve, engine, reqs) -> None:
     from repro_torch.serving.request import Request
 
     again = [Request(r.request_id, prompt=r.prompt, max_new_tokens=32)
-             for r in reqs[:4]]
+             for r in reqs[:PROFILE_REQUESTS]]
     eng = engine()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        eng.run(again, max_rounds=PROFILE_ROUNDS)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+        with side_lock():
+            t0 = time.monotonic()
+            eng.run(again, max_rounds=PROFILE_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
@@ -3769,14 +3870,22 @@ MESH_NCCL_TWINS = ("serve", "serve-dense")
 # splits the MLP and the vocabulary, replicates the heads, and splits the
 # ring's rows and the n-gram history over data
 MESH_SHARED = ("1x3", "2x2")
-# the shared-card meshes serve the first 6 of smollm's 30 layers, against
+# the shared-card meshes serve the first 3 of smollm's 30 layers, against
 # unmeshed twins of the same depth: the ranks time-slice one card, and a
 # gloo all-reduce there took 5.7 ms (1 x 3, 30 layers: 234 s for the four
-# serves, 50-60 s for each pool or ring serve).  At 30 layers the damped
+# serves, 50-60 s for each pool or ring serve; at 6 layers the three
+# worlds, side by side, took 113.9 s of an 841.1 s run on an H100 80GB
+# HBM3, 700.00 W with a slow host, their 11 ranks more than its 8 CPU
+# cores).  At 30 layers the damped
 # n-gram x int8 serve parts from its twin on 1 x 3; ``--only
 # mesh-witness`` records why (split sums move K/V a few units in the last
 # place, int8 rounding makes some of them whole quanta)
-MESH_SHARED_LAYERS = 6
+MESH_SHARED_LAYERS = 3
+# tokens a request of the shared-card and family worlds (and of their
+# twins; the NCCL serves emit ``SERVE_NEW``, their twins the serve
+# phase's): their rounds' collectives and clock broadcasts, not their
+# layers, set a world's pace
+MESH_NEW = 8
 MESH_RANK_TIMEOUT_S = 600
 
 
@@ -3784,20 +3893,22 @@ def serve_by_name(name):
     return next(sv for sv in SERVES if sv.name == name)
 
 
-def mesh_serve(cfg, pt, pd, sv, mesh, warm_up=False):
+def mesh_serve(cfg, pt, pd, sv, mesh, warm_up=False, engine=serve_engine,
+               new=SERVE_NEW):
     """One meshed serve of ``sv`` (``warm_up``: after a one-request run,
-    the process's one-time set-up): this rank's streams, wall, rounds,
+    the process's one-time set-up; ``engine``: its engine's builder;
+    ``new``: tokens a request): this rank's streams, wall, rounds,
     collectives, dispatch syncs and kernel launches."""
     import torch
     from repro_torch.core import tp
     from repro_torch.serving.request import Request
 
     if warm_up:
-        serve_engine(cfg, pt, pd, sv, mesh).run(
+        engine(cfg, pt, pd, sv, mesh).run(
             [Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
-    eng = serve_engine(cfg, pt, pd, sv, mesh)
+    eng = engine(cfg, pt, pd, sv, mesh)
     syncs = count_syncs(eng)
-    reqs = serve_requests(cfg, sv)
+    reqs = serve_requests(cfg, sv, new)
     reset_launches()
     tp.reset_counts()
     torch.cuda.synchronize()
@@ -3833,7 +3944,7 @@ def mesh_rank_main(spec, rank, store, out, names) -> int:
         plan = MeshPlan.for_mesh(serving_mesh(spec, share_card=True), 4)
         cfg, pt, pd = serve_weights(plan, MESH_SHARED_LAYERS)
         res = {name: mesh_serve(cfg, pt, pd, serve_by_name(name), plan,
-                                warm_up=i == 0)
+                                warm_up=i == 0, new=MESH_NEW)
                for i, name in enumerate(names.split(","))}
         Path(out).write_text(json.dumps(res))
     finally:
@@ -3844,7 +3955,8 @@ def mesh_rank_main(spec, rank, store, out, names) -> int:
 def mesh_twins(names, smi, layers=None):
     """The unmeshed streams of the serves ``names``: the serve phase's
     (full depth, when it ran), else served here on one card at
-    ``layers``, each timed after a warm-up (rows ``mesh-twin``)."""
+    ``layers`` with ``MESH_NEW`` tokens a request, each timed after a
+    warm-up (rows ``mesh-twin``)."""
     import torch
     from repro_torch.serving.request import Request
     if layers is None and all(n in SERVE_STREAMS for n in names):
@@ -3856,7 +3968,7 @@ def mesh_twins(names, smi, layers=None):
         serve_engine(cfg, pt, pd, sv).run(
             [Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
         eng = serve_engine(cfg, pt, pd, sv)
-        reqs = serve_requests(cfg, sv)
+        reqs = serve_requests(cfg, sv, MESH_NEW)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         m = eng.run(reqs)
@@ -3886,17 +3998,19 @@ def top2_margin(sv, request, stream, layers=None):
             "margin": float(top.values[0] - top.values[1])}
 
 
-def mesh_row(phase, name, ranks, twin, smi, layers=30):
+def mesh_row(phase, name, ranks, twin, smi, layers=30, sv=None):
     """The row of one meshed serve (``ranks``: every rank's results):
     rank 0's rate, rounds and collectives a round, every rank's syncs;
     raises where a rank's streams part from the twin's (each parted
-    request's first parting position, the two tokens and the unmeshed
-    target's top-2 logit margin there printed) or a path kernel never
-    ran."""
+    request's first parting position, the two tokens and, for a serve of
+    ``SERVES``, the unmeshed target's top-2 logit margin there printed),
+    a rank's dispatch synchronised or a path kernel never ran.  ``sv``:
+    the serve (default: the one of ``SERVES`` named ``name``)."""
     r0 = ranks[0]
-    sv = serve_by_name(name)
+    margins = sv is None
+    sv = sv or serve_by_name(name)
     for i, r in enumerate(ranks):
-        if r["finished"] != 8:
+        if r["finished"] != len(twin):
             raise AssertionError(f"{phase} {name} rank {i}: {r['finished']}"
                                  " requests finished")
         if min(r["launches"][k] for k in sv.path) <= 0:
@@ -3929,11 +4043,15 @@ def mesh_row(phase, name, ranks, twin, smi, layers=30):
             j = next(j for j, (a, b) in enumerate(zip(x, y)) if a != b)
             row["parted"].append({"request": i, "position": j,
                                   "mesh_token": x[j], "twin_token": y[j],
-                                  **top2_margin(sv, i, y[:j], layers)})
+                                  **(top2_margin(sv, i, y[:j], layers)
+                                     if margins else {})})
     emit(row)
     if not all(equal):
         raise AssertionError(f"{phase} {name}: streams part from the "
                              f"unmeshed serve's: {row['parted']}")
+    if any(r["dispatch_syncs"] for r in ranks):
+        raise AssertionError(f"{phase} {name}: dispatch synchronised: "
+                             f"{[r['dispatch_sync_sources'] for r in ranks]}")
     return row["launches"]
 
 
@@ -4008,11 +4126,12 @@ def mesh_nccl(smi, twins):
     return total
 
 
-def start_mesh_ranks(spec, names):
+def start_mesh_ranks(spec, names, flag="--mesh-rank"):
     """``mesh-DxM-shared``'s D*M ranks on card 0 over gloo, each a process
-    of this script (``--mesh-rank``) serving ``names``; the kernels were
-    built before any starts.  Returns (spec, names, processes, their log
-    files, the scratch directory)."""
+    of this script (``flag``: ``--mesh-rank``, or ``--mesh-family-rank``
+    for ``mesh-families``) serving ``names``; the kernels were built
+    before any starts.  Returns (spec, processes, their log files, the
+    scratch directory)."""
     import os
     import tempfile
     from repro_torch.launch.mesh import parse_mesh
@@ -4022,7 +4141,7 @@ def start_mesh_ranks(spec, names):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     logs = [open(tmp / f"rank{r}.log", "w") for r in range(d * m)]
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", spec,
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, spec,
          str(r), str(tmp / "store"), str(tmp / f"rank{r}.json"),
          ",".join(names)],
         env=env, cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
@@ -4033,7 +4152,7 @@ def start_mesh_ranks(spec, names):
 def wait_mesh_ranks(worlds, t0):
     """Wait for every world of :func:`start_mesh_ranks`; a failed rank (or
     the time limit) stops them all and raises with its log.  Returns each
-    world's ranks' results."""
+    world's ranks' results, in the order of ``worlds``."""
     procs = [p for _, ps, _, _ in worlds for p in ps]
     try:
         while any(p.poll() is None for p in procs):
@@ -4062,15 +4181,16 @@ def wait_mesh_ranks(worlds, t0):
         for _, _, logs, _ in worlds:
             for f in logs:
                 f.close()
-    return {spec: [json.loads((tmp / f"rank{r}.json").read_text())
-                   for r in range(len(ps))]
-            for spec, ps, _, tmp in worlds}
+    return [[json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(len(ps))]
+            for _, ps, _, tmp in worlds]
 
 
-def start_mesh_launcher():
+def start_mesh_launcher(arch="smollm-135m"):
     """``mesh-launcher``: ``torchrun --nproc-per-node 1 -m
-    repro_torch.launch.serve --demo --mesh 1x1`` on the card, its output
-    to files.  Returns (the process, the output's path)."""
+    repro_torch.launch.serve --arch ARCH --demo --mesh 1x1`` on the card,
+    its output to files.  Returns (the process, the output's path, the
+    arch)."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4079,59 +4199,258 @@ def start_mesh_launcher():
         proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
-             "--arch", "smollm-135m", "--demo", "--mesh", "1x1", "--device",
+             "--arch", arch, "--demo", "--mesh", "1x1", "--device",
              "cuda", "--max-new", "16"],
             env=env, cwd=ROOT, stdout=out, stderr=err)
-    return proc, tmp
+    return proc, tmp, arch
 
 
 def finish_mesh_launcher(launcher, smi, t0) -> None:
     """The launcher must exit 0 and print its summary."""
-    proc, tmp = launcher
+    proc, tmp, arch = launcher
     proc.wait(timeout=300)
     out, err = ((tmp / f).read_text() for f in ("out.txt", "err.txt"))
     lines = [ln for ln in out.splitlines() if "'mesh': '1x1'" in ln]
-    emit({"phase": "mesh-launcher", "returncode": proc.returncode,
+    emit({"phase": "mesh-launcher", "arch": arch,
+          "returncode": proc.returncode,
           "seconds": time.monotonic() - t0,
           "summary": lines[-1][:600] if lines else None,
           "nvidia_smi": smi})
     if proc.returncode != 0 or len(lines) != 1 \
             or "'requests_finished': 8" not in lines[0]:
-        raise AssertionError(f"mesh-launcher failed: {err[-3000:]}")
+        raise AssertionError(f"mesh-launcher {arch} failed: {err[-3000:]}")
 
 
-def mesh_phase(smi):
+def run_mesh_worlds(starts, launcher_archs, smi):
+    """Start the launchers' ``--demo --mesh 1x1`` runs of
+    ``launcher_archs`` and the worlds of ``starts`` (each ``(spec,
+    names, flag)`` of :func:`start_mesh_ranks`) all at once, and wait
+    for them (a rank waits on the host in each gloo call, so the card
+    takes the worlds side by side; their rates are measured in each
+    other's company).  Returns each world's ranks' results."""
+    t1 = time.monotonic()
+    launchers = [start_mesh_launcher(arch) for arch in launcher_archs]
+    try:
+        ranks = wait_mesh_ranks([start_mesh_ranks(*st) for st in starts], t1)
+    except BaseException:
+        for proc, _, _ in launchers:
+            proc.kill()
+            proc.wait()
+        raise
+    emit({"phase": "mesh-shared-seconds", "seconds": time.monotonic() - t1,
+          "worlds": [f"{spec} {flag}" for spec, _, flag in starts]})
+    for launcher in launchers:
+        finish_mesh_launcher(launcher, smi, t1)
+    return ranks
+
+
+def mesh_phase(smi, families=False, sides=()):
     """The serving engine on a (data, model) mesh at smollm-135m full
     width, every meshed serve's streams equal to the unmeshed serve's;
     returns the mesh ranks' kernel launches.  The NCCL serves run alone;
-    then both shared-card worlds and the launcher run at once (a rank
-    waits on the host in each gloo call, so the card takes them side by
-    side; their rates are measured in each other's company)."""
+    then both shared-card worlds and the launcher run at once, and with
+    ``families`` the ``mesh-families`` world and launcher beside them
+    (its twins served first, its rows and launches added), the side
+    processes ``sides`` stopped meanwhile (:func:`side_paused`)."""
     t0 = time.monotonic()
     twins = mesh_twins(MESH_NCCL_TWINS, smi)
     shallow = mesh_twins(MESH_TWINS, smi, MESH_SHARED_LAYERS)
+    fam_twins = family_twins(smi) if families else None
     total = {k: 0 for k in read_launches()}
     for k, c in mesh_nccl(smi, twins).items():
         total[k] += c
-    t1 = time.monotonic()
-    launcher = start_mesh_launcher()
-    try:
-        worlds = [start_mesh_ranks(spec, MESH_TWINS) for spec in MESH_SHARED]
-        ranks = wait_mesh_ranks(worlds, t1)
-    except BaseException:
-        launcher[0].kill()
-        launcher[0].wait()
-        raise
-    emit({"phase": "mesh-shared-seconds", "seconds": time.monotonic() - t1})
-    finish_mesh_launcher(launcher, smi, t1)
-    for spec in MESH_SHARED:
+    starts = [(spec, MESH_TWINS, "--mesh-rank") for spec in MESH_SHARED]
+    archs = ["smollm-135m"]
+    if families:
+        starts.append(FAMILY_WORLD)
+        archs.append(FAMILY_LAUNCHER_ARCH)
+    with side_paused(sides):
+        ranks = run_mesh_worlds(starts, archs, smi)
+    for spec, world in zip(MESH_SHARED, ranks):
         for name in MESH_TWINS:
             for k, c in mesh_row(f"mesh-{spec}-shared", name,
-                                 [r[name] for r in ranks[spec]],
+                                 [r[name] for r in world],
                                  shallow[name], smi,
                                  MESH_SHARED_LAYERS).items():
                 total[k] += c
-    emit({"phase": "mesh-total", "seconds": time.monotonic() - t0})
+    if families:
+        for k, c in family_rows(fam_twins, ranks[-1], smi).items():
+            total[k] += c
+    emit({"phase": "mesh-total", "seconds": time.monotonic() - t0,
+          "families": families})
+    return total
+
+
+# ``mesh-families``: every non-dense family on one 2 x 2 world of ranks
+# sharing card 0 over gloo, at each arch's full width and the depth of
+# ``MESH_FAMILY_LAYERS`` (an audio stack's encoder at one layer: the
+# engine serves it with an empty encoder context), against unmeshed
+# twins of the same depth on one card.  2 x 2 splits granite-moe's 24
+# query heads, 8 KV heads and every expert's width (the ring's rows over
+# data: an MoE layer gathers the call's rows to route them),
+# mamba2-130m's 24 SSD heads, recurrentgemma-2b's 10 query heads (its 1
+# KV head and the RG-LRU block replicate; D 256, and D 320 in its
+# draft), qwen2-vl-2b's 12 / 2 heads (its draft's 3 / 1 replicate) and
+# seamless-m4t-medium's 16 / 16
+MESH_FAMILY_SPEC = "2x2"
+MESH_FAMILY_SERVES = ("moe-serve-dense", "ssm-serve", "hybrid-serve",
+                      "vlm-serve", "audio-serve")
+# (the depths were 4, 6, 3, 4 and 3; cut with ``MESH_SHARED_LAYERS``, as
+# far as a hybrid keeps its (rec, rec, attn) group)
+MESH_FAMILY_LAYERS = {"granite-moe-3b-a800m": 2, "mamba2-130m": 3,
+                      "recurrentgemma-2b": 3, "qwen2-vl-2b": 2,
+                      "seamless-m4t-medium": 2}
+# the serve draft of each arch (``serve_draft``), cut to this depth: 3
+# layers keep one (rec, rec, attn) group in recurrentgemma-2b's draft, so
+# its D-320 local attention runs too
+MESH_FAMILY_DRAFT_LAYERS = 3
+
+
+def family_serve_by_name(name):
+    return next(sv for sv in FAMILY_SERVES + RECURRENT_SERVES
+                + MULTIMODAL_SERVES if sv.name == name)
+
+
+def family_mesh_weights(arch, plan=None):
+    """``arch`` at full width and ``MESH_FAMILY_LAYERS`` deep, and its
+    serve draft ``MESH_FAMILY_DRAFT_LAYERS`` deep: (cfg, draft cfg,
+    target, draft), drawn on the card's generator (``plan``: this rank's
+    shards of the same draw)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params
+    cfg = get_config(arch)
+    enc = {"num_encoder_layers": 1} if cfg.is_encoder_decoder else {}
+    dcfg = serve_draft(cfg)
+    dcfg = dataclasses.replace(dcfg, num_layers=min(dcfg.num_layers,
+                                                    MESH_FAMILY_DRAFT_LAYERS),
+                               **enc)
+    cfg = dataclasses.replace(cfg, num_layers=MESH_FAMILY_LAYERS[arch], **enc)
+    pt = init_params(cfg, seed=0, device="cuda", rng_device="cuda", plan=plan)
+    pd = init_params(dcfg, seed=1, device="cuda", rng_device="cuda",
+                     plan=plan)
+    return cfg, dcfg, pt, pd
+
+
+def family_mesh_engine(dcfg):
+    """The engine builder of a family serve (``mesh_serve``'s
+    ``engine``): batch 4 on ``sv``'s layout, its draft ``dcfg``."""
+    def build(cfg, pt, pd, sv, mesh=None):
+        from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+        from repro_torch.serving.engine import ServingEngine
+        model = sv.drafter == "model"
+        serving = ServingConfig(max_batch_size=4, max_seq_len=sv.max_len,
+                                pipelined=sv.pipelined,
+                                paged_kv=sv.nblocks is not None,
+                                kv_block_size=16, num_kv_blocks=sv.nblocks,
+                                kv_quant=sv.kv_quant)
+        return ServingEngine(damped(pt, sv.damp), cfg, pd if model else None,
+                             dcfg if model else None,
+                             SpecDecodeConfig(drafter=sv.drafter), serving,
+                             seed=0, device="cuda", mesh=mesh)
+    return build
+
+
+def family_mesh_serves(names, plan=None, smi=None):
+    """Each of the family serves ``names`` (one arch's weights at a time,
+    freed before the next) on ``plan``'s mesh, or on one card: the
+    results of :func:`mesh_serve` by name (on one card each also emitted
+    as a ``mesh-family-twin`` row)."""
+    import gc
+    import torch
+    out = {}
+    for i, name in enumerate(names):
+        sv = family_serve_by_name(name)
+        cfg, dcfg, pt, pd = family_mesh_weights(sv.arch, plan)
+        res = mesh_serve(cfg, pt, pd, sv, plan, warm_up=i == 0,
+                         engine=family_mesh_engine(dcfg), new=MESH_NEW)
+        out[name] = res
+        if plan is None:
+            emit({"phase": "mesh-family-twin", "serve": name,
+                  "arch": sv.arch, "layers": cfg.num_layers,
+                  "rounds": res["rounds"], "tokens": res["tokens"],
+                  "wall_s": res["wall_s"],
+                  "tokens_per_s": res["tokens"] / res["wall_s"],
+                  "dispatch_syncs": res["dispatch_syncs"],
+                  "nvidia_smi": smi})
+        del pt, pd
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_family_rank_main(spec, rank, store, out, names) -> int:
+    """One rank of ``mesh-families``' world (``--mesh-family-rank``):
+    gloo over a FileStore, card 0, the family serves ``names``
+    (comma-separated) on this rank's shards; its results to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.tp import MeshPlan
+    from repro_torch.launch.mesh import parse_mesh, serving_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    d, m = parse_mesh(spec)
+    dist.init_process_group("gloo", store=dist.FileStore(store, d * m),
+                            rank=rank, world_size=d * m)
+    try:
+        plan = MeshPlan.for_mesh(serving_mesh(spec, share_card=True), 4)
+        res = family_mesh_serves(names.split(","), plan)
+        Path(out).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+# the world and the launcher's arch of ``mesh-families``
+FAMILY_WORLD = (MESH_FAMILY_SPEC, MESH_FAMILY_SERVES, "--mesh-family-rank")
+FAMILY_LAUNCHER_ARCH = "mamba2-130m"
+
+
+def family_twins(smi):
+    """``mesh-families``' unmeshed twins on one card, each with 0
+    synchronising calls in dispatch."""
+    twins = family_mesh_serves(MESH_FAMILY_SERVES, smi=smi)
+    for name, res in twins.items():
+        if res["dispatch_syncs"]:
+            raise AssertionError(f"mesh-family-twin {name}: dispatch "
+                                 f"synchronised: "
+                                 f"{res['dispatch_sync_sources']}")
+    return twins
+
+
+def family_rows(twins, ranks, smi):
+    """``mesh-families``' rows: every rank's streams must equal its
+    twin's, with 0 synchronising calls in dispatch.  Returns the ranks'
+    kernel launches."""
+    total = {k: 0 for k in read_launches()}
+    for name in MESH_FAMILY_SERVES:
+        sv = family_serve_by_name(name)
+        for k, c in mesh_row(f"mesh-families-{MESH_FAMILY_SPEC}", name,
+                             [r[name] for r in ranks],
+                             twins[name]["streams"], smi,
+                             MESH_FAMILY_LAYERS[sv.arch], sv).items():
+            total[k] += c
+        emit({"phase": "mesh-family-rate", "serve": name,
+              "meshed_tokens_per_s": ranks[0][name]["tokens"]
+              / ranks[0][name]["wall_s"],
+              "twin_tokens_per_s": twins[name]["tokens"]
+              / twins[name]["wall_s"], "nvidia_smi": smi})
+    return total
+
+
+def mesh_families_phase(smi):
+    """``mesh-families`` alone (``--only mesh-families``; the default run
+    starts its world beside ``mesh``'s, :func:`mesh_phase`): the
+    unmeshed twins on one card, then the 2 x 2 world of shared-card
+    ranks beside the launcher's ``--mesh 1x1`` demo of mamba2-130m
+    under torchrun.  Returns the ranks' kernel launches."""
+    t0 = time.monotonic()
+    twins = family_twins(smi)
+    ranks = run_mesh_worlds([FAMILY_WORLD], [FAMILY_LAUNCHER_ARCH], smi)
+    total = family_rows(twins, ranks[0], smi)
+    emit({"phase": "mesh-families-total", "seconds": time.monotonic() - t0})
     return total
 
 
@@ -4401,11 +4720,251 @@ def flat_tensors(tree):
     return []
 
 
+# -- side processes ------------------------------------------------------
+# Work that times nothing the script reports as the card's rate, run in
+# two processes of this script (``--side DUTY DIR``) beside the main one,
+# which starts them once the kernel phase has timed the kernels.
+# ``train``: the train phase's corpus (to DIR), the trained pair's
+# training (the reference recipe's 2 600 small steps, its losses held to
+# the reference's; the params to DIR), then every profile of the serve,
+# families, recurrent and multimodal phases.  ``checks``: the
+# reduced-width card == CPU checks, whose CPU halves run the plain
+# versions.  The main process reads DIR when its train phase needs the
+# corpus and the pair, stops both while the shared-card mesh worlds run
+# (never inside a timed region of theirs: ``side_lock``), and relays
+# their rows at the end (``"process": "side-train"`` /
+# ``"side-checks"``, their ``t`` that process's own).  Their CPU threads
+# are capped, so that the plain versions leave the other processes'
+# cores alone.  The main process's rates are measured in their company,
+# and a profile's in the main process's.
+SIDE_THREADS = 2
+SIDE_TIMEOUT_S = 900
+
+
+def check_phases():
+    """(row name, function) of every reduced-width card == CPU check."""
+    from repro_torch.configs import get_config
+    smollm = get_config("smollm-135m")
+    return (("check", lambda: check_phase(smollm)),
+            ("warm-check", lambda: warm_check_phase(smollm)),
+            ("family-check", family_check_phase),
+            ("recurrent-check", recurrent_check_phase),
+            ("multimodal-check", multimodal_check_phase))
+
+
+def run_checks(smi=None) -> None:
+    for name, fn in check_phases():
+        timed_phase(name, fn)
+
+
+def side_profiles() -> None:
+    """The profiled serves of the serve phase (``PROFILED``) and of the
+    families (``FAMILY_PROFILED``, ``RECURRENT_PROFILED``,
+    ``MULTIMODAL_PROFILED``), each after a warm-up run of its engine:
+    their ``profile`` rows, as the phases print them when run alone."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params
+    from repro_torch.serving.request import Request
+
+    def profiled(name, engine, reqs):
+        engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
+        timed_phase("profile", profile_phase, name, engine, reqs)
+
+    cfg, pt, pd = serve_weights()
+    for sv in SERVES:
+        if sv.name in PROFILED:
+            profiled(sv.name, lambda sv=sv: serve_engine(cfg, pt, pd, sv),
+                     serve_requests(cfg, sv))
+    names = FAMILY_PROFILED + RECURRENT_PROFILED + MULTIMODAL_PROFILED
+    serves = [sv for sv in FAMILY_SERVES + RECURRENT_SERVES
+              + MULTIMODAL_SERVES if sv.name in names]
+    for arch in dict.fromkeys(sv.arch for sv in serves):
+        del pt, pd
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        dcfg = serve_draft(cfg)
+        pt = init_params(cfg, seed=0, device="cuda", rng_device="cuda")
+        pd = init_params(dcfg, seed=1, device="cuda", rng_device="cuda")
+        for sv in serves:
+            if sv.arch == arch:
+                profiled(sv.name, family_engine(cfg, dcfg, pt, pd, sv),
+                         family_requests(cfg, sv))
+
+
+def side_train(out) -> None:
+    """The ``train`` side process's work: the corpus (``out``/stream.npy),
+    the trained pair (``out``/pair.pt), then the profiles."""
+    import os
+    import numpy as np
+    import torch
+    stream = mixed_stream()
+    np.save(out / "stream.part.npy", stream)
+    os.replace(out / "stream.part.npy", out / "stream.npy")
+    with side_lock():
+        pair = train_pair(stream, query_smi())
+    torch.save({name: params for name, (_, params) in pair.items()},
+               out / "pair.pt.part")
+    os.replace(out / "pair.pt.part", out / "pair.pt")
+    del pair
+    side_profiles()
+
+
+# the side processes by duty, each a function of its directory
+SIDE_DUTIES = {"train": side_train, "checks": lambda out: run_checks()}
+
+
+def side_main(duty, out) -> int:
+    """A side process (``--side DUTY DIR``): its duty's work, its rows to
+    standard output."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(SIDE_THREADS)
+    SIDE_DUTIES[duty](Path(out))
+    return 0
+
+
+class Side(NamedTuple):
+    duty: str
+    proc: object
+    dir: Path
+    log: object
+
+
+def start_side(duty):
+    """The side process of ``duty``, its output to a file in its own
+    directory; the kernels were built before it starts."""
+    import os
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix=f"side-{duty}-", dir=ROOT / "build"))
+    log = open(tmp / "side.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--side", duty,
+         str(tmp)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        stdout=log, stderr=subprocess.STDOUT)
+    return Side(duty, proc, tmp, log)
+
+
+def poll_side(side) -> None:
+    """Raise with the side process's log if it has failed."""
+    if side.proc.poll() not in (None, 0):
+        raise AssertionError(f"the {side.duty} side process failed:\n"
+                             f"{(side.dir / 'side.log').read_text()[-6000:]}")
+
+
+def side_file(side, name):
+    """The side process's file ``name`` once it is written (the seconds
+    waited for it printed as ``side-file``)."""
+    t0 = time.monotonic()
+    while not (side.dir / name).exists():
+        poll_side(side)
+        if side.proc.poll() == 0 or time.monotonic() - t0 > SIDE_TIMEOUT_S:
+            raise AssertionError(f"the {side.duty} side process wrote no "
+                                 f"{name}")
+        time.sleep(0.5)
+    emit({"phase": "side-file", "name": name,
+          "seconds": time.monotonic() - t0})
+    return side.dir / name
+
+
+def side_stream(side):
+    """The ``train`` side process's corpus (:func:`mixed_stream`)."""
+    import numpy as np
+    return np.load(side_file(side, "stream.npy"))
+
+
+def side_pair(side):
+    """The ``train`` side process's trained pair, {name: (cfg, params)}
+    on the card."""
+    import torch
+    params = torch.load(side_file(side, "pair.pt"), map_location="cuda")
+    return {name: (cfg, params[name])
+            for name, cfg in zip(PAIR_MODELS, pair_configs())}
+
+
+@contextlib.contextmanager
+def side_lock():
+    """Held by a side process around what it times (the pair's training,
+    a profiled run), and by the main process while it has the side
+    processes stopped: no timed region holds a stop."""
+    import fcntl
+    (ROOT / "build").mkdir(exist_ok=True)
+    with open(ROOT / "build" / "side.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@contextlib.contextmanager
+def side_paused(sides):
+    """The side processes stopped (SIGSTOP) while the block runs, once no
+    timed region of theirs is open (:func:`side_lock`; the seconds waited
+    for it and stopped printed as ``side-pause``), and continued after
+    it: the shared-card mesh worlds' ranks wait on one another in every
+    collective, so they get the host's cores and the card to
+    themselves."""
+    import os
+    import signal
+    if not sides:
+        yield
+        return
+    t0 = time.monotonic()
+    with side_lock():
+        t1 = time.monotonic()
+        live = [side for side in sides if side.proc.poll() is None]
+        for side in live:
+            os.kill(side.proc.pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            for side in live:
+                if side.proc.poll() is None:
+                    os.kill(side.proc.pid, signal.SIGCONT)
+    emit({"phase": "side-pause", "lock_wait_s": t1 - t0,
+          "stopped_s": time.monotonic() - t1,
+          "duties": [side.duty for side in live]})
+
+
+def finish_side(side) -> None:
+    """Wait for the side process (the seconds waited printed as
+    ``side-wait``), relay its rows, and raise if it failed."""
+    t0 = time.monotonic()
+    try:
+        side.proc.wait(timeout=SIDE_TIMEOUT_S)
+    finally:
+        stop_side(side)
+    emit({"phase": "side-wait", "duty": side.duty,
+          "seconds": time.monotonic() - t0})
+    poll_side(side)
+    for line in (side.dir / "side.log").read_text().splitlines():
+        try:
+            row = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(row, dict) and "phase" in row:
+            emit({**row, "process": "side-" + side.duty})
+
+
+def stop_side(side) -> None:
+    if side.proc.poll() is None:
+        side.proc.kill()
+        side.proc.wait()
+    side.log.close()
+
+
 # ``--only NAME[,NAME]``: these phases alone, after the build, with no
 # result line (a short run while a phase is being written)
 ONLY = {
+    "checks": run_checks,
     "dryrun": dryrun_phase,
     "mesh": mesh_phase,
+    "mesh-families": mesh_families_phase,
     "mesh-witness": mesh_witness,
     "kernels": lambda smi: kernel_phase(torch_flush()),
     "multimodal-kernels": lambda smi: multimodal_rows(torch_flush()),
@@ -4417,6 +4976,14 @@ ONLY = {
 }
 
 
+def query_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def torch_flush():
     import torch
     return torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
@@ -4425,8 +4992,13 @@ def torch_flush():
 def main() -> int:
     if len(sys.argv) == 7 and sys.argv[1] == "--mesh-rank":
         return mesh_rank_main(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7])
+    if len(sys.argv) == 7 and sys.argv[1] == "--mesh-family-rank":
+        return mesh_family_rank_main(sys.argv[2], int(sys.argv[3]),
+                                     *sys.argv[4:7])
     if len(sys.argv) == 5 and sys.argv[1] == "--mesh-witness-rank":
         return mesh_witness_rank(int(sys.argv[2]), *sys.argv[3:5])
+    if len(sys.argv) == 4 and sys.argv[1] == "--side":
+        return side_main(sys.argv[2], sys.argv[3])
     t_start = time.monotonic()
     import torch
     if not torch.cuda.is_available():
@@ -4436,10 +5008,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = query_smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -4468,14 +5037,29 @@ def main() -> int:
     contract = kernel_phase(flush)
     del flush
     emit({"phase": "kernel-total", "seconds": time.monotonic() - t0})
-    t0 = time.monotonic()
-    launches = serve_phase()
-    emit({"phase": "serve-total", "seconds": time.monotonic() - t0})
-    for phase in (mesh_phase, frontdoor_phase, families_phase,
-                  recurrent_phase, multimodal_phase, train_phase):
-        for kernel, n in phase(smi).items():
-            launches[kernel] += n
-    dryrun_phase(smi)
+    sides = []
+    try:
+        for duty in SIDE_DUTIES:
+            sides.append(start_side(duty))
+        t0 = time.monotonic()
+        launches = serve_phase(profile=False)
+        emit({"phase": "serve-total", "seconds": time.monotonic() - t0})
+        for phase in (lambda smi: mesh_phase(smi, True, sides),
+                      frontdoor_phase,
+                      lambda smi: families_phase(smi, side=True),
+                      lambda smi: recurrent_phase(smi, side=True),
+                      lambda smi: multimodal_phase(smi, side=True),
+                      lambda smi: train_phase(smi, sides[0])):
+            for side in sides:
+                poll_side(side)
+            for kernel, n in phase(smi).items():
+                launches[kernel] += n
+        dryrun_phase(smi)
+        for side in sides:
+            finish_side(side)
+    finally:
+        for side in sides:
+            stop_side(side)
 
     sources = {
         "paged_ragged_verify_attention": (

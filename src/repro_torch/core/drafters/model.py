@@ -110,7 +110,7 @@ class ModelDrafter(Drafter):
             params_d, self.cfg_d, cache["k"], cache["v"], cache["kv_pos"],
             table_rows, tokens, prompt_lens, cache.get("k_scale"),
             cache.get("v_scale"), plan=plan)
-        return prefill_lib.scatter_paged_rows(cache, rows, idx)
+        return prefill_lib.scatter_paged_rows(cache, rows, idx, own)
 
     def prefill_tail(self, params_d, cache, idx, tokens, prompt_lens,
                      tail_tokens, start_lens, tail_lens, cow_src, cow_dst,

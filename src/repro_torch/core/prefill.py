@@ -7,9 +7,10 @@ its prefix-cache sibling, computes only the uncached tail of each row
 after the group's copy-on-write block copies.
 
 On a serving mesh (``plan``) a group's rows run whole on every rank, over
-this rank's heads; a ring whose rows split over *data* takes only the
-rows it holds (:func:`set_slots`'s ``own``).  The tail prefill takes no
-plan: prefix caching on a mesh is ROADMAP A10's."""
+this rank's heads (SSD heads, experts' width); a ring, or recurrent rows
+(a hybrid pool's too), whose rows split over *data* take only the rows
+this rank holds (``own``).  The tail prefill takes no plan: prefix
+caching on a mesh is ROADMAP A10's."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -52,16 +53,22 @@ def prefill_rows(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _scatter_recurrent(out: dict, big: dict, rows: dict,
-                       idx: torch.Tensor) -> None:
+                       idx: torch.Tensor,
+                       own: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> None:
     """The recurrent rows (``ssd``, ``lru``, ``conv`` ``[layers, batch,
     ...]``) of a prefilled group into NEW tensors at the slots ``idx``
     (never in place: a round keeps the pre-round cache as its commit
-    snapshot).  The group's rows start from zero state, so a slot that
-    was preempted and readmitted starts from its prompt, never from the
-    old occupant's state."""
+    snapshot); ``own``: as :func:`set_slots` takes it.  The group's rows
+    start from zero state, so a slot that was preempted and readmitted
+    starts from its prompt, never from the old occupant's state."""
     for key in cache_lib.RECURRENT_KEYS:
         if key in big:
-            out[key] = big[key].index_copy(1, idx, rows[key].to(big[key].dtype))
+            new = rows[key].to(big[key].dtype)
+            if own is None:
+                out[key] = big[key].index_copy(1, idx, new)
+            else:
+                out[key] = big[key].index_copy(1, own[1], new[:, own[0]])
 
 
 def set_slots(big: dict, rows: dict, idx: torch.Tensor,
@@ -71,10 +78,10 @@ def set_slots(big: dict, rows: dict, idx: torch.Tensor,
     the recurrent rows into new tensors (a round keeps the pre-round
     dict as its snapshot).  ``own`` (a ring whose rows split over
     *data*): (group rows, local rows) of the slots this rank holds, where
-    its K/V rings take their rows."""
+    its K/V rings and recurrent rows take their rows."""
     idx = idx.long()
     out = dict(big)
-    _scatter_recurrent(out, big, rows, idx)
+    _scatter_recurrent(out, big, rows, idx, own)
     for key, val in big.items():
         if key in cache_lib.RECURRENT_KEYS:
             continue
@@ -106,7 +113,7 @@ def prefill_paged_rows(params, cfg: ModelConfig, pool_k: torch.Tensor,
     mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
             < prompt_lens[:, None])
     view = cache_lib.paged_prefill_view(pool_k, pool_v, kv_pos, table_rows,
-                                        k_scale, v_scale, cfg=cfg)
+                                        k_scale, v_scale, cfg=cfg, plan=plan)
     logits, view = forward(params, cfg, tokens, cache=view, mode="prefill",
                            input_mask=mask, plan=plan)
     view["length"] = prompt_lens.to(torch.int32)
@@ -147,16 +154,20 @@ def prefill_paged_tail(params, cfg: ModelConfig, pool_k: torch.Tensor,
     return view, _last_logits(logits, tail_lens)
 
 
-def scatter_paged_rows(big: dict, rows: dict, idx: torch.Tensor) -> dict:
+def scatter_paged_rows(big: dict, rows: dict, idx: torch.Tensor,
+                       own: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> dict:
     """Fold a :func:`prefill_paged_rows` or :func:`prefill_paged_tail`
     result into the batched cache:
     the pools are the same tensors, per-row ``length`` and the hybrid
     family's recurrent rows (``lru``, ``conv``) are scattered at ``idx``
-    into new tensors.  Block tables are the engine's to write."""
+    into new tensors (``own``: this rank's of recurrent rows split over
+    *data*, as :func:`set_slots` takes it).  Block tables are the
+    engine's to write."""
     out = dict(big)
     idx = idx.long()
     length = big["length"].clone()
     length[idx] = rows["length"]
     out["length"] = length
-    _scatter_recurrent(out, big, rows, idx)
+    _scatter_recurrent(out, big, rows, idx, own)
     return out

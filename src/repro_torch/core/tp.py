@@ -8,15 +8,17 @@ differs.  Parameters and caches are plain tensors that hold this rank's
 shard (:class:`MeshPlan`), so the kernels see local tensors as on one
 card.  A few named collectives run where a sharded product ends:
 
-* :func:`all_reduce_model` — the row-parallel sum after ``attn_output``
-  and after the MLP's down projection, where the query heads or the MLP
-  width split over *model*;
+* :func:`all_reduce_model` — the row-parallel sum after ``attn_output``,
+  the MLP's or the MoE experts' down projection and the Mamba-2 mixer's
+  ``out_proj`` (and its gated norm's sum of squares), where the query
+  heads, the width or the SSD heads split over *model*;
 * :func:`embed_lookup` — the vocab-parallel lookup: each rank's rows of
   the table, zero for the tokens outside its range, then summed;
 * :func:`gather_vocab` / :func:`gather_rows` — logits whole over the
   vocabulary (*model*) and over the rows a data rank ran (*data*), so
   that sampling, rejection, the KLD signal and the policy run on the same
-  values on every rank;
+  values on every rank; an MoE layer's input rows before routing, and a
+  hybrid pool's rows before a local-attention layer;
 * :func:`host_clock` / :func:`broadcast_host` — rank 0's clock reading
   (or any host float), broadcast over the CPU control group, so every
   rank's admission, SLO gate and latency model decide alike.
@@ -137,7 +139,15 @@ class HeadLayout:
     slice of the freshly projected real KV heads its attention reads
     (prefill, before ``kv_head_pad``); ``cache_kv``: the slice of the
     padded heads its cache stores; None where it keeps all it computed.
-    ``cache_heads``: the KV heads of its cache."""
+    ``cache_heads``: the KV heads of its cache.
+
+    ``mlp`` reads the family's split width: the MLP's ``d_ff``, an MoE
+    expert's ``expert_d_ff`` (experts replicate under the ``serve``
+    rules, each expert's width splits).  ``ssd``: the Mamba-2 mixer's
+    SSD heads this rank runs, where *model* divides them (None: the mixer
+    replicates); its projections, conv, norm and ``out_proj`` split with
+    them (``models/ssm.py``).  The RG-LRU block replicates: the serving
+    mesh maps no ``lru`` axis (:meth:`MeshPlan.param_spec`)."""
     heads: bool
     mlp: bool
     vocab: bool
@@ -145,6 +155,7 @@ class HeadLayout:
     real_kv: Optional[slice]
     cache_kv: Optional[slice]
     cache_heads: int
+    ssd: Optional[slice] = None
 
 
 def _nests(q_lo: int, hl: int, group: int, kv_lo: int, kvl: int) -> bool:
@@ -158,11 +169,12 @@ def _nests(q_lo: int, hl: int, group: int, kv_lo: int, kvl: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def head_layout(m: int, size: int, h: int, kv: int, pad: Optional[int],
-                f: int, vp: int) -> HeadLayout:
+                f: int, vp: int, ssd: int = 0) -> HeadLayout:
     """:class:`HeadLayout` of model rank ``m`` of ``size`` for ``h`` query
-    heads over ``kv`` real KV heads (``pad``: ``kv_head_pad``), MLP width
-    ``f`` and padded vocabulary ``vp``.  Raises ValueError where a rank's
-    query heads would read KV heads the kernels cannot map."""
+    heads over ``kv`` real KV heads (``pad``: ``kv_head_pad``), MLP (or
+    expert) width ``f``, padded vocabulary ``vp`` and ``ssd`` SSD heads
+    (0: no Mamba-2 mixer).  Raises ValueError where a rank's query heads
+    would read KV heads the kernels cannot map."""
     e = pad or kv
     # an axis of one rank splits nothing: the layout is one card's
     heads, kv_split = (size > 1 and h % size == 0,
@@ -192,10 +204,13 @@ def head_layout(m: int, size: int, h: int, kv: int, pad: Optional[int],
     cache = (None if (c_lo, c_hi) == (r_lo * r, r_hi * r)
              else slice(c_lo - r_lo * r, c_hi - r_lo * r))
     vocab = size > 1 and vp % size == 0
+    split_ssd = size > 1 and ssd > 0 and ssd % size == 0
     return HeadLayout(heads=heads, mlp=size > 1 and f % size == 0,
                       vocab=vocab,
                       vocab_lo=m * vp // size if vocab else 0,
-                      real_kv=real, cache_kv=cache, cache_heads=c_hi - c_lo)
+                      real_kv=real, cache_kv=cache, cache_heads=c_hi - c_lo,
+                      ssd=(slice(m * ssd // size, (m + 1) * ssd // size)
+                           if split_ssd else None))
 
 
 class MeshPlan:
@@ -210,14 +225,15 @@ class MeshPlan:
     carries host control data, None for the default group.
 
     Layouts (DESIGN.md §5): parameters split over *model* where the
-    dims divide (:meth:`local_param`); a block pool keeps its block axis
-    whole, so block tables, ``kv_pos``, ``length``, the ``[B]`` control
-    leaves and the policy state are whole on every rank; a dense ring and
+    dims divide (:meth:`param_spec`, ``models.weights.serve_cut``); a
+    block pool keeps its block axis whole, so block tables, ``kv_pos``,
+    ``length``, the ``[B]`` control leaves and the policy state are whole
+    on every rank; a dense ring, recurrent rows (a hybrid pool's too) and
     the n-gram history split their rows over *data* where the batch
     divides (:meth:`ring_rows`).  The rows of a forward run whole on the
-    pool, with activations replicated over *data*; on a split ring each
-    data rank runs its own rows and :func:`gather_rows` joins the
-    logits."""
+    pool, with activations replicated over *data* (but through a hybrid
+    pool's RG-LRU layers); on a split ring each data rank runs its own
+    rows and :func:`gather_rows` joins the logits."""
 
     def __init__(self, mesh, rules: ShardingConfig, control_group=None):
         self.mesh = mesh
@@ -247,12 +263,16 @@ class MeshPlan:
         return f"{self.data_size}x{self.model_size}"
 
     def layout(self, cfg: ModelConfig) -> HeadLayout:
-        """:func:`head_layout` of ``cfg`` on this rank."""
+        """:func:`head_layout` of ``cfg`` on this rank, with each family's
+        split width: the MLP's, an MoE expert's, the SSD heads."""
         from repro_torch.models.weights import VOCAB_PAD_MULTIPLE
+        f = cfg.moe.expert_d_ff if cfg.family == "moe" else cfg.d_ff
+        ssd = (cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+               if cfg.family == "ssm" else 0)
         return head_layout(self.model_rank, self.model_size,
                            cfg.q_head_pad or cfg.num_heads, cfg.num_kv_heads,
-                           cfg.kv_head_pad, cfg.d_ff,
-                           cfg.padded_vocab(VOCAB_PAD_MULTIPLE))
+                           cfg.kv_head_pad, f,
+                           cfg.padded_vocab(VOCAB_PAD_MULTIPLE), ssd)
 
     def _coord(self, part) -> Tuple[int, int]:
         """(index, count) of this rank's shard along the mesh axes of one
@@ -266,14 +286,35 @@ class MeshPlan:
 
     def param_spec(self, shape: Tuple[int, ...], axes) -> Tuple:
         """The guarded spec of a parameter of ``shape`` with logical
-        ``axes`` under this plan's rules (``launch.sharding.leaf_spec``)."""
+        ``axes`` under this plan's rules (``launch.sharding.leaf_spec``),
+        but with no ``lru`` axis: the RG-LRU block replicates, so its
+        state stays whole over *model* as the ``serve`` cache table keeps
+        it (the reference's table maps ``lru`` to *model*; ROADMAP C)."""
         from repro_torch.models.weights import logical_to_pspec
+        axes = tuple(None if a == "lru" else a for a in axes)
         return guarded_spec(shape, logical_to_pspec(axes, self.rules),
                             self.mesh)
 
-    def local_slice(self, x: torch.Tensor, spec: Tuple) -> torch.Tensor:
-        """This rank's shard of the whole tensor ``x`` under ``spec``, a
-        tensor of its own (``x`` can be freed)."""
+    def xbc_columns(self, cfg: ModelConfig) -> Optional[torch.Tensor]:
+        """The columns of a Mamba-2 mixer's joint x | B | C axis (``wxbc``,
+        ``conv_w``, ``conv_b``) that this rank keeps: its SSD heads' x
+        columns and all of B and C (a contiguous cut would split across
+        their boundaries); None where the mixer replicates."""
+        ssd = self.layout(cfg).ssd
+        if ssd is None:
+            return None
+        di = cfg.ssm.expand * cfg.d_model
+        p = cfg.ssm.head_dim
+        return torch.cat([torch.arange(ssd.start * p, ssd.stop * p),
+                          torch.arange(di, di + 2 * cfg.ssm.state_size)])
+
+    def local_slice(self, x: torch.Tensor, spec: Tuple,
+                    cols: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """This rank's shard of the whole tensor ``x`` under ``spec`` (or,
+        with ``cols``, its last dim's columns ``cols``), a tensor of its
+        own (``x`` can be freed)."""
+        if cols is not None:
+            return x.index_select(-1, cols.to(x.device))
         whole = x
         for dim, part in enumerate(spec):
             if part is None:
@@ -312,12 +353,21 @@ class MeshPlan:
         return [i for i, _ in own], [s for _, s in own]
 
 
-def split_rows(cache: dict, plan: Optional[MeshPlan], key: str = "k",
-               axis: int = 1) -> Optional[Tuple[int, int]]:
-    """The rows [lo, hi) of a data-split ring or history that this rank
-    holds, read off the cache: ``cache[key]`` holds fewer rows (along
-    ``axis``) than the whole ``length``; None where they are whole."""
-    if plan is None or key not in cache:
+def split_rows(cache: dict, plan: Optional[MeshPlan],
+               key: Optional[str] = None, axis: int = 1
+               ) -> Optional[Tuple[int, int]]:
+    """The rows [lo, hi) of a data-split ring, recurrent state or history
+    that this rank holds, read off the cache: ``cache[key]`` holds fewer
+    rows (along ``axis``) than the whole ``length``; None where they are
+    whole.  ``key`` None: a ring's first per-row leaf (``k``, else the
+    recurrent ``ssd`` or ``lru``), a pool's recurrent rows (its ``k`` is
+    the block pool)."""
+    if plan is None:
+        return None
+    if key is None:
+        keys = ("lru",) if "block_table" in cache else ("k", "ssd", "lru")
+        key = next((k for k in keys if k in cache), None)
+    if key not in cache:
         return None
     n = cache[key].shape[axis]
     if n == cache["length"].shape[0]:

@@ -22,8 +22,8 @@ The serving modes run on the CUDA card unless ``--device cpu`` is
 given.  ``--demo --mesh DxM`` serves on a ``(data, model)`` mesh of D*M
 ranks started by ``torchrun --nproc-per-node D*M``: NCCL, one card a
 rank (``--device cpu``: gloo on the CPU), each rank its shards of the
-weights, rank 0 printing the summary; dense archs only.  The HTTP front
-door, prefix caching and the other families on a mesh are ROADMAP A10.
+weights, rank 0 printing the summary; every arch.  The HTTP front door
+and prefix caching on a mesh are ROADMAP A10.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo
@@ -31,6 +31,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --http --paged --pipelined
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --shape decode_32k
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch smollm-135m --demo --mesh 1x2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch mamba2-130m --demo --mesh 2x2 --device cpu
 """
 import argparse
 import json
@@ -137,15 +138,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
 
 def check_mesh_args(ap, args) -> None:
-    """``--mesh``'s refusals, before any process group: the modes and
-    families that the engine's mesh path does not run."""
+    """``--mesh``'s refusals, before any process group: the modes that
+    the engine's mesh path does not run (every arch serves)."""
     if not args.demo or args.http or args.http_smoke:
         ap.error("--mesh serves --demo; the HTTP front door on a mesh is "
                  "ROADMAP A10")
-    family = get_config(args.arch).family
-    if family != "dense":
-        ap.error(f"--mesh serves dense archs; {args.arch} ({family}) on a "
-                 "mesh is ROADMAP A10")
     if args.prefix_share > 0:
         ap.error("--prefix-share on a mesh is ROADMAP A10")
     if "RANK" not in os.environ:

@@ -28,10 +28,13 @@ states the reference's layout of the live data plane on a ``(data,
 model)`` mesh, leaf by leaf; the tests hold these tables to the
 reference's.  The engine runs on plain local shards
 (:class:`~repro_torch.core.tp.MeshPlan`): its parameters are cut by the
-same guarded specs (:func:`leaf_spec`), and its caches hold the cache
-table's local shapes but for one dim, the KV-group cut of
+same guarded specs (:func:`leaf_spec`) but for the RG-LRU block, which
+replicates, and the Mamba-2 mixer's x | B | C leaves, which keep a
+rank's x columns and all of B and C (``models.weights.serve_cut``); its
+caches hold the cache table's local shapes but for the KV-group cut of
 ``core.tp.HeadLayout`` (where query heads split over KV heads that
-replicate, a rank keeps only the KV heads its query heads read).
+replicate, a rank keeps only the KV heads its query heads read) and the
+Mamba-2 state, which holds the rank's SSD heads (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -165,8 +168,8 @@ def attn_head_sharding(mesh, rules: ShardingConfig):
 
 def moe_shardings(mesh, rules: ShardingConfig):
     """Dispatch-buffer constraints for moe_apply: capacity dim over the
-    batch axes, token dim likewise (a table: the engine's mesh path runs
-    dense targets only, ROADMAP A10)."""
+    batch axes, token dim likewise (the dry run's; the serving engine's
+    MoE layer runs on local shards, ``models.moe.moe_apply_mesh``)."""
     b = tuple(rules.batch) if rules.batch else None
     if b is None:
         return None

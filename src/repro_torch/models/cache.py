@@ -70,10 +70,14 @@ with a boolean mask instead would make the host wait for the device at
 every layer.
 
 On a serving mesh (``plan``, a ``core.tp.MeshPlan``) every K/V leaf
-holds the KV heads this rank keeps (``HeadLayout.cache_heads``); a
-ring's, and the n-gram history's, rows split over *data* where the batch
-divides (``MeshPlan.ring_rows``), while ``kv_pos``, ``length`` and the
-block tables stay whole; a pool keeps every block on every rank.
+(an audio ring's cross K/V too) holds the KV heads this rank keeps
+(``HeadLayout.cache_heads``); a ring's, the recurrent rows' (on a ring
+and on a hybrid pool) and the n-gram history's rows split over *data*
+where the batch divides (``MeshPlan.ring_rows``), while ``kv_pos``,
+``length``, ``enc_valid`` and the block tables stay whole; a pool keeps
+every block on every rank.  The Mamba-2 state holds this rank's SSD heads
+(``ssd [L, B, H/m, P, N]``, ``conv [L, B, W-1, di/m + 2N]``,
+``models/ssm.py``); the RG-LRU state is whole over *model*.
 """
 from __future__ import annotations
 
@@ -153,12 +157,17 @@ def _local_rows(batch: int, plan, whole_rows: bool) -> int:
 
 
 def recurrent_rows(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                   device="cpu") -> CacheT:
+                   device="cpu", plan=None) -> CacheT:
     """Fresh (zero) per-slot recurrent leaves of ``cfg``: ssd + conv for
-    ssm, lru + conv for hybrid, none for the attention families."""
+    ssm, lru + conv for hybrid, none for the attention families.
+    ``plan``: the Mamba-2 state of this rank's SSD heads."""
     z = dict(device=device)
     if cfg.family == "ssm":
-        _, h, dc, n = ssm_dims(cfg)
+        di, h, dc, n = ssm_dims(cfg)
+        ssd = None if plan is None else plan.layout(cfg).ssd
+        if ssd is not None:
+            h = ssd.stop - ssd.start
+            dc -= di - h * cfg.ssm.head_dim
         return {"ssd": torch.zeros((cfg.num_layers, batch, h,
                                     cfg.ssm.head_dim, n),
                                    dtype=torch.float32, **z),
@@ -186,20 +195,20 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family not in FAMILIES:
         raise ValueError(f"family {cfg.family!r} has no dense ring in the port")
     cache = {"length": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    cache.update(recurrent_rows(cfg, batch, dtype, device))
+    local = _local_rows(batch, plan, whole_rows)
+    cache.update(recurrent_rows(cfg, local, dtype, device, plan))
     if cfg.family == "ssm":
         return cache
     w = (_local_window(cfg, max_len) if cfg.family == "hybrid"
          else _kv_window(cfg, max_len))
-    shape = kv_buf_shape(cfg, _local_rows(batch, plan, whole_rows), w,
-                         paged_kv_layers(cfg), plan)
+    shape = kv_buf_shape(cfg, local, w, paged_kv_layers(cfg), plan)
     cache.update(k=torch.zeros(shape, dtype=dtype, device=device),
                  v=torch.zeros(shape, dtype=dtype, device=device),
                  kv_pos=torch.full((batch, w), -1, dtype=torch.int32,
                                    device=device))
     if cfg.family == "audio":
         se = enc_len if enc_len is not None else 1
-        cross = kv_buf_shape(cfg, batch, se, cfg.num_layers)
+        cross = kv_buf_shape(cfg, local, se, cfg.num_layers, plan)
         cache.update(cross_k=torch.zeros(cross, dtype=dtype, device=device),
                      cross_v=torch.zeros(cross, dtype=dtype, device=device),
                      enc_valid=torch.zeros((batch, se), dtype=torch.bool,
@@ -383,7 +392,8 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     length 0 (a hybrid stack: pools of its attention layers, plus zero
     dense recurrent rows).  ``kv_quant="int8"`` stores the pools as int8
     and adds the fp32 scale pools, drop block included.  ``plan``: the
-    pools hold this rank's K/V heads, every block."""
+    pools hold this rank's K/V heads, every block; the recurrent rows
+    split over *data* as a ring's do."""
     if not supports_paged(cfg):
         raise ValueError(f"family {cfg.family!r} has no paged KV layout")
     if kv_quant not in KV_QUANT_MODES:
@@ -405,7 +415,8 @@ def paged_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
         for name in ("k_scale", "v_scale"):
             cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
                                       device=device)
-    cache.update(recurrent_rows(cfg, batch, dtype, device))
+    cache.update(recurrent_rows(cfg, _local_rows(batch, plan, False), dtype,
+                                device, plan))
     return cache
 
 
@@ -414,14 +425,16 @@ def paged_prefill_view(pool_k: torch.Tensor, pool_v: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None,
                        lengths: Optional[torch.Tensor] = None,
-                       cfg: Optional[ModelConfig] = None) -> CacheT:
+                       cfg: Optional[ModelConfig] = None, plan=None) -> CacheT:
     """Batch-R cache view over the shared pools for prefilling a group
     of requests straight into their allocated blocks: the pool leaves
     (and the scale pools of an int8 pool) ARE the live pools (writes
     land in place), ``length`` is fresh.  ``lengths [R]`` presets each
     row's committed length (zeros when omitted): the prefix cache's tail
     prefill starts a row at its cached coverage, so decode-mode
-    positions and attention see the shared blocks as committed KV."""
+    positions and attention see the shared blocks as committed KV.
+    ``cfg``: the group's fresh recurrent rows (whole rows; ``plan``: this
+    rank's shard of their width)."""
     rows = table_rows.shape[0]
     length = (torch.zeros((rows,), dtype=torch.int32, device=pool_k.device)
               if lengths is None else lengths.to(torch.int32))
@@ -431,7 +444,8 @@ def paged_prefill_view(pool_k: torch.Tensor, pool_v: torch.Tensor,
     if k_scale is not None:
         view["k_scale"], view["v_scale"] = k_scale, v_scale
     if cfg is not None:
-        view.update(recurrent_rows(cfg, rows, pool_k.dtype, pool_k.device))
+        view.update(recurrent_rows(cfg, rows, pool_k.dtype, pool_k.device,
+                                   plan))
     return view
 
 

@@ -9,7 +9,8 @@ offsets from 1.  The einsums of the reference are written as matrix
 products over the flattened head axes, which is the same contraction.
 
 On a serving mesh the functions take this rank's shards (the query
-heads, the MLP width); :func:`attn_output` and :func:`mlp_apply` end in
+heads with their ``bq`` rows, the KV heads and ``bk``/``bv`` where they
+split, the MLP width); :func:`attn_output` and :func:`mlp_apply` end in
 the all-reduce over *model* when given the plan whose shards they
 contract (``core/tp.py``).
 """

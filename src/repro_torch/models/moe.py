@@ -18,6 +18,13 @@ combine sums each token's ``k`` contributions in slot order ``j = 0 ..
 k-1`` from zero, as the reference's sequential scatter-add does, so the
 card and the CPU add in one order.
 
+On a serving mesh (:func:`moe_apply_mesh`) experts replicate and each
+expert's width splits over *model* (``w_gate``/``w_up`` columns,
+``w_down`` rows), so a rank's experts give partial sums, all-reduced
+over *model*.  The capacity couples the rows of a call, so a rank whose
+ring rows split over *data* first gathers the call's rows and routes all
+``n`` tokens, as one card does, then keeps its own rows.
+
 Top-k uses a stable descending sort, so of two equal probabilities the
 lower expert index comes first, as ``jax.lax.top_k`` keeps it.  Nothing
 here reads a device value on the host: the capacity is a function of
@@ -29,6 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import tp as tp_lib
 from repro_torch.core.config import MoEConfig
 
 
@@ -58,6 +66,25 @@ def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor,
         from repro_torch.core.dtensor_ops import moe_apply_sharded
         return moe_apply_sharded(p, cfg, x, shardings, _moe_local)
     return _moe_local(p, cfg, x)
+
+
+def moe_apply_mesh(p: dict, cfg: MoEConfig, x: torch.Tensor, plan,
+                   rows: Optional[Tuple[int, int]] = None, split: bool = True
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`moe_apply` on a serving mesh's rank (``plan``): ``x`` holds
+    the rows [lo, hi) = ``rows`` of the call where its rows split over
+    *data* (else all of them); ``split``: each expert's width splits over
+    *model* (``HeadLayout.mlp``).  Routing and dispatch run on every row
+    of the call, so every (token, slot) pair lands where one card puts
+    it, and the dropped pairs are the same; returns this rank's rows."""
+    if rows is not None:
+        x = tp_lib.gather_rows(x, plan)
+    y, aux = _moe_local(p, cfg, x)
+    if split:
+        y = tp_lib.all_reduce_model(y, plan)
+    if rows is not None:
+        y = y[rows[0]:rows[1]]
+    return y, aux
 
 
 def _moe_local(p: dict, cfg: MoEConfig, x: torch.Tensor,

@@ -21,6 +21,14 @@ accepted prefix under a mask.
 State: ``ssd [B, H, P, N]`` fp32 (heads, head dim, state), conv cache
 ``[B, W-1, conv_dim]``.  Every state this module returns is a new tensor:
 the round keeps the pre-round cache as its commit snapshot.
+
+On a serving mesh (``heads``, ``plan``) the mixer runs this rank's SSD
+heads: ``wz``, ``gnorm`` and ``out_proj`` hold their columns (rows),
+``wxbc``/``conv_w``/``conv_b`` their x columns and all of B and C
+(``core.tp.MeshPlan.xbc_columns``), ``wdt``, ``dt_bias``, ``A_log`` and
+``D`` are whole and cut here; the gated norm's sum of squares and
+``out_proj``'s product are all-reduced over *model*, and the state holds
+the local heads (``ssd [B, H/m, P, N]``, ``conv [B, W-1, di/m + 2N]``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.core.tp import all_reduce_model
 from repro_torch.models.layers import rmsnorm
 
 
@@ -156,21 +165,44 @@ def ssd_recurrent(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.stack(ys, dim=1).to(x.dtype), hs
 
 
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float,
+                width: int, plan) -> torch.Tensor:
+    """RMSNorm of ``y [..., width / m]`` over the whole ``width``: this
+    rank's sum of squares all-reduced over *model*."""
+    if plan is None:
+        return rmsnorm(y, scale, eps)
+    yf = y.float()
+    ss = all_reduce_model(yf.square().sum(-1, keepdim=True), plan)
+    return (yf * torch.rsqrt(ss / width + eps)
+            * (1.0 + scale.float())).to(y.dtype)
+
+
 def mamba_mixer(p: dict, cfg: ModelConfig, u: torch.Tensor,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 update_mask: Optional[torch.Tensor] = None,
-                use_chunked: bool = True
+                use_chunked: bool = True, heads: Optional[slice] = None,
+                plan=None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """The Mamba-2 block (the caller adds the pre-norm residual).
     u [B,S,d] -> y [B,S,d].  ``state`` carries ``{"ssd": [B,H,P,N],
-    "conv": [B,W-1,conv_dim]}`` across calls (None: stateless train)."""
+    "conv": [B,W-1,conv_dim]}`` across calls (None: stateless train).
+    ``heads``: the SSD heads this rank runs, ``plan`` its mesh (module
+    docstring); None on one card."""
     s = cfg.ssm
-    di, h, dc, n = ssm_dims(cfg)
+    di_all, _, _, n = ssm_dims(cfg)
+    di, dc = p["wz"].shape[-1], p["wxbc"].shape[-1]
+    h = di // s.head_dim
     bsz, t, d = u.shape
     flat = u.reshape(bsz * t, d)
     z = (flat @ p["wz"]).reshape(bsz, t, di)
     xbc_in = (flat @ p["wxbc"]).reshape(bsz, t, dc)
-    dt_raw = (flat @ p["wdt"]).reshape(bsz, t, h)
+    dt_raw = (flat @ p["wdt"]).reshape(bsz, t, -1)
+    dt_bias, a_log, d_skip = p["dt_bias"], p["A_log"], p["D"]
+    if heads is not None:
+        dt_raw, dt_bias, a_log, d_skip = (
+            dt_raw[..., heads], dt_bias[heads], a_log[heads], d_skip[heads])
+    else:
+        plan = None
 
     conv_cache = state["conv"] if state is not None else None
     xbc, new_conv = causal_conv1d(xbc_in, p["conv_w"], p["conv_b"], conv_cache)
@@ -178,11 +210,11 @@ def mamba_mixer(p: dict, cfg: ModelConfig, u: torch.Tensor,
     x, B, C = torch.split(xbc, [di, n, n], dim=-1)
     x = x.reshape(bsz, t, h, s.head_dim)
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    dt = F.softplus(dt_raw.float() + dt_bias.float())
     if update_mask is not None:
         # masked steps are exact identities on the state in BOTH forms
         dt = dt * update_mask[..., None]
-    A = -torch.exp(p["A_log"].float())
+    A = -torch.exp(a_log.float())
 
     h0 = state["ssd"] if state is not None else None
     if use_chunked:
@@ -192,10 +224,11 @@ def mamba_mixer(p: dict, cfg: ModelConfig, u: torch.Tensor,
             h0 = u.new_zeros((bsz, h, s.head_dim, n), dtype=torch.float32)
         y, hf = ssd_recurrent(x, dt, A, B, C, h0, None)
 
-    y = y + p["D"].to(y.dtype)[:, None] * x                   # skip
+    y = y + d_skip.to(y.dtype)[:, None] * x                   # skip
     y = y.reshape(bsz, t, di)
-    y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
+    y = _gated_norm(y * F.silu(z), p["gnorm"], cfg.norm_eps, di_all, plan)
     out = (y.reshape(bsz * t, di) @ p["out_proj"]).reshape(bsz, t, d)
+    out = all_reduce_model(out, plan) if plan is not None else out
     if state is None:
         return out, None
     if update_mask is not None:

@@ -60,14 +60,20 @@ recurrent tensors.  ``commit`` is length arithmetic on the verified
 cache for the attention families, and the reference's masked re-advance
 from the pre-round snapshot for the recurrent ones.
 
-On a serving mesh (``plan``, a ``core.tp.MeshPlan``; dense targets) the
+On a serving mesh (``plan``, a ``core.tp.MeshPlan``; every family) the
 parameters and caches are this rank's shards: the lookup is
-vocab-parallel, each attention sublayer runs its query heads over the KV
-heads its cache keeps (``HeadLayout``), ``attn_output`` and the MLP end
-in the all-reduce over *model* where they contract a split dim, and the
-logits are gathered whole over the vocabulary.  On a ring whose rows
-split over *data* the call runs this rank's rows (``kv_pos``, ``length``
-and the tokens stay whole) and gathers the logits' rows.
+vocab-parallel, each attention sublayer (self, local, cross and the
+encoder's) runs its query heads over the KV heads its cache keeps
+(``HeadLayout``), ``attn_output``, the MLP, the MoE experts and the
+Mamba-2 mixer end in the all-reduce over *model* where they contract a
+split dim, and the logits are gathered whole over the vocabulary.  The
+RG-LRU block replicates.  On a ring whose rows split over *data* the
+call runs this rank's rows (``kv_pos``, ``length``, ``enc_valid`` and
+the tokens stay whole; an MoE layer gathers the call's rows to route
+them) and gathers the logits' rows.  A hybrid pool splits its recurrent
+rows over *data* too: each data rank runs its own rows through the
+RG-LRU layers and gathers every row before a local-attention layer, so
+the pool that every data rank writes stays whole and equal.
 """
 from __future__ import annotations
 
@@ -90,7 +96,7 @@ from repro_torch.models.flash import flash_attend
 from repro_torch.models.layers import (attend, attn_output, head_proj,
                                        mlp_apply, qkv_project, rmsnorm,
                                        rope_angles)
-from repro_torch.models.moe import moe_apply
+from repro_torch.models.moe import moe_apply, moe_apply_mesh
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssm import mamba_mixer
 from repro_torch.models.weights import Params, map_params
@@ -263,36 +269,51 @@ def _cache_heads(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, layout
     return k, v
 
 
+def _mlp_plan(cfg: ModelConfig, plan):
+    """The plan an MLP's down projection reduces over: ``plan`` where the
+    width splits over *model*, else None."""
+    return plan if plan is not None and plan.layout(cfg).mlp else None
+
+
 def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
            mode: str, positions: torch.Tensor, rope,
            input_mask: Optional[torch.Tensor],
            cache: Optional[cache_lib.CacheT],
            slots: Optional[torch.Tensor], attn_sharding=None,
-           moe_sharding=None, plan=None) -> Tuple[torch.Tensor, dict]:
+           moe_sharding=None, plan=None, rows=None
+           ) -> Tuple[torch.Tensor, dict]:
     """One pre-norm layer: attention, then the MLP or the MoE block, each
-    residual.  Returns (x, the MoE block's aux; empty for dense)."""
+    residual.  Returns (x, the MoE block's aux; empty for dense).
+    ``rows``: the call's rows ``x`` holds on a data-split ring."""
     x = _residual(x, _attn_sublayer(
         p["attn"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)), layer,
         mode, positions, rope, input_mask, cache, slots,
         cfg.attention_window, attn_sharding=attn_sharding, plan=plan))
     h = _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps))
     if cfg.family == "moe":
-        h, aux = (moe_apply(p["moe"], cfg.moe, h) if moe_sharding is None
-                  else moe_apply(p["moe"], cfg.moe, h, shardings=moe_sharding))
+        if plan is not None:
+            h, aux = moe_apply_mesh(p["moe"], cfg.moe, h, plan, rows,
+                                    plan.layout(cfg).mlp)
+        else:
+            h, aux = (moe_apply(p["moe"], cfg.moe, h) if moe_sharding is None
+                      else moe_apply(p["moe"], cfg.moe, h,
+                                     shardings=moe_sharding))
         return _residual(x, h), aux
-    reduce_plan = (plan if plan is not None and plan.layout(cfg).mlp
-                   else None)
-    return _residual(x, mlp_apply(p["mlp"], h, reduce_plan)), {}
+    return _residual(x, mlp_apply(p["mlp"], h, _mlp_plan(cfg, plan))), {}
 
 
 def _ssm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                state: Optional[dict], update_mask: Optional[torch.Tensor],
-               mode: str) -> Tuple[torch.Tensor, Optional[dict]]:
+               mode: str, plan=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """One Mamba-2 layer (pre-norm, residual): the chunked form in train
-    and prefill, the token recurrence in decode."""
+    and prefill, the token recurrence in decode; on a mesh over this
+    rank's SSD heads."""
+    heads = None if plan is None else plan.layout(cfg).ssd
+
     def mixer(pm, h, st, um):
         return mamba_mixer(pm, cfg, h, state=st, update_mask=um,
-                           use_chunked=mode in ("train", "prefill"))
+                           use_chunked=mode in ("train", "prefill"),
+                           heads=heads, plan=plan)
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     if not _sharded(h):
         h, new_state = mixer(p["mixer"], h, state, update_mask)
@@ -304,10 +325,11 @@ def _ssm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _rec_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                state: Optional[dict], update_mask: Optional[torch.Tensor],
-               mode: str) -> Tuple[torch.Tensor, Optional[dict]]:
+               mode: str, plan=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """One RG-LRU layer of a hybrid stack: the recurrent block, then the
     MLP, each pre-norm and residual (the scan in train and prefill, the
-    step recurrence in decode)."""
+    step recurrence in decode).  On a mesh the block is whole on every
+    rank and the MLP splits."""
     def block(pt, h, st, um):
         return rglru_block(pt, cfg, h, state=st, update_mask=um,
                            sequential=mode == "decode")
@@ -319,7 +341,8 @@ def _rec_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                        update_mask)
     x = _residual(x, h)
     return _residual(x, mlp_apply(
-        p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps)))), new_state
+        p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps)),
+        _mlp_plan(cfg, plan))), new_state
 
 
 def _local_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -327,23 +350,27 @@ def _local_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       rope, input_mask: Optional[torch.Tensor],
                       cache: Optional[cache_lib.CacheT],
                       slots: Optional[torch.Tensor],
-                      attn_sharding=None) -> torch.Tensor:
+                      attn_sharding=None, plan=None) -> torch.Tensor:
     """One local-attention layer of a hybrid stack, whose K/V live at
     ``attn_index`` of the cache's layer axis (attention layers only)."""
     x = _residual(x, _attn_sublayer(
         p["temporal"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)),
         attn_index, mode, positions, rope, input_mask, cache, slots,
-        cfg.rglru.local_attention_window, attn_sharding=attn_sharding))
+        cfg.rglru.local_attention_window, attn_sharding=attn_sharding,
+        plan=plan))
     return _residual(x, mlp_apply(
-        p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps))))
+        p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps)),
+        _mlp_plan(cfg, plan)))
 
 
 def _cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   ck: torch.Tensor, cv: torch.Tensor,
-                  enc_valid: torch.Tensor) -> torch.Tensor:
+                  enc_valid: torch.Tensor, plan=None) -> torch.Tensor:
     """Decoder -> encoder cross-attention over one layer's cross K/V
     ``[B, S_enc, KV, D]``: no RoPE, not causal, keys masked by
-    ``enc_valid [B, S_enc]`` (a row with no valid key gets 0)."""
+    ``enc_valid [B, S_enc]`` (a row with no valid key gets 0).  On a
+    mesh over this rank's query heads and the KV heads its cross cache
+    keeps (:func:`build_cross_cache`)."""
     q = head_proj(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
@@ -352,7 +379,8 @@ def _cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = _attention(attend, q, ck, cv, q_pos=torch.zeros((b, t), **i32),
                      kv_pos=torch.zeros((b, s), **i32), kv_valid=enc_valid,
                      causal=False)
-    return attn_output(p, out)
+    heads = plan is not None and plan.layout(cfg).heads
+    return attn_output(p, out, plan if heads else None)
 
 
 def _audio_block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
@@ -361,29 +389,32 @@ def _audio_block(p: dict, cfg: ModelConfig, x: torch.Tensor, layer: int,
                  cache: Optional[cache_lib.CacheT],
                  slots: Optional[torch.Tensor], ck: torch.Tensor,
                  cv: torch.Tensor, enc_valid: torch.Tensor,
-                 attn_sharding=None) -> torch.Tensor:
+                 attn_sharding=None, plan=None) -> torch.Tensor:
     """One decoder layer of an encoder-decoder: self-attention (the
     dense ring in decode), cross-attention over ``ck``/``cv``, the MLP,
     each pre-norm (``ln1``, ``ln2``, ``ln3``) and residual."""
     x = _residual(x, _attn_sublayer(
         p["self_attn"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)),
         layer, mode, positions, rope, input_mask, cache, slots, None,
-        attn_sharding=attn_sharding))
+        attn_sharding=attn_sharding, plan=plan))
     x = _residual(x, _cross_attend(
         p["cross_attn"], cfg, _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps)), ck,
-        cv, enc_valid))
+        cv, enc_valid, plan))
     return _residual(x, mlp_apply(
-        p["mlp"], _tp_in(rmsnorm(x, p["ln3"], cfg.norm_eps))))
+        p["mlp"], _tp_in(rmsnorm(x, p["ln3"], cfg.norm_eps)),
+        _mlp_plan(cfg, plan)))
 
 
 def encode(params: Params, cfg: ModelConfig, embeds: torch.Tensor,
            enc_valid: Optional[torch.Tensor] = None,
-           attn_sharding=None) -> torch.Tensor:
+           attn_sharding=None, plan=None) -> torch.Tensor:
     """The bidirectional encoder over front-end embeddings ``[B, S, d]``
     (``enc_valid [B, S]`` masks padded frames as keys): RoPE over the
     frame positions, attention not causal, then ``enc_norm``.  (Its
     input needs no gradient, so its first layer's backward differs from
-    the rest: the light iteration of :func:`trips` runs first.)"""
+    the rest: the light iteration of :func:`trips` runs first.)
+    ``plan``: on a serving mesh's shards, over whichever rows it is
+    given (the output is whole over *model*)."""
     b, s = embeds.shape[:2]
     if enc_valid is None:
         enc_valid = torch.ones((b, s), dtype=torch.bool, device=embeds.device)
@@ -397,25 +428,33 @@ def encode(params: Params, cfg: ModelConfig, embeds: torch.Tensor,
         x = _residual(x, _attn_sublayer(
             p["attn"], cfg, _tp_in(rmsnorm(x, p["ln1"], cfg.norm_eps)), i,
             "train", positions, rope, enc_valid, None, None, None,
-            causal=False, attn_sharding=attn_sharding))
+            causal=False, attn_sharding=attn_sharding, plan=plan))
         x = _residual(x, mlp_apply(
-            p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps))))
+            p["mlp"], _tp_in(rmsnorm(x, p["ln2"], cfg.norm_eps)),
+            _mlp_plan(cfg, plan)))
     enc_norm = params["enc_norm"]
     return rmsnorm(x, gather_fsdp(enc_norm) if sharded else enc_norm,
                    cfg.norm_eps)
 
 
-def build_cross_cache(params: Params, cfg: ModelConfig, enc_out: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def build_cross_cache(params: Params, cfg: ModelConfig, enc_out: torch.Tensor,
+                      plan=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer's cross K/V ``[L, B, S, KV, D]`` of the encoder
-    output ``enc_out [B, S, d]``."""
+    output ``enc_out [B, S, d]``; on a serving mesh (``plan``) the KV
+    heads this rank's query heads read, as its self-attention cache keeps
+    them (``HeadLayout``)."""
     p = params["layers"]["cross_attn"]
+    layout = None if plan is None else plan.layout(cfg)
     ks, vs = [None] * cfg.num_layers, [None] * cfg.num_layers
     for i in trips(cfg.num_layers, heavy_first=True):
         k = head_proj(enc_out, p["wk"][i])
         v = head_proj(enc_out, p["wv"][i])
         if cfg.qkv_bias:
             k, v = k + p["bk"][i], v + p["bv"][i]
+        if layout is not None:
+            if layout.real_kv is not None:
+                k, v = k[:, :, layout.real_kv], v[:, :, layout.real_kv]
+            k, v = _cache_heads(cfg, k, v, layout)
         ks[i], vs[i] = k, v
     return torch.stack(fill_skipped(ks)), torch.stack(fill_skipped(vs))
 
@@ -492,9 +531,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     nothing.  The layer stacks iterate by ``core.cost_hooks.trips``:
     ``range`` outside the dry run's weighting counter.
 
-    ``plan`` (a ``core.tp.MeshPlan``; the serving engine on a mesh, dense
-    family only): ``params`` and ``cache`` are this rank's shards, and
-    the logits come back whole on every rank (module docstring)."""
+    ``plan`` (a ``core.tp.MeshPlan``; the serving engine on a mesh):
+    ``params`` and ``cache`` are this rank's shards, and the logits come
+    back whole on every rank (module docstring).  The masks, ``embeds``
+    and ``rope_positions`` are the whole call's."""
     assert mode in ("train", "prefill", "decode")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -502,17 +542,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             f"family {cfg.family!r} (ROADMAP A7)")
     assert (cache is None) == (mode == "train"), (
         "train runs without a cache; prefill and decode need one")
-    if plan is not None and cfg.family != "dense":
-        raise NotImplementedError(
-            f"the serving mesh runs dense targets; family {cfg.family!r} on "
-            "a mesh is ROADMAP A10")
     layout = None if plan is None else plan.layout(cfg)
-    ring = (cache is not None and "kv_pos" in cache
-            and not cache_lib.is_paged(cache))
-    # a ring whose rows split over data: this rank runs its own rows
-    rows = tp_lib.split_rows(cache, plan) if ring else None
+    paged = cache is not None and cache_lib.is_paged(cache)
+    ring = cache is not None and "kv_pos" in cache and not paged
+    # a ring (or recurrent rows) split over data: this rank runs its own
+    # rows; a hybrid pool whose recurrent rows split runs its own rows
+    # through the RG-LRU layers alone (``rec_rows``)
+    split = None if cache is None else tp_lib.split_rows(cache, plan)
+    rows = None if paged else split
+    rec_rows = split if paged else None
+    # kv_pos is whole on every rank: its writes take every row's validity
+    valid = input_mask if mode == "prefill" else None
     if rows is not None:
-        tokens = tokens[rows[0]:rows[1]]
+        tokens, embeds, rope_positions, input_mask, update_mask = (
+            None if a is None else a[rows[0]:rows[1]]
+            for a in (tokens, embeds, rope_positions, input_mask,
+                      update_mask))
     sharded = _sharded(params["embed"])
     if sharded:
         params = dict(params, **gather_fsdp(
@@ -544,7 +589,6 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                         cfg.resolved_head_dim, cfg.rope_theta,
                         cfg.mrope_sections))
     slots = None
-    valid = input_mask if mode == "prefill" else None
     attn_cache = cache
     if ring:
         w = cache_lib.cache_window(cache)
@@ -567,6 +611,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     remat = remat and mode == "train"
     new_state = {}
     aux: dict = {}
+    # x holds this rank's rows of a hybrid pool's call (``rec_rows``)
+    own_rows = False
 
     def between(x):
         return shard_as(x, act_sharding)
@@ -576,7 +622,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             st = (None if cache is None else
                   {k: cache[k][i] for k in ("ssd", "conv")})
             x, states[i] = _run(_ssm_block, remat, _layer(params, i, sharded=sharded),
-                                cfg, x, st, update_mask, mode)
+                                cfg, x, st, update_mask, mode, plan)
             x = between(x)
         if cache is not None:
             states = fill_skipped(states)
@@ -584,16 +630,23 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                          for k in ("ssd", "conv")}
     elif cfg.family == "hybrid":
         states = [None] * cache_lib.hybrid_layer_counts(cfg)[1]
+        rec_mask = (update_mask if rec_rows is None or update_mask is None
+                    else update_mask[rec_rows[0]:rec_rows[1]])
         for kind, p, idx, grouped in _hybrid_layers(params, cfg, sharded):
             if kind == "attn":
+                if own_rows:
+                    # the pool is every data rank's: attend on every row
+                    x, own_rows = tp_lib.gather_rows(x, plan), False
                 x = between(_run(_local_attn_block, remat, p, cfg, x, idx,
-                                 mode, positions, rope, input_mask, cache,
-                                 slots, attn_sharding))
+                                 mode, positions, rope, input_mask,
+                                 attn_cache, slots, attn_sharding, plan))
                 continue
+            if rec_rows is not None and not own_rows:
+                x, own_rows = x[rec_rows[0]:rec_rows[1]], True
             st = (None if cache is None else
                   {k: cache[k][idx] for k in ("lru", "conv")})
             x, states[idx] = _run(_rec_block, remat and grouped, p, cfg, x,
-                                  st, update_mask, mode)
+                                  st, rec_mask, mode, plan)
             x = between(x)
         if cache is not None and states:
             states = fill_skipped(states)
@@ -602,6 +655,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     elif cfg.family == "audio":
         if cache is not None:
             ck, cv, ev = cache["cross_k"], cache["cross_v"], cache["enc_valid"]
+            if rows is not None:
+                ev = ev[rows[0]:rows[1]]
         else:
             assert encoder_embeds is not None, (
                 "audio train mode needs encoder_embeds")
@@ -614,14 +669,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
         for i in trips(cfg.num_layers, heavy_first=True):
             x = between(_run(_audio_block, remat,
                              _layer(params, i, sharded=sharded), cfg, x,
-                             i, mode, positions, rope, input_mask, cache,
-                             slots, ck[i], cv[i], ev, attn_sharding))
+                             i, mode, positions, rope, input_mask, attn_cache,
+                             slots, ck[i], cv[i], ev, attn_sharding, plan))
     else:
         for i in trips(cfg.num_layers, heavy_first=True):
             x, aux_i = _run(_block, remat, _layer(params, i, sharded=sharded),
                             cfg, x, i,
                             mode, positions, rope, input_mask, attn_cache,
-                            slots, attn_sharding, moe_sharding, plan)
+                            slots, attn_sharding, moe_sharding, plan, rows)
             x = between(x)
             aux = {k: aux.get(k, 0.0) + a for k, a in aux_i.items()}
     x = _tp_in(rmsnorm(x, params["final_norm"], cfg.norm_eps))
@@ -629,7 +684,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     logits = (x @ head).float()
     if layout is not None and layout.vocab:
         logits = tp_lib.gather_vocab(logits, plan)
-    if rows is not None:
+    if rows is not None or own_rows:
         logits = tp_lib.gather_rows(logits, plan)
     out = (logits, None if cache is None else dict(cache, **new_state))
     if not with_aux:

@@ -247,38 +247,69 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     device = resolve_device(device)
     gen = torch.Generator(device=resolve_device(rng_device)).manual_seed(seed)
 
-    def make(leaf: Spec) -> torch.Tensor:
+    def make(name: str, leaf: Spec) -> torch.Tensor:
         shape, init, scale, axes = leaf
         if init in ("zeros", "ones"):
             if plan is not None:
-                shape = plan.local_shape(shape, plan.param_spec(shape, axes))
+                shape = serve_local_shape(cfg, plan, name, leaf)
             fill = torch.zeros if init == "zeros" else torch.ones
             return fill(shape, dtype=dtype, device=device)
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)
         if plan is not None:
-            t = plan.local_slice(t, plan.param_spec(shape, axes))
+            t = plan.local_slice(t, *serve_cut(cfg, plan, name, leaf))
         return t.mul_(scale).to(device=device, dtype=dtype)
 
-    return map_params(make, param_shapes(cfg, vocab_pad_multiple))
+    return map_named(make, param_shapes(cfg, vocab_pad_multiple))
+
+
+# the Mamba-2 mixer's leaves over its joint x | B | C axis
+XBC_LEAVES = ("wxbc", "conv_w", "conv_b")
+
+
+def serve_cut(cfg: ModelConfig, plan, name: str, leaf: Spec
+              ) -> Tuple[Tuple, Optional[torch.Tensor]]:
+    """(spec, cols): how a serving mesh's rank cuts the leaf ``name`` of
+    ``cfg`` (``core.tp.MeshPlan.local_slice`` takes both): the ``serve``
+    rules' guarded spec (:meth:`~repro_torch.core.tp.MeshPlan.param_spec`,
+    the RG-LRU block whole), but for the Mamba-2 mixer, whose width
+    leaves follow its SSD heads (``HeadLayout.ssd``; all whole where
+    *model* does not divide them) and whose x | B | C leaves keep this
+    rank's x columns and all of B and C (``cols``,
+    :meth:`~repro_torch.core.tp.MeshPlan.xbc_columns`)."""
+    if cfg.family == "ssm" and "mlp" in leaf.axes:
+        if plan.layout(cfg).ssd is None:
+            return (), None
+        if name in XBC_LEAVES:
+            return (), plan.xbc_columns(cfg)
+    return plan.param_spec(leaf.shape, leaf.axes), None
+
+
+def serve_local_shape(cfg: ModelConfig, plan, name: str, leaf: Spec
+                      ) -> Tuple[int, ...]:
+    """The shape of this rank's :func:`serve_cut` of a leaf."""
+    spec, cols = serve_cut(cfg, plan, name, leaf)
+    if cols is not None:
+        return tuple(leaf.shape[:-1]) + (len(cols),)
+    return plan.local_shape(leaf.shape, spec)
 
 
 def shard_params(params: Params, cfg: ModelConfig, plan,
                  vocab_pad_multiple: int = VOCAB_PAD_MULTIPLE) -> Params:
     """``params`` (``cfg``'s whole tree, e.g. from :func:`from_reference`)
     cut leaf by leaf to this rank's shards under ``plan`` (a
-    ``core.tp.MeshPlan``: the ``serve`` rules' guarded specs, the
-    reference's ``param_shardings``).  A leaf already at its local shape
+    ``core.tp.MeshPlan``: :func:`serve_cut`, the reference's
+    ``param_shardings`` but for the RG-LRU block and the Mamba-2 mixer's
+    x | B | C leaves).  A leaf already at its local shape
     (an :func:`init_params` with ``plan``) stays as it is."""
-    def cut(leaf: Spec, x: torch.Tensor) -> torch.Tensor:
-        spec = plan.param_spec(leaf.shape, leaf.axes)
+    def cut(name: str, leaf: Spec, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) == tuple(leaf.shape):
-            return plan.local_slice(x, spec)
-        if tuple(x.shape) != plan.local_shape(leaf.shape, spec):
+            return plan.local_slice(x, *serve_cut(cfg, plan, name, leaf))
+        if tuple(x.shape) != serve_local_shape(cfg, plan, name, leaf):
             raise ValueError(f"parameter of shape {tuple(x.shape)} is neither "
                              f"{leaf.shape} nor its shard")
         return x
-    return map_params(cut, param_shapes(cfg, vocab_pad_multiple), params)
+    return map_named(cut, param_shapes(cfg, vocab_pad_multiple), params)
 
 
 def map_params(fn, *trees: Params) -> Params:
@@ -297,6 +328,19 @@ def map_params(fn, *trees: Params) -> Params:
     if first is None:
         return None
     return fn(*trees)
+
+
+def map_named(fn, shapes, *trees: Params, name: str = "") -> Params:
+    """:func:`map_params` over a :func:`param_shapes` tree and trees of
+    its structure, ``fn(name, spec, *leaves)`` given each leaf's key."""
+    if isinstance(shapes, dict):
+        return {k: (None if shapes[k] is None else
+                    map_named(fn, shapes[k], *(t[k] for t in trees), name=k))
+                for k in shapes}
+    if isinstance(shapes, tuple) and not isinstance(shapes, Spec):
+        return tuple(map_named(fn, sub[0], *sub[1:], name=name)
+                     for sub in zip(shapes, *trees))
+    return fn(name, shapes, *trees)
 
 
 def from_reference(tree, device="cuda", dtype=torch.float32) -> Params:

@@ -37,7 +37,9 @@ rank runs this same host loop over the same requests, its parameters
 and caches are its shards under the ``serve`` rules (``core/tp.py``),
 and the round's outputs reach every host whole.  Every clock reading is
 rank 0's, broadcast over the CPU control group, so every rank admits,
-gates and picks buckets alike.  Dense targets only (ROADMAP A10).
+gates and picks buckets alike.  Every family serves on a mesh (an audio
+target with its empty encoder context); prefix caching on a mesh is
+ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -128,19 +130,14 @@ class ServingEngine:
         .MeshPlan`` for this rank: whole ``params_*`` are cut to this
         rank's shards (``models.weights.shard_params``; shards from
         ``init_params(plan=)`` stay), the caches hold its shards, and
-        every rank must be given the same requests.  Dense families only:
-        another raises ``NotImplementedError`` (ROADMAP A10)."""
+        every rank must be given the same requests.  Every family;
+        prefix caching on a mesh raises ``NotImplementedError`` (ROADMAP
+        A10)."""
         self.device = resolve_device(device)
         b = serving.max_batch_size
         plan = (mesh if mesh is None or isinstance(mesh, tp.MeshPlan)
                 else tp.MeshPlan.for_mesh(mesh, b))
         if plan is not None:
-            families = {cfg_target.family} | (
-                {cfg_draft.family} if cfg_draft is not None else set())
-            if families != {"dense"}:
-                raise NotImplementedError(
-                    f"the serving mesh runs dense targets and drafts; "
-                    f"{sorted(families)} on a mesh is ROADMAP A10")
             if serving.prefix_caching:
                 raise NotImplementedError(
                     "prefix caching on a serving mesh is ROADMAP A10")
@@ -461,7 +458,7 @@ class ServingEngine:
                     self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"],
                     rows_t, toks_t, plen_t, tc.get("k_scale"),
                     tc.get("v_scale"), plan=self.mesh_plan)
-            tc = prefill_lib.scatter_paged_rows(tc, view, idx)
+            tc = prefill_lib.scatter_paged_rows(tc, view, idx, own)
         else:
             rows, last = prefill_lib.prefill_rows(
                 self.pt, self.cfg_t, toks_t, plen_t, self.serving.max_seq_len,

@@ -14,7 +14,14 @@ use, its own and those of the files the worker ran before it.
 runs.  The suite runs several workers on the machine's cores, and a
 torch thread pool per worker oversubscribes them (measured on one file:
 237 s with the default pool, 67 s on one thread); the port's small
-reduced-width calls gain little from more threads."""
+reduced-width calls gain little from more threads.
+
+``once_per_run``: a module fixture's value computed once for the whole
+run rather than once for each pytest-xdist worker that runs a test of
+the module."""
+import fcntl
+import os
+
 import jax
 import pytest
 import torch
@@ -32,3 +39,28 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def once_per_run(tmp_path_factory, name, compute):
+    """``compute()``, once for the whole test run.  Under pytest-xdist
+    every worker that runs a test of a module builds that module's
+    fixtures again, and the mesh files' fixtures start worlds of rank
+    processes: several workers building them at once crowd the machine's
+    cores.  The first worker to need ``name`` computes it under a lock in
+    the run's shared temporary directory and saves it there; the others
+    wait for it and load it.  Without xdist it is ``compute()``."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return compute()
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"{name}.pt"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                return torch.load(path, weights_only=False)
+            value = compute()
+            torch.save(value, root / f"{name}.pt.part")
+            os.replace(root / f"{name}.pt.part", path)
+            return value
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)

@@ -6,10 +6,11 @@
 The ranks meet over a gloo ``FileStore`` at STORE, build the ``DxM``
 ``DeviceMesh`` that JOB names and run its cases in order, every rank the
 same.  JOB (``torch.save``) holds ``mesh``, ``configs`` (name ->
-``ModelConfig`` field overrides of ``smollm-135m.reduced()``), ``params``
-(name -> a whole parameter tree of numpy arrays) and ``cases`` (dicts,
-by ``kind``: ``serve``, ``forward``, ``layout``).  OUT gets this rank's
-results, one per case, by case name.
+``ModelConfig`` field overrides of ``smollm-135m.reduced()``, or of the
+reduced config, or its ``draft()``, of the arch an ``arch`` / ``draft_of``
+key names), ``params`` (name -> a whole parameter tree of numpy arrays)
+and ``cases`` (dicts, by ``kind``: ``serve``, ``forward``, ``layout``).
+OUT gets this rank's results, one per case, by case name.
 """
 import dataclasses
 import hashlib
@@ -22,7 +23,27 @@ import torch.distributed as dist
 
 def config(overrides):
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("smollm-135m").reduced(), **overrides)
+    overrides = dict(overrides)
+    draft_of = overrides.pop("draft_of", None)
+    cfg = get_config(draft_of or overrides.pop("arch", "smollm-135m")
+                     ).reduced()
+    return dataclasses.replace(cfg.draft() if draft_of else cfg, **overrides)
+
+
+def count_drops():
+    """Wrap the MoE block's dispatch so that each call that drops a
+    (token, slot) pair is counted (a host read of the test's own)."""
+    from repro_torch.models import moe
+    calls = {"calls": 0, "dropping": 0}
+    inner = moe._moe_local
+
+    def wrapped(*a, **kw):
+        y, aux = inner(*a, **kw)
+        calls["calls"] += 1
+        calls["dropping"] += int(float(aux["dropped_fraction"]) > 0)
+        return y, aux
+    moe._moe_local = wrapped
+    return calls, lambda: setattr(moe, "_moe_local", inner)
 
 
 def params_of(job, name):
@@ -37,11 +58,15 @@ def serve(job, case, mesh):
     from repro_torch.serving.request import Request
 
     cfg = config(job["configs"][case.get("config", "small")])
+    cfg_d = (config(job["configs"][case["draft_config"]])
+             if "draft_config" in case else cfg)
     model = case.get("drafter", "model") == "model"
     spec = SpecDecodeConfig(policy=case.get("policy", "dsde"),
                             drafter=case.get("drafter", "model"),
                             temperature=0.0,
-                            self_draft_layers=case.get("self_layers", 1))
+                            self_draft_layers=case.get("self_layers", 1),
+                            **({"ngram_n": case["ngram_n"]}
+                               if "ngram_n" in case else {}))
     sv = ServingConfig(max_batch_size=case.get("batch", 2),
                        max_seq_len=case.get("max_seq", 128),
                        paged_kv=case.get("paged", False),
@@ -55,8 +80,9 @@ def serve(job, case, mesh):
     real = time.monotonic
     if skew is not None:
         time.monotonic = lambda: real() + skew
+    drops, undo = count_drops() if case.get("drops") else (None, None)
     try:
-        eng = ServingEngine(pt, cfg, pd, cfg if model else None, spec, sv,
+        eng = ServingEngine(pt, cfg, pd, cfg_d if model else None, spec, sv,
                             seed=0, device="cpu",
                             mesh=None if case.get("unmeshed") else mesh)
         deadlines = case.get("deadlines")
@@ -68,6 +94,8 @@ def serve(job, case, mesh):
         m = eng.run(reqs)
     finally:
         time.monotonic = real
+        if undo is not None:
+            undo()
     out = {"streams": [r.output for r in reqs],
            "finished": m["requests_finished"],
            "preemptions": m["preemptions"], "rounds": m["rounds"],
@@ -75,7 +103,7 @@ def serve(job, case, mesh):
            "slots": [r.slot for r in reqs],
            "slo_predicted_violations": m["slo_predicted_violations"],
            "slo_deferrals": m["slo_deferrals"],
-           "counts": dict(tp.COUNTS)}
+           "counts": dict(tp.COUNTS), "drops": drops}
     st = eng.state
     if case.get("digest"):
         tc = st.target_cache
@@ -114,6 +142,7 @@ def forward_case(job, case, mesh):
     toks = torch.tensor(case["tokens"], dtype=torch.int32)
     b, s = toks.shape
     prompt, last = toks[:, :-1], toks[:, -1:]
+    out = {}
     if case.get("paged"):
         nb, bs = 8 * b, 16
         cache = cache_lib.paged_cache_struct(cfg, b, 128, nb, bs, plan=plan)
@@ -121,12 +150,53 @@ def forward_case(job, case, mesh):
         cache["block_table"] = torch.arange(b * per, dtype=torch.int32
                                             ).reshape(b, per)
     else:
-        cache = cache_lib.cache_struct(cfg, b, 128, plan=plan)
+        cache = cache_lib.cache_struct(
+            cfg, b, 128, plan=plan,
+            enc_len=len(case["frames"][0]) if "frames" in case else None)
+    if "frames" in case:
+        out.update(encoder_context(cfg, pt, plan, cache, case))
     lp, cache = forward(pt, cfg, prompt, cache=cache, mode="prefill",
                         plan=plan)
     cache["length"] = torch.full((b,), s - 1, dtype=torch.int32)
     ld, _ = forward(pt, cfg, last, cache=cache, mode="decode", plan=plan)
-    return {"prefill": lp.numpy(), "decode": ld.numpy()}
+    out.update(prefill=lp.numpy(), decode=ld.numpy())
+    return out
+
+
+def encoder_context(cfg, pt, plan, cache, case):
+    """An encoder-decoder's context on the mesh: ``encode`` of this
+    rank's rows of the case's frames, and ``build_cross_cache`` of the
+    reference's encoder output (``renc``) on its shards; the cache then
+    decodes over the reference's cross K/V (``rk``/``rv``) cut to this
+    rank's rows and KV heads, as the reference test decodes over the
+    same values in both packages.  Returns the encoder output, the built
+    cross K and the reference's cut cross K."""
+    from repro_torch.core import tp
+    from repro_torch.models.transformer import (_cache_heads,
+                                                build_cross_cache, encode)
+    rows = tp.split_rows(cache, plan)
+    sl = slice(None) if rows is None else slice(*rows)
+    frames, renc = (torch.tensor(case[k])[sl] for k in ("frames", "renc"))
+    enc = encode(pt, cfg, frames, plan=plan)
+    ck, _ = build_cross_cache(pt, cfg, renc, plan=plan)
+    lay = plan.layout(cfg)
+    kv, m = cfg.num_kv_heads, plan.model_size
+    # the heads this rank projects: its share where model divides them
+    mine = (slice(plan.model_rank * kv // m, (plan.model_rank + 1) * kv // m)
+            if m > 1 and kv % m == 0 else slice(None))
+
+    def cut(x):
+        x = torch.tensor(x)[:, sl, :, mine]
+        n, bl, se, h, d = x.shape
+        flat = x.reshape(n * bl, se, h, d)
+        if lay.real_kv is not None:
+            flat = flat[:, :, lay.real_kv]
+        flat, _ = _cache_heads(cfg, flat, flat, lay)
+        return flat.reshape(n, bl, se, flat.shape[2], d).contiguous()
+    cache["cross_k"], cache["cross_v"] = cut(case["rk"]), cut(case["rv"])
+    cache["enc_valid"][:] = True
+    return {"enc": enc.numpy(), "cross_k": ck.numpy(),
+            "cross_k_ref": cache["cross_k"].numpy()}
 
 
 def layout_case(job, case, mesh):

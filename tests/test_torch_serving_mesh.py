@@ -48,7 +48,8 @@ from repro_torch.models.weights import (from_reference, init_params,
                                         shard_params)
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.request import Request
-from _jax_caches import one_torch_thread, release_jax_caches  # noqa: F401
+from _jax_caches import (one_torch_thread, once_per_run,  # noqa: F401
+                         release_jax_caches)
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -89,14 +90,20 @@ def make_train_logits(cfg):
 
 def _rollouts(params, cfg, prompts, n):
     """The target's greedy rollout of each prompt (the reference test's
-    ``greedy_rollout``, its forward jitted)."""
+    ``greedy_rollout``, its forward jitted).  Every call runs at one
+    length, the longest row's (right-padded: the forward is causal, so
+    the padding changes no logit before it), so that one program
+    serves them all."""
     fwd = make_train_logits(cfg)
+    width = max(len(p) for p in prompts) + n
     out = []
     for prompt in prompts:
         toks = list(prompt)
         for _ in range(n):
-            logits = fwd(params, jnp.asarray([toks], jnp.int32))
-            toks.append(int(jnp.argmax(logits[0, -1, :cfg.vocab_size])))
+            logits = fwd(params, jnp.asarray([toks + [0] * (width - len(toks))],
+                                             jnp.int32))
+            toks.append(int(jnp.argmax(logits[0, len(toks) - 1,
+                                              :cfg.vocab_size])))
         out.append(toks[len(prompt):])
     return out
 
@@ -206,38 +213,43 @@ def _finish_world(procs, tmp: Path):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both worlds' results ({mesh: [rank results]}) and the reference's
-    rollouts, computed while the worlds run."""
-    rcfg = ref_get_config("smollm-135m").reduced()
-    hcfg = dataclasses.replace(rcfg, **HAZARD)
-    pt, pd = _pair(rcfg, 1, 7)
-    hz, hzd = _pair(hcfg, 3, 9)
-    prompts = _prompts(rcfg.vocab_size)
-    preempt = _prompts(rcfg.vocab_size, (30, 25, 20), seed=5)
-    skew_prompts = prompts + prompts
-    params = {"pt": _numpy(pt), "pd": _numpy(pd), "hz": _numpy(hz),
-              "hzd": _numpy(hzd)}
-    base = tmp_path_factory.mktemp("mesh")
-    started = {}
-    for mesh in MESHES:
-        job = dict(mesh=mesh, configs={"small": {}, "hazard": HAZARD,
-                                       "hazard-pad": dict(HAZARD, **PAD)},
-                   params=params,
-                   cases=_cases(mesh, prompts, preempt, skew_prompts))
-        started[mesh] = _start_world(mesh, job, base / mesh)
-    try:
-        ref = {"short": _rollouts(pt, rcfg, prompts, 10),
-               "preempt": _rollouts(pt, rcfg, preempt, 40),
-               "hazard": _rollouts(hz, hcfg, prompts, 10)}
-        ref["skew"] = ref["short"] * 2
-        fwd = {}
-        for name, (p, c) in {"small": (pt, rcfg), "hazard": (hz, hcfg)}.items():
-            toks = jnp.asarray([q[:5] for q in prompts[:2]], jnp.int32)
-            fwd[name] = np.asarray(ref_forward(p, c, toks, mode="train")[0])
-        ref["forward"] = fwd
-    finally:
-        results = {mesh: _finish_world(procs, base / mesh)
-                   for mesh, procs in started.items()}
-    return results, ref, params
+    rollouts, computed while the worlds run, once for the whole test run
+    (``once_per_run``)."""
+    def compute():
+        rcfg = ref_get_config("smollm-135m").reduced()
+        hcfg = dataclasses.replace(rcfg, **HAZARD)
+        pt, pd = _pair(rcfg, 1, 7)
+        hz, hzd = _pair(hcfg, 3, 9)
+        prompts = _prompts(rcfg.vocab_size)
+        preempt = _prompts(rcfg.vocab_size, (30, 25, 20), seed=5)
+        skew_prompts = prompts + prompts
+        params = {"pt": _numpy(pt), "pd": _numpy(pd), "hz": _numpy(hz),
+                  "hzd": _numpy(hzd)}
+        base = tmp_path_factory.mktemp("mesh")
+        started = {}
+        for mesh in MESHES:
+            job = dict(mesh=mesh, configs={"small": {}, "hazard": HAZARD,
+                                           "hazard-pad": dict(HAZARD, **PAD)},
+                       params=params,
+                       cases=_cases(mesh, prompts, preempt, skew_prompts))
+            started[mesh] = _start_world(mesh, job, base / mesh)
+        try:
+            ref = {"short": _rollouts(pt, rcfg, prompts, 10),
+                   "preempt": _rollouts(pt, rcfg, preempt, 40),
+                   "hazard": _rollouts(hz, hcfg, prompts, 10)}
+            ref["skew"] = ref["short"] * 2
+            fwd = {}
+            for name, (p, c) in {"small": (pt, rcfg),
+                                 "hazard": (hz, hcfg)}.items():
+                toks = jnp.asarray([q[:5] for q in prompts[:2]], jnp.int32)
+                fwd[name] = np.asarray(
+                    ref_forward(p, c, toks, mode="train")[0])
+            ref["forward"] = fwd
+        finally:
+            results = {mesh: _finish_world(procs, base / mesh)
+                       for mesh, procs in started.items()}
+        return results, ref, params
+    return once_per_run(tmp_path_factory, "torch-serving-mesh-runs", compute)
 
 
 def _streams(results, mesh, name):
@@ -318,16 +330,33 @@ def _caches(np_mod):
                   "kv_pos": z((4, 32), np.int32),
                   "length": z((4,), np.int32)},
         "ngram": {"tokens": z((4, 64), np.int32),
-                  "length": z((4,), np.int32)}}
+                  "length": z((4,), np.int32)},
+        "ssm": {"ssd": z((2, 4, 8, 16, 32)), "conv": z((2, 4, 3, 576)),
+                "length": z((4,), np.int32)},
+        "hybrid-pool": {"k": z((1, 8, 4, 1, 8)), "v": z((1, 8, 4, 1, 8)),
+                        "kv_pos": z((8, 4), np.int32),
+                        "block_table": z((4, 8), np.int32),
+                        "length": z((4,), np.int32),
+                        "lru": z((2, 4, 64)), "conv": z((2, 4, 3, 64))},
+        "hybrid-ring": {"k": z((1, 4, 32, 1, 8)), "v": z((1, 4, 32, 1, 8)),
+                        "kv_pos": z((4, 32), np.int32),
+                        "length": z((4,), np.int32),
+                        "lru": z((2, 4, 64)), "conv": z((2, 4, 3, 64))},
+        "audio": {"k": z((2, 4, 32, 4, 8)), "v": z((2, 4, 32, 4, 8)),
+                  "kv_pos": z((4, 32), np.int32),
+                  "length": z((4,), np.int32),
+                  "cross_k": z((2, 4, 1, 4, 8)), "cross_v": z((2, 4, 1, 4, 8)),
+                  "enc_valid": z((4, 1), bool)}}
 
 
-@pytest.mark.parametrize("kind", ["paged", "int8", "dense", "ngram"])
+@pytest.mark.parametrize("kind", ["paged", "int8", "dense", "ngram", "ssm",
+                                  "hybrid-pool", "hybrid-ring", "audio"])
 def test_serve_cache_shardings_match_reference(kind):
     """The port's table gives the reference's specs on a jax 1 x 1 mesh,
     and the reference test's layout contract on a 2 x 4 mesh: pools keep
-    the block axis whole, control leaves replicate, dense rows and the
-    n-gram history split over data, KV heads over model where they
-    divide."""
+    the block axis whole, control leaves replicate, dense rows, recurrent
+    rows (on a hybrid pool too), cross K/V and the n-gram history split
+    over data, KV heads over model where they divide."""
     rmesh = ref_mesh((1, 1), ("data", "model"))
     port = _caches(np)[kind]
     ref = _caches(jnp)[kind]
@@ -338,16 +367,22 @@ def test_serve_cache_shardings_match_reference(kind):
     assert got == want
     sh = {k: _norm(v.spec) for k, v in sharding.serve_cache_shardings(
         port, FAKE, sharding.serve_rules(FAKE, 4)).items()}
-    for leaf in ("kv_pos", "block_table", "length"):
+    for leaf in ("kv_pos", "block_table", "length", "enc_valid"):
         assert sh.get(leaf, ()) == ()
-    if kind == "paged":
+    for leaf in ("ssd", "lru", "conv"):
+        if leaf in port:
+            assert sh[leaf] == (None, "data"), leaf
+    if kind in ("paged", "hybrid-pool"):
         assert sh["k"] == ()                      # 1 KV head: replicated
     elif kind == "int8":
         assert sh["k"] == (None, None, None, "model")
         assert sh["k_scale"] == (None, None, None, "model")
-    elif kind == "dense":
+    elif kind in ("dense", "hybrid-ring"):
         assert sh["k"] == (None, "data")
-    else:
+    elif kind == "audio":
+        for leaf in ("k", "cross_k", "cross_v"):
+            assert sh[leaf] == (None, "data", None, "model"), leaf
+    elif kind == "ngram":
         assert sh["tokens"] == ("data",)
 
 
@@ -476,13 +511,16 @@ def test_head_layout_of_the_uneven_kv_shape():
         head_layout(0, 3, 12, 4, None, 512, 512)
 
 
-def test_non_dense_target_on_a_mesh_raises_naming_a10():
+def test_prefix_caching_on_a_mesh_raises_naming_a10():
+    """Every family serves on a mesh (``tests/test_torch_serving_mesh_
+    families.py``); prefix caching there is still ROADMAP A10's."""
     cfg = get_config("granite-moe-3b-a800m").reduced()
     p = init_params(cfg, seed=0, device="cpu")
     plan = MeshPlan(FAKE, serve_rules(FAKE, 2))
     with pytest.raises(NotImplementedError, match="A10"):
         ServingEngine(p, cfg, None, None, SpecDecodeConfig(drafter="ngram"),
-                      ServingConfig(max_batch_size=2, max_seq_len=64),
+                      ServingConfig(max_batch_size=2, max_seq_len=64,
+                                    paged_kv=True, prefix_caching=True),
                       device="cpu", mesh=plan)
 
 
