@@ -57,15 +57,18 @@ Phases, each printing one JSON line:
              verify passes past one launch of B1 and B4; adaedl,
              goodput and slo on the fp32 pool, goodput x n-gram on the
              int8 pool, the self drafter on the pool and the ring).
-4b. mesh   — the serving engine on a (data, model) mesh (ROADMAP A10):
-             smollm-135m at full width, each serve's 8 requests and
-             prompts those of its unmeshed twin in the serve phase
-             (``MESH_TWINS``); ``mesh-1x1-nccl``: a real NCCL
-             communicator of one rank in this process, its all-reduce
-             and all-gather enqueued with 0 synchronising calls, then
-             the fp32 pool and the dense ring served (a group of one
-             rank launches no collective), dispatch making 0
-             synchronising calls;
+4b. mesh   — the serving engine on a (data, model) mesh (ROADMAP A10;
+             it runs after the frontdoor phase, 5): smollm-135m at full
+             width, each serve's 8 requests and prompts those of its
+             unmeshed twin in the serve phase (``MESH_TWINS``);
+             ``mesh-1x1-nccl``: a real NCCL communicator of one rank in
+             this process, its all-reduce and all-gather enqueued with 0
+             synchronising calls, then the fp32 pool and the dense ring
+             served (a group of one rank launches no collective), and
+             the frontdoor phase's fp32 warm serve at its depth (prefix
+             caching: equal streams, hits and COW copies, B1 launched
+             by the tail prefills), dispatch making 0 synchronising
+             calls;
              ``mesh-1x3-shared`` and ``mesh-2x2-shared``: 3 and 4 ranks
              (``--mesh-rank``, processes of this script started after the
              build; both worlds and the launcher at once) sharing card 0
@@ -77,9 +80,17 @@ Phases, each printing one JSON line:
              unmeshed target's top-2 logit margin there), each row prints
              tok/s, rounds, collectives a round and every rank's dispatch
              syncs; the ranks' kernel launches join the kernels line;
-             ``mesh-launcher``: ``torchrun --nproc-per-node 1 -m
-             repro_torch.launch.serve --demo --mesh 1x1`` must exit 0 and
-             print its summary.
+             the 2 x 2 world also serves the front door
+             (``MESH_FRONTDOOR``: the fp32 and damped n-gram x int8
+             warm serves, equal hits and COW copies too; the front-end's
+             driver thread with staggered arrivals, pipelined, every
+             token once and in order; one non-streaming and one
+             streaming HTTP completion on rank 0 over loopback; rank 0
+             leads, the others follow it), each against a twin of its
+             depth; ``mesh-launcher``: ``torchrun --nproc-per-node 1 -m
+             repro_torch.launch.serve --mesh 1x1`` with ``--demo``,
+             ``--http-smoke`` and ``--demo --paged --prefix-share 0.5``
+             (``MESH_LAUNCHERS``) must exit 0 and print its result.
 4c. mesh-families — every non-dense family on the mesh (its world and
              launcher run beside the mesh phase's, their twins served
              before either starts; ``--only mesh-families`` runs it
@@ -1599,95 +1610,130 @@ def tail_prefill_counter():
     return calls, stop
 
 
+def warm_by_name(name):
+    return next(sv for sv in WARM_SERVES if sv.name == name)
+
+
+def warm_run(cfg, pt, pd, sv, caching=True, mesh=None, new=WARM_NEW):
+    """One run of the ``WarmServe`` ``sv`` (its two waves on one engine:
+    batch 4, 1024 tokens, 128 blocks of 16), with prefix caching or
+    without, on ``mesh`` (a ``DeviceMesh`` or ``core.tp.MeshPlan``) or
+    one card: streams, wall, rounds, the prefix cache's totals, the tail
+    prefills' widths and attention launches, collectives, dispatch syncs
+    and kernel launches."""
+    import torch
+    from repro_torch.core import tp
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request, RequestState
+
+    model = sv.drafter == "model"
+    eng = ServingEngine(
+        damped(pt, sv.damp), cfg, pd if model else None,
+        cfg if model else None, SpecDecodeConfig(drafter=sv.drafter),
+        ServingConfig(max_batch_size=4, max_seq_len=1024, paged_kv=True,
+                      kv_block_size=16, num_kv_blocks=128,
+                      kv_quant=sv.kv_quant, prefix_caching=caching),
+        seed=0, device="cuda", mesh=mesh)
+    syncs = count_syncs(eng)
+    calls, stop = tail_prefill_counter()
+    reset_launches()
+    tp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = []
+    try:
+        for j, batch in enumerate(warm_batches(cfg.vocab_size)):
+            rs = [Request(j * 100 + i, prompt=list(p), max_new_tokens=new)
+                  for i, p in enumerate(batch)]
+            m = eng.run(rs)
+            reqs += rs
+    finally:
+        stop()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"streams": [r.output for r in reqs], "wall_s": wall,
+            "rounds": m["rounds"], "tokens": m["tokens_emitted"],
+            "finished": sum(r.state is RequestState.FINISHED for r in reqs),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "prefix_cache_hit_blocks": m["prefix_cache_hit_blocks"],
+            "prefix_cache_hit_rate": m["prefix_cache_hit_rate"],
+            "cow_copies": m["cow_copies"],
+            "prefix_hit_rate_by_request": [r.prefix_hit_rate()
+                                           for r in reqs],
+            "tail_prefills": [{"T": w, "attention_launches": n}
+                              for w, n in calls],
+            "ttft_batch2_s": [r.ttft() for r in reqs[1:]],
+            "collectives": dict(tp.COUNTS), "launches": read_launches(),
+            "dispatch_syncs": sum(syncs.values()),
+            "dispatch_sync_sources": dict(syncs)}
+
+
+def check_warm(name, res, caching=True) -> None:
+    """A warm run's own bars: every request finished; warm: hits, a COW
+    copy, tail prefills that launched attention (a T-128 one among them
+    at ``WARM_NEW``'s tails); cold: no tail prefill."""
+    calls = res["tail_prefills"]
+    if any(len(o) != len(res["streams"][0]) for o in res["streams"]) \
+            or res["finished"] != len(res["streams"]):
+        raise AssertionError(f"{name}: a request did not finish")
+    if not caching:
+        if calls:
+            raise AssertionError(f"{name}: a cold run took the tail path")
+        return
+    if not (res["prefix_cache_hit_rate"] > 0 and res["cow_copies"] >= 1):
+        raise AssertionError(f"{name}: no sharing: {res}")
+    if not calls or min(c["attention_launches"] for c in calls) <= 0:
+        raise AssertionError(f"{name}: the tail prefill launched no "
+                             f"attention: {calls}")
+    if max(c["T"] for c in calls) != 128:
+        raise AssertionError(f"{name}: no T-128 tail: {calls}")
+
+
+# the frontdoor phase's warm runs, by serve name (the mesh's twins)
+WARM_RESULTS = {}
+
+
 def warm_serves(cfg, pt, pd, smi):
     """``WARM_SERVES`` at full width, each warm and cold; returns the
     launches of the warm runs."""
-    import torch
-    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.request import Request
-
     total = {k: 0 for k in read_launches()}
-    b1, b2 = warm_batches(cfg.vocab_size)
     for sv in WARM_SERVES:
-        model = sv.drafter == "model"
-        streams, ttft = {}, {}
+        runs = {}
         for caching in (False, True):
-            eng = ServingEngine(
-                damped(pt, sv.damp), cfg, pd if model else None,
-                cfg if model else None, SpecDecodeConfig(drafter=sv.drafter),
-                ServingConfig(max_batch_size=4, max_seq_len=1024,
-                              paged_kv=True, kv_block_size=16,
-                              num_kv_blocks=128, kv_quant=sv.kv_quant,
-                              prefix_caching=caching), seed=0, device="cuda")
-            syncs = count_syncs(eng)
-            calls, stop = tail_prefill_counter()
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            reqs = []
-            try:
-                for j, batch in enumerate((b1, b2)):
-                    rs = [Request(j * 100 + i, prompt=list(p),
-                                  max_new_tokens=WARM_NEW)
-                          for i, p in enumerate(batch)]
-                    m = eng.run(rs)
-                    reqs += rs
-            finally:
-                stop()
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            launches = read_launches()
-            streams[caching] = [r.output for r in reqs]
-            ttft[caching] = [r.ttft() for r in reqs[1:]]
+            res = runs[caching] = warm_run(cfg, pt, pd, sv, caching)
             emit({"phase": "frontdoor-" + sv.name + ("" if caching
                                                       else "-cold"),
                   "arch": cfg.name, "layers": cfg.num_layers,
                   "drafter": sv.drafter, "kv_quant": sv.kv_quant,
                   "prefix_caching": caching, "head_tokens": WARM_HEAD,
-                  "prompt_lens": [len(r.prompt) for r in reqs],
-                  "rounds": m["rounds"], "tokens": m["tokens_emitted"],
-                  "prefix_cache_hit_blocks": m["prefix_cache_hit_blocks"],
-                  "prefix_cache_hit_rate": m["prefix_cache_hit_rate"],
-                  "cow_copies": m["cow_copies"],
-                  "prefix_hit_rate_by_request": [r.prefix_hit_rate()
-                                                 for r in reqs],
-                  "tail_prefills": [{"T": w, "attention_launches": n}
-                                    for w, n in calls],
-                  "ttft_batch2_s": ttft[caching], "wall_s": wall,
-                  "dispatch_syncs": sum(syncs.values()),
-                  "dispatch_sync_sources": dict(syncs),
-                  "launches": launches, "nvidia_smi": smi})
-            if sum(syncs.values()):
+                  **{k: res[k] for k in (
+                      "prompt_lens", "rounds", "tokens",
+                      "prefix_cache_hit_blocks", "prefix_cache_hit_rate",
+                      "cow_copies", "prefix_hit_rate_by_request",
+                      "tail_prefills", "ttft_batch2_s", "wall_s",
+                      "dispatch_syncs", "dispatch_sync_sources",
+                      "launches")},
+                  "nvidia_smi": smi})
+            if res["dispatch_syncs"]:
                 raise AssertionError(f"{sv.name}: dispatch synchronised: "
-                                     f"{dict(syncs)}")
-            if min(launches[k] for k in sv.path) <= 0:
+                                     f"{res['dispatch_sync_sources']}")
+            if min(res["launches"][k] for k in sv.path) <= 0:
                 raise AssertionError(f"{sv.name}: a kernel of the path never "
-                                     f"ran: {launches}")
-            if any(len(o) != WARM_NEW for o in streams[caching]):
-                raise AssertionError(f"{sv.name}: a request did not finish")
-            if caching:
-                if not (m["prefix_cache_hit_rate"] > 0
-                        and m["cow_copies"] >= 1):
-                    raise AssertionError(f"{sv.name}: no sharing: {m}")
-                if not calls or min(n for _, n in calls) <= 0:
-                    raise AssertionError(f"{sv.name}: the tail prefill "
-                                         f"launched no attention: {calls}")
-                if max(w for w, _ in calls) != 128:
-                    raise AssertionError(f"{sv.name}: no T-128 tail: {calls}")
-                for k in total:
-                    total[k] += launches[k]
-            elif calls:
-                raise AssertionError(f"{sv.name}: a cold run took the tail "
-                                     "path")
+                                     f"ran: {res['launches']}")
+            check_warm(sv.name, res, caching)
+        for k in total:
+            total[k] += runs[True]["launches"][k]
+        WARM_RESULTS[(sv.name, cfg.num_layers)] = runs[True]
+        equal = runs[True]["streams"] == runs[False]["streams"]
         emit({"phase": "frontdoor-ttft", "serve": sv.name,
               "what": "batch 2 (partial hit, aligned repeat, outlier): "
                       "TTFT s, warm beside cold (not judged)",
-              "warm": ttft[True], "cold": ttft[False],
-              "equal": streams[True] == streams[False]})
-        if streams[True] != streams[False]:
+              "warm": runs[True]["ttft_batch2_s"],
+              "cold": runs[False]["ttft_batch2_s"], "equal": equal})
+        if not equal:
             raise AssertionError(f"{sv.name}: warm streams differ from cold: "
-                                 f"{streams}")
+                                 f"{runs}")
     return total
 
 
@@ -1757,6 +1803,34 @@ def warm_check_phase(cfg) -> None:
             raise AssertionError("warm check: no preemption")
 
 
+def frontdoor_engine(cfg, pt, pd, paged=True, pipelined=True, mesh=None):
+    """The front-end's and the HTTP server's engine: the model drafter,
+    batch 4, 256 tokens, on the dense ring or on 32 blocks of 16 with
+    prefix caching; on ``mesh`` or one card."""
+    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(
+        pt, cfg, pd, cfg, SpecDecodeConfig(),
+        ServingConfig(max_batch_size=4, max_seq_len=256, pipelined=pipelined,
+                      paged_kv=paged, kv_block_size=16,
+                      num_kv_blocks=32 if paged else None,
+                      prefix_caching=paged), seed=0, device="cuda", mesh=mesh)
+
+
+def frontdoor_prompts(vocab):
+    """The front-end's 6 prompts: a 64-token head and tails of 5-30."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    head = rng.randint(0, vocab, size=64).tolist()
+    return [head + rng.randint(0, vocab, size=n).tolist()
+            for n in (9, 20, 5, 14, 30, 11)]
+
+
+def http_prompt(vocab):
+    import numpy as np
+    return np.random.RandomState(9).randint(0, vocab, size=40).tolist()
+
+
 def frontend_runs(cfg, pt, pd, smi):
     """The front-end at full width on the dense ring and on the fp32 pool
     with prefix caching: replay at arrival 0 (``run_until_drained``) ==
@@ -1764,29 +1838,17 @@ def frontend_runs(cfg, pt, pd, smi):
     and pipelined, gives the same streams; every token arrives once, in
     order (each handle's events rebuild ``request.output``).  Returns
     the launches of the replays and the threaded runs."""
-    import numpy as np
     import torch
-    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
-    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.frontend import ServingFrontend
     from repro_torch.serving.request import Request
 
-    rng = np.random.RandomState(7)
-    head = rng.randint(0, cfg.vocab_size, size=64).tolist()
-    prompts = [head + rng.randint(0, cfg.vocab_size, size=n).tolist()
-               for n in (9, 20, 5, 14, 30, 11)]
+    prompts = frontdoor_prompts(cfg.vocab_size)
     total = {k: 0 for k in read_launches()}
     for layout in ("dense", "pool-cached"):
         paged = layout != "dense"
 
         def engine(pipelined):
-            return ServingEngine(
-                pt, cfg, pd, cfg, SpecDecodeConfig(),
-                ServingConfig(max_batch_size=4, max_seq_len=256,
-                              pipelined=pipelined, paged_kv=paged,
-                              kv_block_size=16,
-                              num_kv_blocks=32 if paged else None,
-                              prefix_caching=paged), seed=0, device="cuda")
+            return frontdoor_engine(cfg, pt, pd, paged, pipelined)
 
         def reqs():
             return [Request(i, prompt=list(p), max_new_tokens=12)
@@ -1846,27 +1908,15 @@ def http_runs(cfg, pt, pd, smi) -> None:
     """HTTP over a real loopback socket at full width (the fp32 pool with
     prefix caching, pipelined): one non-streaming and one streaming
     completion, each equal to ``run()``'s stream for the prompt."""
-    import numpy as np
-    from repro_torch.core.config import ServingConfig, SpecDecodeConfig
-    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.frontend import ServingFrontend
     from repro_torch.serving.request import Request
     from repro_torch.serving.server import (smoke_check,
                                             start_http_server_thread)
 
-    def engine():
-        return ServingEngine(pt, cfg, pd, cfg, SpecDecodeConfig(),
-                             ServingConfig(max_batch_size=4, max_seq_len=256,
-                                           pipelined=True, paged_kv=True,
-                                           kv_block_size=16, num_kv_blocks=32,
-                                           prefix_caching=True),
-                             seed=0, device="cuda")
-
-    prompt = np.random.RandomState(9).randint(0, cfg.vocab_size,
-                                              size=40).tolist()
+    prompt = http_prompt(cfg.vocab_size)
     want = Request(0, prompt=list(prompt), max_new_tokens=16)
-    engine().run([want])
-    fe = ServingFrontend(engine()).start()
+    frontdoor_engine(cfg, pt, pd).run([want])
+    fe = ServingFrontend(frontdoor_engine(cfg, pt, pd)).start()
     port, stop = start_http_server_thread(fe, model_name=cfg.name)
     try:
         t0 = time.monotonic()
@@ -1932,18 +1982,10 @@ def frontdoor_phase(smi):
     serve launcher) at smollm-135m full width and ``FRONTDOOR_LAYERS``
     deep, the launcher's runs beside the others; returns the launches of
     its measured runs."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.models.weights import init_params, map_params
-
     t0 = time.monotonic()
     launchers = start_frontdoor_launchers()
     try:
-        cfg = dataclasses.replace(get_config("smollm-135m"),
-                                  num_layers=FRONTDOOR_LAYERS)
-        pt = init_params(cfg, seed=0, device="cuda")
-        pd = map_params(lambda a, n: a + 0.03 * n, pt,
-                        init_params(cfg, seed=1, device="cuda"))
+        cfg, pt, pd = serve_weights(layers=FRONTDOOR_LAYERS)
         total = warm_serves(cfg, pt, pd, smi)
         for kernel, n in frontend_runs(cfg, pt, pd, smi).items():
             total[kernel] += n
@@ -3887,6 +3929,32 @@ MESH_SHARED_LAYERS = 3
 # layers, set a world's pace
 MESH_NEW = 8
 MESH_RANK_TIMEOUT_S = 600
+# the front door on the mesh: the 2 x 2 world also serves the frontdoor
+# phase's fp32 and damped n-gram x int8 warm serves (prefix caching), the
+# front-end's driver thread with staggered arrivals (pipelined, on the
+# cached pool) and one non-streaming and one streaming HTTP completion on
+# rank 0, each against a twin of its depth on one card; mesh-1x1-nccl
+# serves the fp32 warm serve at the frontdoor phase's depth
+MESH_FRONTDOOR = ("warm", "warm-ngram-int8", "frontend", "http")
+MESH_SHARED_SERVES = {"1x3": MESH_TWINS, "2x2": MESH_TWINS + MESH_FRONTDOOR}
+
+
+class DoorServe(NamedTuple):
+    """A front-end or HTTP row of the mesh: the kernels its path runs."""
+    name: str
+    path: Tuple[str, ...]
+
+
+DOOR_SERVES = (DoorServe("frontend", ("paged_ragged_verify_attention",
+                                      "fused_kld_accept")),
+               DoorServe("http", ("paged_ragged_verify_attention",
+                                  "fused_kld_accept")))
+# the launcher under torchrun --nproc-per-node 1 on a 1 x 1 mesh: (arch,
+# mode arguments)
+MESH_LAUNCHERS = (("smollm-135m", ("--demo",)),
+                  ("smollm-135m", ("--http-smoke",)),
+                  ("smollm-135m", ("--demo", "--paged", "--prefix-share",
+                                   "0.5")))
 
 
 def serve_by_name(name):
@@ -3943,8 +4011,10 @@ def mesh_rank_main(spec, rank, store, out, names) -> int:
     try:
         plan = MeshPlan.for_mesh(serving_mesh(spec, share_card=True), 4)
         cfg, pt, pd = serve_weights(plan, MESH_SHARED_LAYERS)
-        res = {name: mesh_serve(cfg, pt, pd, serve_by_name(name), plan,
-                                warm_up=i == 0, new=MESH_NEW)
+        res = {name: (door_serve(cfg, pt, pd, name, plan)
+                      if name in MESH_FRONTDOOR else
+                      mesh_serve(cfg, pt, pd, serve_by_name(name), plan,
+                                 warm_up=i == 0, new=MESH_NEW))
                for i, name in enumerate(names.split(","))}
         Path(out).write_text(json.dumps(res))
     finally:
@@ -3952,11 +4022,169 @@ def mesh_rank_main(spec, rank, store, out, names) -> int:
     return 0
 
 
+def door_frontend(eng, cfg, new=MESH_NEW):
+    """The front-end over a meshed ``eng``: rank 0 starts its driver
+    thread and submits ``frontdoor_prompts`` 50 ms apart, every other
+    rank follows.  Returns (the requests this rank served, rank 0's
+    handles' streams and whether each rebuilds its request's output: each
+    token once, in order)."""
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.request import Request
+
+    fe = ServingFrontend(eng)
+    if not fe.leader:
+        return sorted(fe.follow(), key=lambda r: r.request_id), {}
+    fe.start()
+    handles = []
+    for i, p in enumerate(frontdoor_prompts(cfg.vocab_size)):
+        handles.append(fe.submit_request(Request(i, prompt=list(p),
+                                                 max_new_tokens=new)))
+        time.sleep(0.05)
+    if not fe.wait_idle(timeout=300):
+        raise AssertionError("the meshed front-end did not go idle")
+    fe.stop()
+    results = [h.result(timeout=30) for h in handles]
+    return [h.request for h in handles], {
+        "streams": [toks for toks, _ in results],
+        "once_in_order": all(toks == h.request.output
+                             for (toks, _), h in zip(results, handles))}
+
+
+def door_http(eng, cfg, new=MESH_NEW):
+    """One non-streaming and one streaming completion of ``http_prompt``
+    through the HTTP server on rank 0 of a meshed ``eng`` (over loopback,
+    the front-end's driver thread beside it); every other rank follows.
+    Returns (the requests a follower served, rank 0's two streams and
+    its count of finished requests)."""
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.server import (smoke_check,
+                                            start_http_server_thread)
+
+    fe = ServingFrontend(eng)
+    if not fe.leader:
+        return sorted(fe.follow(), key=lambda r: r.request_id), {}
+    fe.start()
+    port, stop = start_http_server_thread(fe, model_name=cfg.name)
+    try:
+        res = smoke_check("127.0.0.1", port, http_prompt(cfg.vocab_size),
+                          max_tokens=new)
+    finally:
+        stop()
+        fe.stop()
+    return [], {
+        "streams": [res["non_streaming_tokens"], res["streamed_tokens"]],
+        "finished": fe.summary()["requests_finished"],
+        "finish_reason": res["finish_reason"]}
+
+
+def door_serve(cfg, pt, pd, name, mesh):
+    """One of ``MESH_FRONTDOOR`` on ``mesh``: a warm serve
+    (:func:`warm_run`), or the front-end's or HTTP's run, with this
+    rank's streams, rounds, collectives, dispatch syncs and launches."""
+    import torch
+    from repro_torch.core import tp
+    from repro_torch.serving.request import RequestState
+
+    if name not in ("frontend", "http"):
+        return warm_run(cfg, pt, pd, warm_by_name(name), mesh=mesh,
+                        new=MESH_NEW)
+    eng = frontdoor_engine(cfg, pt, pd, mesh=mesh)
+    syncs = count_syncs(eng)
+    reset_launches()
+    tp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs, lead = (door_frontend if name == "frontend" else door_http)(eng,
+                                                                      cfg)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"streams": lead.get("streams", [r.output for r in reqs]),
+            "once_in_order": lead.get("once_in_order", True),
+            "wall_s": wall, "rounds": eng.rounds,
+            "tokens": eng.emitted_total,
+            "finished": lead.get("finished", sum(
+                r.state is RequestState.FINISHED for r in reqs)),
+            "prefix_cache_hit_blocks": float(
+                eng.scheduler.prefix_hit_blocks_total),
+            "collectives": dict(tp.COUNTS), "launches": read_launches(),
+            "dispatch_syncs": sum(syncs.values()),
+            "dispatch_sync_sources": dict(syncs)}
+
+
+def door_twins(smi, layers=MESH_SHARED_LAYERS):
+    """The one-card twins of ``MESH_FRONTDOOR`` at ``layers``: the warm
+    serves' warm runs, and ``run()``'s streams of the front-end's
+    requests and of the HTTP prompt (twice: the non-streaming and the
+    streaming completion); rows ``mesh-twin``."""
+    from repro_torch.serving.request import Request
+    cfg, pt, pd = serve_weights(layers=layers)
+    out = {}
+    for name in MESH_FRONTDOOR:
+        t0 = time.monotonic()
+        if name in ("frontend", "http"):
+            prompts = (frontdoor_prompts(cfg.vocab_size) if name == "frontend"
+                       else [http_prompt(cfg.vocab_size)])
+            eng = frontdoor_engine(cfg, pt, pd, pipelined=False)
+            # the HTTP completions come one after the other
+            waves = [prompts] * (2 if name == "http" else 1)
+            reqs = [Request(10 * j + i, prompt=list(p),
+                            max_new_tokens=MESH_NEW)
+                    for j, wave in enumerate(waves)
+                    for i, p in enumerate(wave)]
+            for j in range(len(waves)):
+                m = eng.run(reqs[j * len(prompts):(j + 1) * len(prompts)])
+            out[name] = {"streams": [r.output for r in reqs],
+                         "prefix_cache_hit_blocks":
+                             m["prefix_cache_hit_blocks"]}
+        else:
+            out[name] = warm_run(cfg, pt, pd, warm_by_name(name),
+                                 new=MESH_NEW)
+            check_warm(f"mesh-twin {name}", out[name])
+        emit({"phase": "mesh-twin", "serve": name, "layers": layers,
+              "wall_s": time.monotonic() - t0, "nvidia_smi": smi})
+    return out
+
+
+def door_row(phase, name, ranks, twin, smi, layers):
+    """The row of a meshed front-door serve (:func:`mesh_row`, with the
+    prefix cache's hits and COW copies): a warm serve's every rank must
+    equal its twin's hits and COW copies and pass :func:`check_warm`
+    (the front-end's and HTTP's every rank the others' hits: staggered
+    arrivals hit blocks that an all-at-once ``run()`` does not); rank
+    0's front-end must deliver each token once, in order."""
+    warm = name not in ("frontend", "http")
+    sv = (warm_by_name(name) if warm
+          else next(d for d in DOOR_SERVES if d.name == name))
+    keys = (("prefix_cache_hit_blocks", "cow_copies") if warm
+            else ("prefix_cache_hit_blocks",))
+    extra = {k: [r[k] for r in ranks] for k in keys}
+    extra.update({f"twin_{k}": twin[k] for k in keys})
+    if warm:
+        extra["tail_prefills"] = ranks[0]["tail_prefills"]
+    else:
+        extra["once_in_order"] = ranks[0]["once_in_order"]
+    launches = mesh_row(phase, name, ranks, twin["streams"], smi, layers,
+                        sv, extra)
+    want = twin if warm else ranks[0]
+    for i, r in enumerate(ranks):
+        if any(r[k] != want[k] for k in keys):
+            raise AssertionError(f"{phase} {name} rank {i}: prefix cache "
+                                 f"{[r[k] for k in keys]} against "
+                                 f"{[want[k] for k in keys]}")
+        if warm:
+            check_warm(f"{phase} {name} rank {i}", r)
+    if not (warm or ranks[0]["once_in_order"]):
+        raise AssertionError(f"{phase} {name}: a token not delivered once, "
+                             "in order")
+    return launches
+
+
 def mesh_twins(names, smi, layers=None):
     """The unmeshed streams of the serves ``names``: the serve phase's
-    (full depth, when it ran), else served here on one card at
-    ``layers`` with ``MESH_NEW`` tokens a request, each timed after a
-    warm-up (rows ``mesh-twin``)."""
+    (full depth, when it ran), else served here on one card, each timed
+    after a warm-up (rows ``mesh-twin``): at ``layers`` with ``MESH_NEW``
+    tokens a request, or at full depth with the serve phase's
+    ``SERVE_NEW``."""
     import torch
     from repro_torch.serving.request import Request
     if layers is None and all(n in SERVE_STREAMS for n in names):
@@ -3968,7 +4196,8 @@ def mesh_twins(names, smi, layers=None):
         serve_engine(cfg, pt, pd, sv).run(
             [Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
         eng = serve_engine(cfg, pt, pd, sv)
-        reqs = serve_requests(cfg, sv, MESH_NEW)
+        reqs = serve_requests(cfg, sv,
+                              SERVE_NEW if layers is None else MESH_NEW)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         m = eng.run(reqs)
@@ -3998,14 +4227,15 @@ def top2_margin(sv, request, stream, layers=None):
             "margin": float(top.values[0] - top.values[1])}
 
 
-def mesh_row(phase, name, ranks, twin, smi, layers=30, sv=None):
+def mesh_row(phase, name, ranks, twin, smi, layers=30, sv=None, extra=None):
     """The row of one meshed serve (``ranks``: every rank's results):
     rank 0's rate, rounds and collectives a round, every rank's syncs;
     raises where a rank's streams part from the twin's (each parted
     request's first parting position, the two tokens and, for a serve of
     ``SERVES``, the unmeshed target's top-2 logit margin there printed),
     a rank's dispatch synchronised or a path kernel never ran.  ``sv``:
-    the serve (default: the one of ``SERVES`` named ``name``)."""
+    the serve (default: the one of ``SERVES`` named ``name``); ``extra``:
+    more fields of the row."""
     r0 = ranks[0]
     margins = sv is None
     sv = sv or serve_by_name(name)
@@ -4033,7 +4263,7 @@ def mesh_row(phase, name, ranks, twin, smi, layers=30, sv=None):
            "dispatch_syncs": [r["dispatch_syncs"] for r in ranks],
            "launches": {k: sum(r["launches"][k] for r in ranks)
                         for k in r0["launches"]},
-           "nvidia_smi": smi}
+           **(extra or {}), "nvidia_smi": smi}
     if not all(equal):
         bad = next(r["streams"] for r in ranks if r["streams"] != twin)
         row["parted"] = []
@@ -4089,11 +4319,13 @@ def nccl_collectives(mesh, smi):
                              f"values equal {equal}")
 
 
-def mesh_nccl(smi, twins):
+def mesh_nccl(smi, twins, warm_twin):
     """``mesh-1x1-nccl``: a real NCCL communicator of one rank in this
-    process, the pool and the ring; dispatch must make no synchronising
-    call.  A group of one rank makes ``core.tp``'s collectives no-ops, so
-    the communicator's own all-reduce and all-gather are checked alone
+    process, the pool and the ring, then the fp32 warm serve at
+    ``FRONTDOOR_LAYERS`` (prefix caching: its tail prefills launch B1)
+    against ``warm_twin``; dispatch must make no synchronising call.  A
+    group of one rank makes ``core.tp``'s collectives no-ops, so the
+    communicator's own all-reduce and all-gather are checked alone
     (:func:`nccl_collectives`)."""
     import socket
     import torch
@@ -4121,6 +4353,12 @@ def mesh_nccl(smi, twins):
                 raise AssertionError(f"mesh-1x1-nccl {name}: dispatch "
                                      "synchronised: "
                                      f"{res['dispatch_sync_sources']}")
+        del pt, pd
+        cfg, pt, pd = serve_weights(layers=FRONTDOOR_LAYERS)
+        res = warm_run(cfg, pt, pd, warm_by_name("warm"), mesh=mesh)
+        for k, n in door_row("mesh-1x1-nccl", "warm", [res], warm_twin, smi,
+                             FRONTDOOR_LAYERS).items():
+            total[k] = total.get(k, 0) + n
     finally:
         dist.destroy_process_group()
     return total
@@ -4186,11 +4424,11 @@ def wait_mesh_ranks(worlds, t0):
             for _, ps, _, tmp in worlds]
 
 
-def start_mesh_launcher(arch="smollm-135m"):
+def start_mesh_launcher(arch="smollm-135m", mode=("--demo",)):
     """``mesh-launcher``: ``torchrun --nproc-per-node 1 -m
-    repro_torch.launch.serve --arch ARCH --demo --mesh 1x1`` on the card,
+    repro_torch.launch.serve --arch ARCH MODE --mesh 1x1`` on the card,
     its output to files.  Returns (the process, the output's path, the
-    arch)."""
+    arch, the mode)."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4199,41 +4437,54 @@ def start_mesh_launcher(arch="smollm-135m"):
         proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
-             "--arch", arch, "--demo", "--mesh", "1x1", "--device",
+             "--arch", arch, *mode, "--mesh", "1x1", "--device",
              "cuda", "--max-new", "16"],
             env=env, cwd=ROOT, stdout=out, stderr=err)
-    return proc, tmp, arch
+    return proc, tmp, arch, mode
 
 
 def finish_mesh_launcher(launcher, smi, t0) -> None:
-    """The launcher must exit 0 and print its summary."""
-    proc, tmp, arch = launcher
+    """The launcher must exit 0 and print its result: the demo's summary
+    (8 requests finished; with ``--prefix-share`` cache hits), the HTTP
+    smoke test's JSON (equal streamed and non-streamed tokens)."""
+    proc, tmp, arch, mode = launcher
     proc.wait(timeout=300)
     out, err = ((tmp / f).read_text() for f in ("out.txt", "err.txt"))
-    lines = [ln for ln in out.splitlines() if "'mesh': '1x1'" in ln]
-    emit({"phase": "mesh-launcher", "arch": arch,
+    http = "--http-smoke" in mode
+    lines = [ln for ln in out.splitlines()
+             if ('"mesh": "1x1"' if http else "'mesh': '1x1'") in ln]
+    emit({"phase": "mesh-launcher", "arch": arch, "mode": list(mode),
           "returncode": proc.returncode,
           "seconds": time.monotonic() - t0,
           "summary": lines[-1][:600] if lines else None,
           "nvidia_smi": smi})
-    if proc.returncode != 0 or len(lines) != 1 \
-            or "'requests_finished': 8" not in lines[0]:
-        raise AssertionError(f"mesh-launcher {arch} failed: {err[-3000:]}")
+    ok = proc.returncode == 0 and len(lines) == 1
+    if ok and http:
+        res = json.loads(lines[0])
+        ok = (res["streamed_tokens"] == res["non_streaming_tokens"]
+              and len(res["streamed_tokens"]) == 8)
+    elif ok:
+        ok = "'requests_finished': 8" in lines[0]
+        if "--prefix-share" in mode:
+            ok = ok and "'prefix_cache_hit_blocks': 0.0" not in lines[0]
+    if not ok:
+        raise AssertionError(f"mesh-launcher {arch} {mode} failed: "
+                             f"{out[-1500:]} {err[-3000:]}")
 
 
-def run_mesh_worlds(starts, launcher_archs, smi):
-    """Start the launchers' ``--demo --mesh 1x1`` runs of
-    ``launcher_archs`` and the worlds of ``starts`` (each ``(spec,
+def run_mesh_worlds(starts, launcher_runs, smi):
+    """Start the launchers' ``--mesh 1x1`` runs of ``launcher_runs``
+    (each ``(arch, mode)``) and the worlds of ``starts`` (each ``(spec,
     names, flag)`` of :func:`start_mesh_ranks`) all at once, and wait
     for them (a rank waits on the host in each gloo call, so the card
     takes the worlds side by side; their rates are measured in each
     other's company).  Returns each world's ranks' results."""
     t1 = time.monotonic()
-    launchers = [start_mesh_launcher(arch) for arch in launcher_archs]
+    launchers = [start_mesh_launcher(*run) for run in launcher_runs]
     try:
         ranks = wait_mesh_ranks([start_mesh_ranks(*st) for st in starts], t1)
     except BaseException:
-        for proc, _, _ in launchers:
+        for proc, _, _, _ in launchers:
             proc.kill()
             proc.wait()
         raise
@@ -4254,24 +4505,31 @@ def mesh_phase(smi, families=False, sides=()):
     processes ``sides`` stopped meanwhile (:func:`side_paused`)."""
     t0 = time.monotonic()
     twins = mesh_twins(MESH_NCCL_TWINS, smi)
+    warm_twin = WARM_RESULTS.get(("warm", FRONTDOOR_LAYERS))
+    if warm_twin is None:
+        warm_twin = warm_run(*serve_weights(layers=FRONTDOOR_LAYERS),
+                             warm_by_name("warm"))
     shallow = mesh_twins(MESH_TWINS, smi, MESH_SHARED_LAYERS)
+    doors = door_twins(smi)
     fam_twins = family_twins(smi) if families else None
     total = {k: 0 for k in read_launches()}
-    for k, c in mesh_nccl(smi, twins).items():
+    for k, c in mesh_nccl(smi, twins, warm_twin).items():
         total[k] += c
-    starts = [(spec, MESH_TWINS, "--mesh-rank") for spec in MESH_SHARED]
-    archs = ["smollm-135m"]
+    starts = [(spec, MESH_SHARED_SERVES[spec], "--mesh-rank")
+              for spec in MESH_SHARED]
+    launcher_runs = list(MESH_LAUNCHERS)
     if families:
         starts.append(FAMILY_WORLD)
-        archs.append(FAMILY_LAUNCHER_ARCH)
+        launcher_runs.append(FAMILY_LAUNCHER)
     with side_paused(sides):
-        ranks = run_mesh_worlds(starts, archs, smi)
+        ranks = run_mesh_worlds(starts, launcher_runs, smi)
     for spec, world in zip(MESH_SHARED, ranks):
-        for name in MESH_TWINS:
-            for k, c in mesh_row(f"mesh-{spec}-shared", name,
-                                 [r[name] for r in world],
-                                 shallow[name], smi,
-                                 MESH_SHARED_LAYERS).items():
+        for name in MESH_SHARED_SERVES[spec]:
+            row = door_row if name in MESH_FRONTDOOR else mesh_row
+            twin = doors[name] if name in MESH_FRONTDOOR else shallow[name]
+            for k, c in row(f"mesh-{spec}-shared", name,
+                            [r[name] for r in world], twin, smi,
+                            MESH_SHARED_LAYERS).items():
                 total[k] += c
     if families:
         for k, c in family_rows(fam_twins, ranks[-1], smi).items():
@@ -4403,9 +4661,9 @@ def mesh_family_rank_main(spec, rank, store, out, names) -> int:
     return 0
 
 
-# the world and the launcher's arch of ``mesh-families``
+# the world and the launcher's run of ``mesh-families``
 FAMILY_WORLD = (MESH_FAMILY_SPEC, MESH_FAMILY_SERVES, "--mesh-family-rank")
-FAMILY_LAUNCHER_ARCH = "mamba2-130m"
+FAMILY_LAUNCHER = ("mamba2-130m", ("--demo",))
 
 
 def family_twins(smi):
@@ -4448,7 +4706,7 @@ def mesh_families_phase(smi):
     under torchrun.  Returns the ranks' kernel launches."""
     t0 = time.monotonic()
     twins = family_twins(smi)
-    ranks = run_mesh_worlds([FAMILY_WORLD], [FAMILY_LAUNCHER_ARCH], smi)
+    ranks = run_mesh_worlds([FAMILY_WORLD], [FAMILY_LAUNCHER], smi)
     total = family_rows(twins, ranks[0], smi)
     emit({"phase": "mesh-families-total", "seconds": time.monotonic() - t0})
     return total
@@ -4963,6 +5221,7 @@ def stop_side(side) -> None:
 ONLY = {
     "checks": run_checks,
     "dryrun": dryrun_phase,
+    "frontdoor": frontdoor_phase,
     "mesh": mesh_phase,
     "mesh-families": mesh_families_phase,
     "mesh-witness": mesh_witness,
@@ -5044,8 +5303,8 @@ def main() -> int:
         t0 = time.monotonic()
         launches = serve_phase(profile=False)
         emit({"phase": "serve-total", "seconds": time.monotonic() - t0})
-        for phase in (lambda smi: mesh_phase(smi, True, sides),
-                      frontdoor_phase,
+        for phase in (frontdoor_phase,
+                      lambda smi: mesh_phase(smi, True, sides),
                       lambda smi: families_phase(smi, side=True),
                       lambda smi: recurrent_phase(smi, side=True),
                       lambda smi: multimodal_phase(smi, side=True),

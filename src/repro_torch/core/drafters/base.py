@@ -91,7 +91,8 @@ class Drafter:
                      tail_lens: torch.Tensor, cow_src: torch.Tensor,
                      cow_dst: torch.Tensor,
                      table_rows: Optional[torch.Tensor] = None,
-                     max_len: Optional[int] = None) -> State:
+                     max_len: Optional[int] = None, plan=None,
+                     own=None) -> State:
         """Warm (prefix-cache) admission, DESIGN.md §12: the rows'
         ``[0, start_lens)`` prefixes are resident in shared pool blocks.
         ``tokens``/``prompt_lens`` are the FULL prefixes (a token-history
@@ -100,9 +101,10 @@ class Drafter:
         ``cow_src``/``cow_dst`` the group's copy-on-write pairs.  The
         default absorbs the full prefix through :meth:`prefill`, exact
         for every drafter without a mirrored pool; a mirroring drafter
-        runs the tail program over its own pool."""
+        runs the tail program over its own pool.  ``plan`` / ``own``: as
+        :meth:`prefill` takes them."""
         return self.prefill(params_d, cache, idx, tokens, prompt_lens,
-                            None, max_len=max_len)
+                            None, max_len=max_len, plan=plan, own=own)
 
     def propose(self, params_d, draft_cache: State, pending: torch.Tensor,
                 k: int, sl_i: torch.Tensor, policy: Any,

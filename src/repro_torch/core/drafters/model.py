@@ -114,18 +114,18 @@ class ModelDrafter(Drafter):
 
     def prefill_tail(self, params_d, cache, idx, tokens, prompt_lens,
                      tail_tokens, start_lens, tail_lens, cow_src, cow_dst,
-                     table_rows=None, max_len=None):
+                     table_rows=None, max_len=None, plan=None, own=None):
         # the shared prefix's draft KV is already in the shared blocks
         # (written by this drafter when it was first committed), so the
         # mirror runs the target's tail program, with the same COW pairs:
-        # a block id names the same block on both pools
+        # a block id names the same block on both pools, and on every rank
         assert table_rows is not None, (
             "warm admission requires the paged draft mirror")
         rows, _ = prefill_lib.prefill_paged_tail(
             params_d, self.cfg_d, cache["k"], cache["v"], cache["kv_pos"],
             table_rows, tail_tokens, start_lens, tail_lens, cow_src, cow_dst,
-            cache.get("k_scale"), cache.get("v_scale"))
-        return prefill_lib.scatter_paged_rows(cache, rows, idx)
+            plan, cache.get("k_scale"), cache.get("v_scale"))
+        return prefill_lib.scatter_paged_rows(cache, rows, idx, own)
 
     def propose(self, params_d, draft_cache, pending, k, sl_i, policy,
                 step_u, live, *, params_t=None, target_cache=None, plan=None):

@@ -9,8 +9,7 @@ after the group's copy-on-write block copies.
 On a serving mesh (``plan``) a group's rows run whole on every rank, over
 this rank's heads (SSD heads, experts' width); a ring, or recurrent rows
 (a hybrid pool's too), whose rows split over *data* take only the rows
-this rank holds (``own``).  The tail prefill takes no plan: prefix
-caching on a mesh is ROADMAP A10's."""
+this rank holds (``own``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -125,7 +124,7 @@ def prefill_paged_tail(params, cfg: ModelConfig, pool_k: torch.Tensor,
                        table_rows: torch.Tensor, tokens: torch.Tensor,
                        start_lens: torch.Tensor, tail_lens: torch.Tensor,
                        cow_src: torch.Tensor, cow_dst: torch.Tensor,
-                       k_scale: Optional[torch.Tensor] = None,
+                       plan=None, k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None
                        ) -> Tuple[dict, torch.Tensor]:
     """Partial-prefix prefill (DESIGN.md §12): row r's first
@@ -139,17 +138,21 @@ def prefill_paged_tail(params, cfg: ModelConfig, pool_k: torch.Tensor,
     ``start_lens`` places the tail at ``start + arange(S)`` and attends
     through the shared blocks (the paged attention kernel on CUDA
     tensors); ``write_mask`` sends the padding's KV writes to the drop
-    block.  Returns (cache view with ``length = start + tail``,
-    logits [R, V] at each row's last tail token)."""
+    block.  On a mesh (``plan``) the copies run on this rank's pool (its
+    KV heads; the block axis is whole on every rank, so a block id names
+    the same block everywhere) and the pass over its shards.  Returns
+    (cache view with ``length = start + tail``, logits [R, V] at each
+    row's last tail token)."""
     cache_lib.copy_blocks(pool_k, pool_v, kv_pos, cow_src, cow_dst)
     if k_scale is not None:
         cache_lib.copy_scales(k_scale, v_scale, cow_src, cow_dst)
     view = cache_lib.paged_prefill_view(pool_k, pool_v, kv_pos, table_rows,
-                                        k_scale, v_scale, lengths=start_lens)
+                                        k_scale, v_scale, lengths=start_lens,
+                                        cfg=cfg, plan=plan)
     write_mask = (torch.arange(tokens.shape[1], device=tokens.device)[None]
                   < tail_lens[:, None])
     logits, view = forward(params, cfg, tokens, cache=view, mode="decode",
-                           write_mask=write_mask)
+                           write_mask=write_mask, plan=plan)
     view["length"] = (start_lens + tail_lens).to(torch.int32)
     return view, _last_logits(logits, tail_lens)
 

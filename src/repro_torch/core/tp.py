@@ -21,7 +21,9 @@ card.  A few named collectives run where a sharded product ends:
   hybrid pool's rows before a local-attention layer;
 * :func:`host_clock` / :func:`broadcast_host` — rank 0's clock reading
   (or any host float), broadcast over the CPU control group, so every
-  rank's admission, SLO gate and latency model decide alike.
+  rank's admission, SLO gate and latency model decide alike;
+  :func:`broadcast_objects` — rank 0's host objects (the front-end's
+  admitted requests) over the same group.
 
 Each is a no-op without a plan or over a group of one rank (a 1 x 1
 mesh launches none).  :data:`COUNTS` counts the collectives launched.  The dry run's DTensor forms (``core/dtensor_ops.py``) are a
@@ -428,16 +430,35 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int,
     return all_reduce_model(x, plan)
 
 
+def spans_ranks(plan: Optional[MeshPlan]) -> bool:
+    """Whether ``plan`` places this process on a mesh of more than one
+    rank of a process group (the host collectives below run only then)."""
+    return (plan is not None and plan.model_group is not None
+            and plan.model_size * plan.data_size > 1)
+
+
 def broadcast_host(value: float, plan: Optional[MeshPlan]) -> float:
     """Rank 0's ``value`` on every rank, over the CPU control group (a
     host tensor: no device stream is touched)."""
-    if (plan is None or plan.model_group is None
-            or plan.model_size * plan.data_size == 1):
+    if not spans_ranks(plan):
         return value
     t = torch.tensor([value], dtype=torch.float64)
     COUNTS["broadcast"] += 1
     dist.broadcast(t, src=0, group=plan.control_group)
     return float(t[0])
+
+
+def broadcast_objects(objs: list, plan: Optional[MeshPlan]) -> list:
+    """Rank 0's list of picklable host objects on every rank, in place,
+    over the CPU control group (``objs``: rank 0's list; every other rank
+    passes a list of the same length, whose entries are replaced).  The
+    front-end's admitted requests and stop flag travel so.  A rank that
+    never gets rank 0's list fails on the group's timeout."""
+    if not spans_ranks(plan):
+        return objs
+    COUNTS["broadcast"] += 1
+    dist.broadcast_object_list(objs, src=0, group=plan.control_group)
+    return objs
 
 
 def host_clock(plan: Optional[MeshPlan]) -> float:

@@ -19,11 +19,14 @@
                      it needs no card.
 
 The serving modes run on the CUDA card unless ``--device cpu`` is
-given.  ``--demo --mesh DxM`` serves on a ``(data, model)`` mesh of D*M
-ranks started by ``torchrun --nproc-per-node D*M``: NCCL, one card a
+given.  With ``--mesh DxM`` they serve on a ``(data, model)`` mesh of
+D*M ranks started by ``torchrun --nproc-per-node D*M``: NCCL, one card a
 rank (``--device cpu``: gloo on the CPU), each rank its shards of the
-weights, rank 0 printing the summary; every arch.  The HTTP front door
-and prefix caching on a mesh are ROADMAP A10.
+weights, every arch.  ``--demo`` (with ``--prefix-share`` too): every
+rank serves the same requests, rank 0 prints the summary; ``--http`` /
+``--http-smoke``: rank 0 runs the HTTP server and the front-end, every
+other rank follows it (``ServingFrontend.follow``), rank 0 prints the
+smoke test's JSON.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --demo
@@ -32,6 +35,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --shape decode_32k
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch smollm-135m --demo --mesh 1x2
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch mamba2-130m --demo --mesh 2x2 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch smollm-135m --http-smoke --mesh 1x2 --device cpu
 """
 import argparse
 import json
@@ -102,8 +106,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--pipelined", action="store_true",
                     help="reconcile the host one round behind the device")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="demo only: serve on a (data, model) mesh of the "
-                         "D*M ranks torchrun started")
+                    help="serve (--demo, --http, --http-smoke) on a "
+                         "(data, model) mesh of the D*M ranks torchrun "
+                         "started")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.mesh:
@@ -138,22 +143,22 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
 
 def check_mesh_args(ap, args) -> None:
-    """``--mesh``'s refusals, before any process group: the modes that
-    the engine's mesh path does not run (every arch serves)."""
-    if not args.demo or args.http or args.http_smoke:
-        ap.error("--mesh serves --demo; the HTTP front door on a mesh is "
-                 "ROADMAP A10")
-    if args.prefix_share > 0:
-        ap.error("--prefix-share on a mesh is ROADMAP A10")
+    """``--mesh``'s refusals, before any process group: a mode that
+    serves, and the ranks of torchrun (every arch and serving mode runs
+    on a mesh)."""
+    if not (args.demo or args.http or args.http_smoke):
+        ap.error("--mesh serves --demo, --http or --http-smoke")
     if "RANK" not in os.environ:
         ap.error(f"--mesh {args.mesh} runs under torchrun --nproc-per-node "
                  "D*M")
 
 
 def serve_on_mesh(args, deadline: Optional[float]) -> Dict:
-    """The demo on the ``(data, model)`` mesh of the ranks torchrun
-    started: every rank serves the same requests with its shards; rank 0
-    prints the summary."""
+    """A serving mode on the ``(data, model)`` mesh of the ranks torchrun
+    started, every rank over its shards.  The demo: every rank serves the
+    same requests, rank 0 prints the summary.  HTTP: rank 0 serves it
+    (:func:`serve_http`) and every other rank follows rank 0's front-end
+    until it stops (returning an empty dict)."""
     import torch.distributed as dist
     from repro_torch.core.tp import MeshPlan
     from repro_torch.launch.mesh import init_serving_world, serving_mesh
@@ -168,6 +173,11 @@ def serve_on_mesh(args, deadline: Optional[float]) -> Dict:
         plan = MeshPlan.for_mesh(mesh, 4)
         eng, cfg = build_demo_engine(args, plan)
         rng = np.random.RandomState(0)
+        if args.http or args.http_smoke:
+            if dist.get_rank() == 0:
+                return serve_http(args, eng, cfg, rng)
+            ServingFrontend(eng).follow()
+            return {}
         m = eng.run(demo_requests(args, cfg, rng, deadline))
         m["mesh"] = args.mesh
         if dist.get_rank() == 0:
@@ -223,7 +233,8 @@ def build_demo_engine(args, plan=None):
 
 def serve_http(args, eng, cfg, rng) -> Dict:
     """The front-end's driver thread and the HTTP server over ``eng``:
-    self-test and return (``--http-smoke``) or serve until interrupted."""
+    self-test and return (``--http-smoke``) or serve until interrupted
+    (on a mesh: rank 0's; stopping its front-end stops the followers)."""
     fe = ServingFrontend(eng).start()
     port, stop = start_http_server_thread(
         fe, host=args.host, port=args.port, model_name=args.arch,
@@ -233,6 +244,8 @@ def serve_http(args, eng, cfg, rng) -> Dict:
             prompt = rng.randint(0, cfg.vocab_size, size=8).tolist()
             out = smoke_check(args.host, port, prompt, max_tokens=8)
             out["port"] = port
+            if args.mesh:
+                out["mesh"] = args.mesh
             out["summary"] = {
                 k: round(v, 4) if isinstance(v, float) else v
                 for k, v in fe.summary().items()

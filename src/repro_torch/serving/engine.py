@@ -38,8 +38,9 @@ and caches are its shards under the ``serve`` rules (``core/tp.py``),
 and the round's outputs reach every host whole.  Every clock reading is
 rank 0's, broadcast over the CPU control group, so every rank admits,
 gates and picks buckets alike.  Every family serves on a mesh (an audio
-target with its empty encoder context); prefix caching on a mesh is
-ROADMAP A10.
+target with its empty encoder context), with prefix caching where one
+card has it: a warm group's copy-on-write forks run on each rank's local
+pool, whose block axis is whole, and its tail prefill over its shards.
 """
 from __future__ import annotations
 
@@ -130,17 +131,15 @@ class ServingEngine:
         .MeshPlan`` for this rank: whole ``params_*`` are cut to this
         rank's shards (``models.weights.shard_params``; shards from
         ``init_params(plan=)`` stay), the caches hold its shards, and
-        every rank must be given the same requests.  Every family;
-        prefix caching on a mesh raises ``NotImplementedError`` (ROADMAP
-        A10)."""
+        every rank must be given the same requests (a front-end on a
+        mesh hands rank 0's to the others: ``serving/frontend.py``).
+        Every family and prefix caching, which keeps its host state (block
+        hashes, refcounts, LRU order, copy-on-write pairs) identical on
+        every rank."""
         self.device = resolve_device(device)
         b = serving.max_batch_size
         plan = (mesh if mesh is None or isinstance(mesh, tp.MeshPlan)
                 else tp.MeshPlan.for_mesh(mesh, b))
-        if plan is not None:
-            if serving.prefix_caching:
-                raise NotImplementedError(
-                    "prefix caching on a serving mesh is ROADMAP A10")
         self.mesh_plan = plan
         # every clock reading of the host loop: rank 0's on a mesh
         self._clock = (time.monotonic if plan is None
@@ -452,7 +451,7 @@ class ServingEngine:
                 view, last = prefill_lib.prefill_paged_tail(
                     self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"],
                     rows_t, toks_t, starts_t, tails_t, cow_t[0], cow_t[1],
-                    tc.get("k_scale"), tc.get("v_scale"))
+                    self.mesh_plan, tc.get("k_scale"), tc.get("v_scale"))
             else:
                 view, last = prefill_lib.prefill_paged_rows(
                     self.pt, self.cfg_t, tc["k"], tc["v"], tc["kv_pos"],
@@ -489,7 +488,8 @@ class ServingEngine:
             dc = self.drafter.prefill_tail(
                 self.pd, dc, idx, full_t, plen_t, toks_t,
                 starts_t, tails_t, cow_t[0], cow_t[1], mirror_rows,
-                max_len=self.serving.max_seq_len)
+                max_len=self.serving.max_seq_len, plan=self.mesh_plan,
+                own=own)
         else:
             dc = self.drafter.prefill(self.pd, dc, idx, toks_t, plen_t,
                                       mirror_rows,

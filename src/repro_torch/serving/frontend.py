@@ -31,6 +31,21 @@ byte-identical to a direct ``run()`` call.  Streams are additionally
 schedule-invariant (identity-threaded RNG + device-side termination,
 DESIGN.md §7/§9), which is what makes mid-run admission change *when*
 tokens arrive but never *which* tokens a request gets.
+
+On a ``(data, model)`` serving mesh (an engine built with ``mesh=``)
+every rank builds a front-end over its engine, and only rank 0's takes
+submissions: it alone has the ingress queue, the stream handles and
+:meth:`ServingFrontend.summary`.  Each driver iteration rank 0
+broadcasts the requests it admits (their fields and its arrival stamp,
+in FIFO order) and whether it stops (``core.tp.broadcast_objects``);
+every other rank runs :meth:`ServingFrontend.follow`, which submits
+exactly those requests and pumps as rank 0 does, so every rank's engine
+sees the same calls in the same order.  Every control-group collective
+(these broadcasts and the engine's clock readings) runs on the driver
+thread of each rank; the HTTP thread and ``summary()`` make none.  While
+idle, rank 0 waits on its ingress and the others inside the broadcast,
+which rank 0 renews every ``IDLE_BEAT_S`` seconds so that an idle
+follower stays within the control group's timeout.
 """
 from __future__ import annotations
 
@@ -39,8 +54,18 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch.distributed as dist
+
+from repro_torch.core import tp
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.request import Request, RequestState
+
+# the fields of a Request that rank 0 broadcasts at admission
+ADMIT_FIELDS = ("request_id", "prompt", "max_new_tokens", "eos_token_id",
+                "slo_deadline_s", "priority", "arrival_time")
+# longest wait of an idle mesh's followers between two broadcasts (well
+# inside the control group's timeout, 30 minutes by default)
+IDLE_BEAT_S = 60.0
 
 
 class StreamHandle:
@@ -117,10 +142,18 @@ class ServingFrontend:
       submitters race the driver by design.  The engine's CUDA work, its
       events and pinned buffers then all belong to that thread (on the
       default stream, which every host thread shares).
+
+    On a mesh the ranks other than 0 run :meth:`follow` instead.
     """
 
     def __init__(self, engine: ServingEngine):
         self.engine = engine
+        # a mesh of more than one rank: rank 0 leads, the others follow
+        self._mesh = (engine.mesh_plan if tp.spans_ranks(engine.mesh_plan)
+                      else None)
+        self.leader = self._mesh is None or dist.get_rank() == 0
+        self._released = False
+        self._last_beat = time.monotonic()
         self._ingress: "queue.SimpleQueue[Tuple[Request, StreamHandle]]" = (
             queue.SimpleQueue())
         self._handles: Dict[int, StreamHandle] = {}
@@ -147,8 +180,7 @@ class ServingFrontend:
         ``slo_deadline_s`` / ``priority`` thread straight onto the
         Request (DESIGN.md §15); left at their defaults the request is
         untouched by every SLO path."""
-        if self._stop.is_set():
-            raise RuntimeError("front-end is stopped")
+        self._check_open()
         if request_id is None:
             with self._id_lock:
                 request_id = self._next_id
@@ -168,26 +200,82 @@ class ServingFrontend:
     def submit_request(self, req: Request) -> StreamHandle:
         """Submission path for pre-built Requests (trace replay): wires
         the stream callback, keeps the request's own arrival stamp."""
-        if self._stop.is_set():
-            raise RuntimeError("front-end is stopped")
+        self._check_open()
         handle = StreamHandle(req)
         req.on_token = lambda r, t: handle._push_token(t)
         self._ingress.put((req, handle))
         return handle
 
-    def _ingest(self) -> int:
-        """Drain the ingress queue into the engine (driver thread only).
-        FIFO, so submission order IS scheduler-queue order — the replay
-        exactness argument needs nothing more."""
-        n = 0
+    def _check_open(self) -> None:
+        if self._stop.is_set():
+            raise RuntimeError("front-end is stopped")
+        self._check_leader()
+
+    def _check_leader(self) -> None:
+        if not self.leader:
+            raise RuntimeError("a mesh rank other than 0 takes no "
+                               "submissions: it runs follow()")
+        if self._released:
+            raise RuntimeError("the mesh's other ranks have stopped "
+                               "following")
+
+    def _ingest(self, first: Optional[Tuple[Request, StreamHandle]] = None
+                ) -> int:
+        """Drain the ingress queue (after ``first``, an item already taken
+        off it) into the engine (driver thread only).  FIFO, so submission
+        order IS scheduler-queue order — the replay exactness argument
+        needs nothing more.  On a mesh the followers get the same requests
+        first (:meth:`_announce`)."""
+        items = [] if first is None else [first]
         while True:
             try:
-                req, handle = self._ingress.get_nowait()
+                items.append(self._ingress.get_nowait())
             except queue.Empty:
-                return n
+                break
+        self._announce([req for req, _ in items])
+        for req, handle in items:
             self._handles[req.request_id] = handle
             self.engine.submit(req)
-            n += 1
+        return len(items)
+
+    def _announce(self, reqs: List[Request], stop: bool = False) -> None:
+        """Rank 0's admitted requests and stop flag to every follower
+        (one broadcast; nothing off a mesh)."""
+        if self._mesh is None:
+            return
+        msg = ([{f: getattr(r, f) for f in ADMIT_FIELDS} for r in reqs],
+               stop)
+        tp.broadcast_objects([msg], self._mesh)
+        self._last_beat = time.monotonic()
+
+    def _release_followers(self) -> None:
+        """Tell the followers to drain and return (once)."""
+        if self._mesh is not None and not self._released:
+            self._released = True
+            self._announce([], stop=True)
+
+    def follow(self) -> List[Request]:
+        """The driver of a mesh rank other than 0: each of rank 0's
+        driver iterations, receive the requests it admitted, submit them
+        in its order with its arrival stamps, and pump if it pumps (the
+        same host state decides); after its stop, drain and return the
+        terminal requests.  A rank that never hears from rank 0 fails on
+        the control group's timeout."""
+        if self.leader:
+            raise RuntimeError("rank 0 drives the mesh; follow() is for "
+                               "the other ranks")
+        done: List[Request] = []
+        while True:
+            reqs, stop = tp.broadcast_objects([None], self._mesh)[0]
+            for fields in reqs:
+                self.engine.submit(Request(**fields))
+            if stop:
+                break
+            if self.engine.has_pending_work():
+                done += self.engine.pump()
+        done += self.engine.drain()
+        self._done += done
+        return done
 
     # --------------------------------------------------------------- driving
     def _deliver_terminals(self, done: List[Request]) -> None:
@@ -200,11 +288,13 @@ class ServingFrontend:
                           else "rejected")
                 handle._push_done(reason or "length")
 
-    def _drive_once(self) -> List[Request]:
-        """One driver iteration: admit arrivals, run one ``pump()``
-        (round N+1 dispatches while round N reconciles — token events
-        fire from inside the pump), deliver terminal events."""
-        self._ingest()
+    def _drive_once(self, first: Optional[Tuple[Request, StreamHandle]]
+                    = None) -> List[Request]:
+        """One driver iteration: admit arrivals (``first``: one already
+        taken off the ingress), run one ``pump()`` (round N+1 dispatches
+        while round N reconciles — token events fire from inside the
+        pump), deliver terminal events."""
+        self._ingest(first)
         sched = self.engine.scheduler
         self.queue_depth_log.append((
             time.monotonic() - self._t0, self._ingress.qsize(),
@@ -218,7 +308,9 @@ class ServingFrontend:
     def run_until_drained(self) -> List[Request]:
         """Drive everything currently (or concurrently) submitted to
         terminal state; returns the terminal requests in completion
-        order.  Single-threaded: the caller is the driver."""
+        order.  Single-threaded: the caller is the driver (on a mesh, the
+        followers keep following until :meth:`stop`)."""
+        self._check_leader()
         out: List[Request] = []
         while True:
             if (self._ingress.qsize() == 0
@@ -231,20 +323,24 @@ class ServingFrontend:
 
     def _loop(self) -> None:
         while not self._stop.is_set():
+            first = None
             if (self._ingress.qsize() == 0
                     and not self.engine.has_pending_work()):
                 # idle: block briefly on the ingress rather than spin
                 try:
-                    item = self._ingress.get(timeout=0.005)
+                    first = self._ingress.get(timeout=0.005)
                 except queue.Empty:
+                    if (self._mesh is not None and time.monotonic()
+                            - self._last_beat > IDLE_BEAT_S):
+                        self._announce([])
                     continue
-                self._handles[item[0].request_id] = item[1]
-                self.engine.submit(item[0])
-            self._drive_once()
+            self._drive_once(first)
+        self._release_followers()
         self._deliver_terminals(self.engine.drain())
 
     def start(self) -> "ServingFrontend":
         """Spawn the daemon driver thread (idempotent)."""
+        self._check_leader()
         if self._thread is None or not self._thread.is_alive():
             self._stop.clear()
             self._thread = threading.Thread(
@@ -254,11 +350,15 @@ class ServingFrontend:
 
     def stop(self, timeout: float = 30.0) -> None:
         """Stop the driver thread; in-flight work is drained (the last
-        dispatched round is reconciled) but queued work is abandoned."""
+        dispatched round is reconciled) but queued work is abandoned.  On
+        a mesh the followers drain and return too (from the caller's
+        thread where no driver thread runs: the replay's driver)."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=timeout)
             self._thread = None
+        elif self.leader:
+            self._release_followers()
 
     def wait_idle(self, timeout: float = 60.0) -> bool:
         """Block until no submitted work remains anywhere in the

@@ -230,7 +230,9 @@ def start_http_server_thread(frontend: ServingFrontend,
                              ) -> Tuple[int, Callable[[], None]]:
     """Run a :class:`CompletionServer` on a daemon thread with its own
     event loop; returns ``(bound_port, stop)``.  The front-end's driver
-    thread must be started by the caller (``frontend.start()``)."""
+    thread must be started by the caller (``frontend.start()``).  On a
+    serving mesh this runs on rank 0 over its front-end, while the other
+    ranks run ``frontend.follow()``."""
     server = CompletionServer(frontend, model_name=model_name,
                               default_max_tokens=default_max_tokens)
     loop = asyncio.new_event_loop()

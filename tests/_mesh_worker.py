@@ -9,11 +9,14 @@ same.  JOB (``torch.save``) holds ``mesh``, ``configs`` (name ->
 ``ModelConfig`` field overrides of ``smollm-135m.reduced()``, or of the
 reduced config, or its ``draft()``, of the arch an ``arch`` / ``draft_of``
 key names), ``params`` (name -> a whole parameter tree of numpy arrays)
-and ``cases`` (dicts, by ``kind``: ``serve``, ``forward``, ``layout``).
-OUT gets this rank's results, one per case, by case name.
+and ``cases`` (dicts, by ``kind``: ``serve`` (a warm prefix cache's
+waves too), ``frontend``, ``http``, ``forward``, ``layout``).
+OUT gets this rank's results, one per case, by case name, and under
+``seconds`` each case's wall time.
 """
 import dataclasses
 import hashlib
+import os
 import sys
 import time
 
@@ -51,11 +54,11 @@ def params_of(job, name):
     return from_reference(job["params"][name], device="cpu")
 
 
-def serve(job, case, mesh):
-    from repro_torch.core import tp
+def engine_of(job, case, mesh):
+    """The engine a serving case names (``caching``: prefix caching on
+    the pool), on ``mesh`` unless the case is ``unmeshed``."""
     from repro_torch.core.config import ServingConfig, SpecDecodeConfig
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.request import Request
 
     cfg = config(job["configs"][case.get("config", "small")])
     cfg_d = (config(job["configs"][case["draft_config"]])
@@ -73,29 +76,57 @@ def serve(job, case, mesh):
                        kv_block_size=case.get("bs", 16),
                        num_kv_blocks=case.get("nblocks"),
                        pipelined=case.get("pipelined", False),
-                       kv_quant=case.get("kv_quant", "none"))
+                       kv_quant=case.get("kv_quant", "none"),
+                       prefix_caching=case.get("caching", False))
     pt = params_of(job, case.get("target", "pt"))
     pd = params_of(job, case.get("draft", "pd")) if model else None
-    skew = case.get("skew", {}).get(str(dist.get_rank()))
-    real = time.monotonic
-    if skew is not None:
-        time.monotonic = lambda: real() + skew
-    drops, undo = count_drops() if case.get("drops") else (None, None)
-    try:
-        eng = ServingEngine(pt, cfg, pd, cfg_d if model else None, spec, sv,
-                            seed=0, device="cpu",
-                            mesh=None if case.get("unmeshed") else mesh)
-        deadlines = case.get("deadlines")
-        reqs = [Request(i, prompt=p, max_new_tokens=case.get("max_new", 10),
-                        slo_deadline_s=None if deadlines is None
-                        else deadlines[i])
-                for i, p in enumerate(case["prompts"])]
-        tp.reset_counts()
-        m = eng.run(reqs)
-    finally:
-        time.monotonic = real
-        if undo is not None:
-            undo()
+    return ServingEngine(pt, cfg, pd, cfg_d if model else None, spec, sv,
+                         seed=0, device="cpu",
+                         mesh=None if case.get("unmeshed") else mesh)
+
+
+def host_reads(eng):
+    """Count the host reads of tensors (``item``, ``tolist``, ``numpy``,
+    ``bool`` / ``int`` / ``float``) that ``eng.dispatch`` makes: the
+    calls that would synchronise a card (the CPU's stand-in for its sync
+    count).  ``core/tp.py``'s reads of the control group's host tensors
+    (rank 0's clock) are not counted: they live on the host on a card
+    too."""
+    counts = {"reads": 0}
+    dispatch = eng.dispatch
+    names = ("item", "tolist", "numpy", "__bool__", "__int__", "__float__")
+
+    def watched():
+        own = {n: torch.Tensor.__dict__.get(n) for n in names}
+        inner = {n: getattr(torch.Tensor, n) for n in names}
+
+        def counting(name):
+            def read(self, *a, **kw):
+                caller = sys._getframe(1).f_code.co_filename
+                if not caller.endswith(os.path.join("core", "tp.py")):
+                    counts["reads"] += 1
+                return inner[name](self, *a, **kw)
+            return read
+        for n in names:
+            setattr(torch.Tensor, n, counting(n))
+        try:
+            return dispatch()
+        finally:
+            for n, f in own.items():
+                if f is None:
+                    delattr(torch.Tensor, n)
+                else:
+                    setattr(torch.Tensor, n, f)
+    eng.dispatch = watched
+    return counts
+
+
+def summary_of(eng, m, reqs, case):
+    """What a serving case returns: streams, the run's counts, this
+    rank's collectives and dispatch host reads, the prefix cache's
+    totals and (``digest``) the pool's digests."""
+    from repro_torch.core import tp
+    sched = eng.scheduler
     out = {"streams": [r.output for r in reqs],
            "finished": m["requests_finished"],
            "preemptions": m["preemptions"], "rounds": m["rounds"],
@@ -103,14 +134,54 @@ def serve(job, case, mesh):
            "slots": [r.slot for r in reqs],
            "slo_predicted_violations": m["slo_predicted_violations"],
            "slo_deferrals": m["slo_deferrals"],
-           "counts": dict(tp.COUNTS), "drops": drops}
-    st = eng.state
+           "counts": dict(tp.COUNTS),
+           "prefix": {"hit_blocks": m["prefix_cache_hit_blocks"],
+                      "cow_copies": m["cow_copies"],
+                      "hit_rate": m["prefix_cache_hit_rate"],
+                      "tokens": sched.prefix_tokens_total,
+                      "hit_tokens": sched.prefix_hit_tokens_total}}
     if case.get("digest"):
-        tc = st.target_cache
+        tc = eng.state.target_cache
         out["pool_digest"] = {
             k: hashlib.sha256(tc[k].contiguous().numpy().tobytes()).hexdigest()
             for k in ("k", "v", "kv_pos", "block_table", "k_scale", "v_scale")
             if k in tc}
+    return out
+
+
+def serve(job, case, mesh):
+    """``run()`` over the case's ``prompts`` (or, with ``batches``, each
+    batch in turn on one engine: a warm prefix cache's waves)."""
+    from repro_torch.core import tp
+    from repro_torch.serving.request import Request
+
+    skew = case.get("skew", {}).get(str(dist.get_rank()))
+    real = time.monotonic
+    if skew is not None:
+        time.monotonic = lambda: real() + skew
+    drops, undo = count_drops() if case.get("drops") else (None, None)
+    try:
+        eng = engine_of(job, case, mesh)
+        reads = host_reads(eng)
+        deadlines = case.get("deadlines")
+        batches = case.get("batches", [case.get("prompts")])
+        tp.reset_counts()
+        reqs = []
+        for j, batch in enumerate(batches):
+            rs = [Request(100 * j + i, prompt=list(p),
+                          max_new_tokens=case.get("max_new", 10),
+                          slo_deadline_s=None if deadlines is None
+                          else deadlines[i])
+                  for i, p in enumerate(batch)]
+            m = eng.run(rs)
+            reqs += rs
+    finally:
+        time.monotonic = real
+        if undo is not None:
+            undo()
+    out = summary_of(eng, m, reqs, case)
+    out.update(drops=drops, dispatch_reads=reads["reads"])
+    st = eng.state
     if case.get("shapes"):
         def shapes(tree):
             if isinstance(tree, dict):
@@ -126,6 +197,86 @@ def serve(job, case, mesh):
                                       "round_idx", "done", "tokens_budget",
                                       "eos_id")}}
     return out
+
+
+def frontend_case(job, case, mesh):
+    """The meshed ``ServingFrontend``: rank 0 takes the case's prompts
+    (``mode`` ``replay``: all before ``run_until_drained``; ``threaded``:
+    the driver thread started first, one submission every 10 ms), every
+    other rank follows.  Rank 0 returns its handles' streams and whether
+    each handle's events rebuild its request's output (each token once,
+    in order); a follower the streams of the requests it served."""
+    from repro_torch.core import tp
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.request import Request
+
+    skew = case.get("skew", {}).get(str(dist.get_rank()))
+    real = time.monotonic
+    if skew is not None:
+        time.monotonic = lambda: real() + skew
+    try:
+        eng = engine_of(job, case, mesh)
+        reads = host_reads(eng)
+        fe = ServingFrontend(eng)
+        tp.reset_counts()
+        reqs = [Request(i, prompt=list(p),
+                        max_new_tokens=case.get("max_new", 10))
+                for i, p in enumerate(case["prompts"])]
+        if not fe.leader:
+            done = sorted(fe.follow(), key=lambda r: r.request_id)
+            return {"streams": [r.output for r in done],
+                    "leader": False, "dispatch_reads": reads["reads"],
+                    "counts": dict(tp.COUNTS)}
+        if case["mode"] == "replay":
+            handles = [fe.submit_request(r) for r in reqs]
+            fe.run_until_drained()
+            fe.stop()
+        else:
+            fe.start()
+            handles = []
+            for r in reqs:
+                handles.append(fe.submit_request(r))
+                time.sleep(0.01)
+            if not fe.wait_idle(timeout=300):
+                raise RuntimeError("the meshed front-end did not go idle")
+            fe.stop()
+    finally:
+        time.monotonic = real
+    results = [h.result(timeout=30) for h in handles]
+    return {"streams": [toks for toks, _ in results], "leader": True,
+            "once_in_order": all(toks == h.request.output
+                                 for (toks, _), h in zip(results, handles)),
+            "finish_reasons": [reason for _, reason in results],
+            "summary": {k: fe.summary()[k] for k in (
+                "requests_finished", "prefix_cache_hit_blocks",
+                "cow_copies")},
+            "dispatch_reads": reads["reads"], "counts": dict(tp.COUNTS)}
+
+
+def http_case(job, case, mesh):
+    """One non-streaming and one streaming completion of the case's
+    prompt through the HTTP server on rank 0 (over loopback, its
+    front-end's driver thread beside it); every other rank follows."""
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.server import (smoke_check,
+                                            start_http_server_thread)
+
+    eng = engine_of(job, case, mesh)
+    fe = ServingFrontend(eng)
+    if not fe.leader:
+        fe.follow()
+        return {"leader": False}
+    fe.start()
+    port, stop = start_http_server_thread(fe, model_name="mesh")
+    try:
+        res = smoke_check("127.0.0.1", port, case["prompt"],
+                          max_tokens=case.get("max_new", 10))
+    finally:
+        stop()
+        fe.stop()
+    return {"leader": True, "plain": res["non_streaming_tokens"],
+            "streamed": res["streamed_tokens"],
+            "finish_reason": res["finish_reason"]}
 
 
 def forward_case(job, case, mesh):
@@ -221,7 +372,8 @@ def layout_case(job, case, mesh):
             "pool_k": tuple(pool["k"].shape)}
 
 
-KINDS = {"serve": serve, "forward": forward_case, "layout": layout_case}
+KINDS = {"serve": serve, "forward": forward_case, "layout": layout_case,
+         "frontend": frontend_case, "http": http_case}
 
 
 def main(rank, world, store_path, job_path, out_path):
@@ -233,10 +385,12 @@ def main(rank, world, store_path, job_path, out_path):
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
         mesh = serving_mesh(job["mesh"], device_type="cpu")
-        results = {}
+        results = {"seconds": {}}
         for case in job["cases"]:
+            t0 = time.monotonic()
             results[case["name"]] = KINDS[case.get("kind", "serve")](
                 job, case, mesh)
+            results["seconds"][case["name"]] = time.monotonic() - t0
         torch.save(results, out_path)
     finally:
         dist.destroy_process_group()

@@ -911,7 +911,7 @@ def test_warm_tail_prefill_matches_plain(cuda, kv_quant):
             tail_lens.to(device),
             torch.tensor([24, 3], device=device),
             torch.tensor([24, 12], device=device),
-            c.get("k_scale"), c.get("v_scale"))
+            k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))
         return last.cpu(), {k: v.cpu() for k, v in c.items()}
 
     want, _ = run("cpu")

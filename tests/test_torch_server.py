@@ -226,15 +226,16 @@ def test_launcher_http_smoke_on_cpu():
 @pytest.mark.parametrize("extra,word", [
     (["--demo", "--mesh", "1x4", "--arch", "granite-moe-3b-a800m"],
      "torchrun"),
-    (["--http", "--mesh", "1x4"], "A10"),
-    (["--demo", "--mesh", "1x4", "--prefix-share", "0.5"], "A10"),
-    (["--demo", "--mesh", "1x4"], "torchrun")])
+    (["--http", "--mesh", "1x4"], "torchrun"),
+    (["--demo", "--mesh", "1x4", "--prefix-share", "0.5"], "torchrun"),
+    (["--demo", "--mesh", "1x4"], "torchrun"),
+    (["--mesh", "1x4"], "--http-smoke")])
 def test_launcher_unported_modes_exit_with_an_error(extra, word, capsys,
                                                     monkeypatch):
-    """The mesh modes the engine does not run (the HTTP front door,
-    prefix caching: ROADMAP A10), and ``--mesh`` outside torchrun (for
-    any arch: an MoE arch passes every other check), exit with an error
-    before any process group starts."""
+    """``--mesh`` outside torchrun (for any arch and serving mode: an MoE
+    arch, the HTTP front door and prefix caching pass every other check)
+    and ``--mesh`` with the dry run, which serves nothing, exit with an
+    error before any process group starts."""
     monkeypatch.delenv("RANK", raising=False)
     with pytest.raises(SystemExit) as e:
         launch_serve.main(["--arch", "smollm-135m", "--device", "cpu"] + extra)

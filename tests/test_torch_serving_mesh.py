@@ -15,8 +15,17 @@ against the reference's, the placement of params and state, a rank's KV
 group when query heads split over KV heads that replicate (H 8 / KV 2 on
 1x4), pools bitwise equal across data ranks, and a skewed clock on one
 rank under the ``slo`` policy with deadlines.
+
+The front door on the mesh: prefix caching (a block-aligned head shared
+across waves, a partial hit, a full repeat that forks a block
+copy-on-write, a cold outlier; forced preemption) against the
+reference's one-card prefix-cached engine, computed here meanwhile, and
+the rollout; the ``ServingFrontend`` (rank 0 leads, the other ranks
+follow it) in replay and under its driver thread, and one streaming and
+one non-streaming HTTP completion on rank 0, each equal to ``run()``.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -30,11 +39,15 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
+from repro.core.config import ServingConfig as RServing
+from repro.core.config import SpecDecodeConfig as RSpec
 from repro.launch import sharding as ref_sharding
 from repro.launch.mesh import make_mesh_from_shape as ref_mesh
 from repro.models.module import init_params as ref_init_params
 from repro.models.transformer import forward as ref_forward
 from repro.models.transformer import model_specs
+from repro.serving.engine import ServingEngine as REngine
+from repro.serving.request import Request as RRequest
 
 from repro_torch.configs import get_config
 from repro_torch.core.config import ServingConfig, SpecDecodeConfig
@@ -64,6 +77,36 @@ HAZARD = {"num_heads": 8, "num_kv_heads": 2, "head_dim": 32}
 PAD = {"kv_head_pad": 4}
 SKEW_S = 1000.0
 WORLD_TIMEOUT_S = 600
+
+# the prefix cache's waves (``tests/test_torch_prefix_cache.py``'s, ids
+# below the reduced vocabulary): the first seeds a 40-token head, the
+# second hits it (a continuation, the head's two full blocks alone, which
+# forks the last one copy-on-write, a cold outlier); PREEMPT_WAVE's
+# shared 24-token head under a pool of 16 blocks of 8
+_RNG = np.random.RandomState(11)
+SHARED = _RNG.randint(0, 500, size=40).tolist()
+WAVES = ([SHARED + _RNG.randint(0, 500, size=6).tolist()],
+         [SHARED + _RNG.randint(0, 500, size=5).tolist(), SHARED[:32],
+          _RNG.randint(0, 500, size=9).tolist()])
+PREEMPT_WAVE = [SHARED[:24] + _RNG.randint(0, 500, size=n).tolist()
+                for n in (6, 3, 1)]
+# the front-end's requests: one wave sharing a 32-token head
+FRONT = [SHARED[:32] + _RNG.randint(0, 500, size=n).tolist()
+         for n in (5, 9, 3, 7)]
+HTTP_PROMPT = SHARED[:16] + _RNG.randint(0, 500, size=8).tolist()
+# warm serve -> its settings (each also run unmeshed in the 1x4 world)
+WARM = {"warm-model": dict(paged=True, caching=True, batches=WAVES),
+        "warm-ngram-int8": dict(paged=True, caching=True, batches=WAVES,
+                                drafter="ngram", kv_quant="int8"),
+        "warm-preempt": dict(paged=True, caching=True,
+                             batches=(PREEMPT_WAVE,), max_new=40, bs=8,
+                             nblocks=16)}
+# the fp32 warm serves' rollouts (``runs``' reference keys)
+WARM_ROLLOUTS = {"warm-model": "waves", "warm-preempt": "preempt-wave"}
+FRONT_MODES = {"replay": dict(mode="replay"),
+               "threaded-sync": dict(mode="threaded"),
+               "threaded-pipe": dict(mode="threaded", pipelined=True,
+                                     skew={"1": SKEW_S})}
 
 
 def _prompts(vocab, sizes=(7, 12, 5), seed=11):
@@ -161,7 +204,50 @@ def _cases(mesh, prompts, preempt, skew_prompts):
                       deadlines=[0.05 if i % 2 else 60.0
                                  for i in range(len(skew_prompts))],
                       skew={"1": SKEW_S}))
+    for name, kw in WARM.items():
+        cases.append(dict(name=name, digest=True, **kw))
+        if mesh == "1x4":         # one world serves the one-card twins
+            cases.append(dict(name=f"{name}-unmeshed", unmeshed=True, **kw))
+    if mesh == "1x4":             # the uneven-KV layout is 1x4's
+        cases.append(dict(name="warm-hazard", config="hazard", target="hz",
+                          draft="hzd", **WARM["warm-model"]))
+    cases.append(dict(name="front-run", paged=True, caching=True,
+                      prompts=FRONT))
+    for name, kw in FRONT_MODES.items():
+        cases.append(dict(name=f"front-{name}", kind="frontend", paged=True,
+                          caching=True, prompts=FRONT, **kw))
+    cases.append(dict(name="http", kind="http", paged=True, caching=True,
+                      pipelined=True, prompt=HTTP_PROMPT))
     return cases
+
+
+def _ref_warm(params, cfg, name):
+    """The reference's one-card prefix-cached engine over a warm serve's
+    waves (greedy): its streams and prefix-cache totals."""
+    kw = WARM[name]
+    model = kw.get("drafter", "model") == "model"
+    eng = REngine(params["pt"], cfg, params["pd"] if model else None,
+                  cfg if model else None,
+                  RSpec(drafter=kw.get("drafter", "model"), temperature=0.0),
+                  RServing(max_batch_size=2, max_seq_len=128, paged_kv=True,
+                           kv_block_size=kw.get("bs", 16),
+                           num_kv_blocks=kw.get("nblocks"),
+                           kv_quant=kw.get("kv_quant", "none"),
+                           prefix_caching=True), seed=0)
+    reqs = []
+    for j, batch in enumerate(kw["batches"]):
+        rs = [RRequest(100 * j + i, prompt=list(p),
+                       max_new_tokens=kw.get("max_new", 10))
+              for i, p in enumerate(batch)]
+        m = eng.run(rs)
+        reqs += rs
+    return {"streams": [r.output for r in reqs],
+            "prefix": {"hit_blocks": m["prefix_cache_hit_blocks"],
+                       "cow_copies": m["cow_copies"],
+                       "hit_rate": m["prefix_cache_hit_rate"],
+                       "tokens": eng.scheduler.prefix_tokens_total,
+                       "hit_tokens": eng.scheduler.prefix_hit_tokens_total},
+            "preemptions": m["preemptions"]}
 
 
 def _start_world(mesh, job, tmp: Path):
@@ -238,6 +324,14 @@ def runs(tmp_path_factory):
                    "preempt": _rollouts(pt, rcfg, preempt, 40),
                    "hazard": _rollouts(hz, hcfg, prompts, 10)}
             ref["skew"] = ref["short"] * 2
+            waves = [p for w in WAVES for p in w]
+            ref["waves"] = _rollouts(pt, rcfg, waves, 10)
+            ref["hazard-waves"] = _rollouts(hz, hcfg, waves, 10)
+            ref["preempt-wave"] = _rollouts(pt, rcfg, PREEMPT_WAVE, 40)
+            ref["front"] = _rollouts(pt, rcfg, FRONT, 10)
+            ref["http"] = _rollouts(pt, rcfg, [HTTP_PROMPT], 10)[0]
+            ref["engine"] = {name: _ref_warm(params, rcfg, name)
+                             for name in WARM}
             fwd = {}
             for name, (p, c) in {"small": (pt, rcfg),
                                  "hazard": (hz, hcfg)}.items():
@@ -511,17 +605,28 @@ def test_head_layout_of_the_uneven_kv_shape():
         head_layout(0, 3, 12, 4, None, 512, 512)
 
 
-def test_prefix_caching_on_a_mesh_raises_naming_a10():
-    """Every family serves on a mesh (``tests/test_torch_serving_mesh_
-    families.py``); prefix caching there is still ROADMAP A10's."""
-    cfg = get_config("granite-moe-3b-a800m").reduced()
-    p = init_params(cfg, seed=0, device="cpu")
+def test_prefix_caching_on_a_mesh_gated_like_one_card():
+    """A meshed engine takes prefix caching where one card does: on the
+    pool of an attention-only stack (an MoE target here), not on the
+    dense ring, nor for a stack with recurrent state (the hybrid)."""
     plan = MeshPlan(FAKE, serve_rules(FAKE, 2))
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServingEngine(p, cfg, None, None, SpecDecodeConfig(drafter="ngram"),
-                      ServingConfig(max_batch_size=2, max_seq_len=64,
-                                    paged_kv=True, prefix_caching=True),
-                      device="cpu", mesh=plan)
+
+    def engine(arch, paged, layers=None):
+        cfg = get_config(arch).reduced()
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        p = init_params(cfg, seed=0, device="cpu")
+        return ServingEngine(p, cfg, None, None,
+                             SpecDecodeConfig(drafter="ngram"),
+                             ServingConfig(max_batch_size=2, max_seq_len=64,
+                                           paged_kv=paged,
+                                           prefix_caching=True),
+                             device="cpu", mesh=plan)
+    eng = engine("granite-moe-3b-a800m", True)
+    assert eng.prefix_caching and eng.scheduler.prefix_cache
+    assert eng.mesh_plan is plan
+    assert not engine("granite-moe-3b-a800m", False).prefix_caching
+    assert not engine("recurrentgemma-2b", True, layers=4).prefix_caching
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +792,101 @@ def test_skewed_clock_on_one_rank_serves_alike(runs):
         assert ranks[0]["counts"]["broadcast"] > 0
 
 
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("name", list(WARM))
+def test_mesh_warm_serves_match_reference(runs, mesh, name):
+    """Prefix caching on the mesh: every rank's streams, hit blocks, COW
+    copies and prefix-token counts equal the reference's one-card
+    prefix-cached engine and the port's own one-card engine, the fp32
+    streams also the target's rollout; the aligned repeat forks a block,
+    and the preempting serve preempts."""
+    results, ref, _ = runs
+    got = _streams(results, mesh, name)
+    one = results["1x4"][0][f"{name}-unmeshed"]
+    want = ref["engine"][name]
+    assert got == one["streams"] == want["streams"]
+    if name in WARM_ROLLOUTS:
+        assert got == ref[WARM_ROLLOUTS[name]]
+    for r in results[mesh]:
+        assert r[name]["prefix"] == one["prefix"] == want["prefix"], name
+        assert r[name]["preemptions"] == one["preemptions"]
+    assert want["prefix"]["hit_blocks"] > 0
+    if name == "warm-preempt":
+        assert want["preemptions"] >= 1
+    else:
+        assert want["prefix"]["cow_copies"] >= 1
+
+
+def test_mesh_warm_serve_of_the_uneven_kv_shape(runs):
+    """H 8 / KV 2 on 1x4, where each rank keeps the KV head its query
+    heads read: the warm waves' copy-on-write forks and tail prefills on
+    the rank's own KV head emit the rollout, with the small shape's
+    hits."""
+    results, ref, _ = runs
+    assert _streams(results, "1x4", "warm-hazard") == ref["hazard-waves"]
+    assert results["1x4"][0]["warm-hazard"]["prefix"] == \
+        results["1x4"][0]["warm-model"]["prefix"]
+
+
+def test_warm_pools_bitwise_equal_across_data_ranks(runs):
+    """2x2: after the warm serves (forks, tail prefills, preemption)
+    ranks (0, m) and (1, m) hold the same pool bytes."""
+    ranks = runs[0]["2x2"]
+    for case in WARM:
+        for m in range(2):
+            assert ranks[m][case]["pool_digest"] == \
+                ranks[2 + m][case]["pool_digest"], (case, m)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_mesh_dispatch_reads_nothing_on_the_host(runs, mesh):
+    """Every rank's ``dispatch`` of the warm serves and the front-end's
+    makes no host read of a tensor (the calls that would synchronise a
+    card)."""
+    results, _, _ = runs
+    for r in results[mesh]:
+        for case in list(WARM) + [f"front-{m}" for m in FRONT_MODES]:
+            assert r[case]["dispatch_reads"] == 0, (mesh, case)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("mode", list(FRONT_MODES))
+def test_mesh_frontend_equals_run(runs, mesh, mode):
+    """Rank 0's front-end (replay at arrival 0; its driver thread with
+    staggered arrivals, synchronous and pipelined, rank 1's clock 1000 s
+    ahead in the latter) emits the meshed ``run()``'s streams and the
+    rollout, each token once and in order; every follower served the same
+    streams, and the cache was hit (in replay as ``run()`` hit it;
+    staggered arrivals hit blocks that one admission wave does not)."""
+    results, ref, _ = runs
+    name = f"front-{mode}"
+    lead = results[mesh][0][name]
+    run = results[mesh][0]["front-run"]
+    assert lead["leader"] and lead["once_in_order"]
+    assert lead["streams"] == run["streams"] == ref["front"]
+    assert set(lead["finish_reasons"]) == {"length"}
+    assert lead["summary"]["requests_finished"] == len(FRONT)
+    hits = lead["summary"]["prefix_cache_hit_blocks"]
+    assert hits > 0
+    if mode == "replay":
+        assert hits == run["prefix"]["hit_blocks"]
+    for r in results[mesh][1:]:
+        assert not r[name]["leader"]
+        assert r[name]["streams"] == ref["front"], (mesh, mode)
+    assert lead["counts"]["broadcast"] > 0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_mesh_http_completions_equal_run(runs, mesh):
+    """One non-streaming and one streaming completion through the HTTP
+    server on rank 0 of the mesh equal the prompt's rollout."""
+    results, ref, _ = runs
+    out = results[mesh][0]["http"]
+    assert out["leader"] and out["finish_reason"] == "length"
+    assert out["plain"] == out["streamed"] == ref["http"]
+    assert all(not r["http"]["leader"] for r in results[mesh][1:])
+
+
 def test_launcher_serves_a_mesh_under_torchrun(tmp_path):
     """``torchrun --nproc-per-node 2 ... --demo --mesh 1x2 --device cpu``
     (gloo) exits 0, rank 0 printing the summary."""
@@ -700,3 +900,36 @@ def test_launcher_serves_a_mesh_under_torchrun(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     lines = [ln for ln in out.stdout.splitlines() if "'mesh': '1x2'" in ln]
     assert len(lines) == 1 and "'requests_finished': 4" in lines[0]
+
+
+@pytest.mark.parametrize("mode", [["--http-smoke"],
+                                  ["--demo", "--prefix-share", "0.5"]],
+                         ids=["http-smoke", "prefix-share"])
+def test_launcher_serves_the_front_door_on_a_mesh(tmp_path, mode):
+    """``torchrun --nproc-per-node 2 ... --mesh 1x2 --device cpu`` with
+    ``--http-smoke`` (rank 0's server and front-end, rank 1 following;
+    rank 0 prints the smoke test's JSON) and with ``--demo
+    --prefix-share 0.5`` (the cache hit) exits 0 on every rank."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--standalone", "-m", "repro_torch.launch.serve",
+         "--arch", "smollm-135m", "--mesh", "1x2", "--device", "cpu",
+         *mode], env=env, cwd=tmp_path, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    if mode[0] == "--http-smoke":
+        lines = [ln for ln in out.stdout.splitlines()
+                 if '"mesh": "1x2"' in ln]
+        assert len(lines) == 1
+        res = json.loads(lines[0])
+        assert res["streamed_tokens"] == res["non_streaming_tokens"]
+        assert len(res["streamed_tokens"]) == 8
+        assert res["summary"]["requests_finished"] == 2
+    else:
+        lines = [ln for ln in out.stdout.splitlines()
+                 if "'mesh': '1x2'" in ln]
+        assert len(lines) == 1 and "'requests_finished': 8" in lines[0]
+        hits = float(lines[0].split("'prefix_cache_hit_blocks': ")[1]
+                     .split(",")[0])
+        assert hits > 0

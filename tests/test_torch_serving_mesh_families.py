@@ -6,7 +6,8 @@ MoE (granite-moe), Mamba-2 (mamba2-130m), the RG-LRU hybrid
 recurrent tail), vlm (qwen2-vl-2b, its qkv biases drawn at random so
 that their head cut matters) and audio (seamless-m4t-medium, served with
 the reference engine's empty encoder context) at reduced width, each with
-its own reduced ``draft()``.  One 2x2 world serves every family and one
+its own reduced ``draft()``; the MoE and vlm targets on the pool also
+with prefix caching (two waves sharing a head, one fork copy-on-write).  One 2x2 world serves every family and one
 1x4 world MoE and Mamba-2, whose model cuts differ most at 4 shards
 (``tests/_mesh_worker.py``, one torch thread a rank); the reference's
 streams (dsde x model, sync) and logits are computed meanwhile, most of
@@ -88,12 +89,15 @@ SERVES = {"moe-ring": ("moe", False, "model"),
 # mesh -> its serves (``hybrid-ring-pipe``: the ring, pipelined)
 MESH_SERVES = {"2x2": tuple(SERVES) + ("hybrid-ring-pipe",),
                "1x4": ("moe-ring", "moe-pool", "ssm-ring")}
+# warm serve -> family: prefix caching on the pool (dsde x model, sync,
+# over WAVES), in the 2x2 world
+WARM_SERVES = {"moe-pool-warm": "moe", "vlm-pool-warm": "vlm"}
 # the reference engines' serves, split between this process (the first)
 # and two of this file (each engine compiles its rounds and prefills:
 # 9-15 s on one core)
 REF_SPLIT = (("moe-ring", "ssm-ring"),
-             ("hybrid-pool", "hybrid-ring", "vlm-pool"),
-             ("audio-ring", "moe-pool", "ssm-ngram"))
+             ("hybrid-pool", "hybrid-ring", "vlm-pool", "moe-pool-warm"),
+             ("audio-ring", "moe-pool", "ssm-ngram", "vlm-pool-warm"))
 # mesh -> its forward cases: (family, paged)
 MESH_FORWARDS = {"2x2": (("moe", False), ("moe", True), ("ssm", False),
                          ("hybrid", False), ("hybrid", True),
@@ -136,6 +140,21 @@ def _prompts():
 
 def _tokens():
     return [p[:5] for p in _prompts()[:2]]
+
+
+def _waves():
+    """A warm serve's two waves: the first seeds a 32-token head (two
+    blocks), the second hits it (a continuation, the head alone, whose
+    last block forks copy-on-write, a cold outlier)."""
+    rng = np.random.RandomState(13)
+    head = rng.randint(0, 512, size=32).tolist()
+    return ([head + rng.randint(0, 512, size=6).tolist()],
+            [head + rng.randint(0, 512, size=5).tolist(), list(head),
+             rng.randint(0, 512, size=9).tolist()])
+
+
+def _family(name):
+    return WARM_SERVES.get(name) or SERVES[name][0]
 
 
 # a reference config whose ``source`` is this marker commits through
@@ -187,6 +206,36 @@ def _ref_streams(family, paged, drafter, pt, pd):
     return [r.output for r in reqs]
 
 
+def _ref_warm(family, pt, pd):
+    """The reference engine's prefix-cached serve of :func:`_waves` (dsde
+    x model, sync, batch 2, the pool): streams and prefix-cache totals."""
+    eng = REngine(pt, _ref_cfg(family), pd, _ref_cfg(family, True),
+                  RSpec(drafter="model"),
+                  RServing(max_batch_size=2, max_seq_len=MAXLEN,
+                           paged_kv=True, kv_block_size=BS,
+                           prefix_caching=True))
+    reqs = []
+    for j, wave in enumerate(_waves()):
+        rs = [RRequest(100 * j + i, prompt=list(p), max_new_tokens=NEW)
+              for i, p in enumerate(wave)]
+        m = eng.run(rs)
+        reqs += rs
+    return {"streams": [r.output for r in reqs],
+            "prefix": {"hit_blocks": m["prefix_cache_hit_blocks"],
+                       "cow_copies": m["cow_copies"],
+                       "hit_rate": m["prefix_cache_hit_rate"],
+                       "tokens": eng.scheduler.prefix_tokens_total,
+                       "hit_tokens": eng.scheduler.prefix_hit_tokens_total}}
+
+
+def _ref_result(name, pt, pd):
+    """A reference serve of ``name``: :func:`_ref_warm` for a warm serve,
+    else :func:`_ref_streams`."""
+    if name in WARM_SERVES:
+        return _ref_warm(WARM_SERVES[name], pt, pd)
+    return _ref_streams(*SERVES[name], pt, pd)
+
+
 def _audio_context(pt):
     """Seeded frames, the reference's encoder output over them and its
     cross K/V ``[L, B, S, KV, D]`` (numpy)."""
@@ -235,6 +284,13 @@ def _cases(mesh, ctx):
                           pipelined=name.endswith("-pipe"),
                           drops=family == "moe",
                           digest=name == "hybrid-pool"))
+    if mesh == "2x2":
+        for name, family in WARM_SERVES.items():
+            cases.append(dict(name=name, config=family,
+                              draft_config=family + "-d", target=family,
+                              draft=family + "-d", paged=True, caching=True,
+                              batches=_waves(), max_new=NEW, bs=BS,
+                              max_seq=MAXLEN, digest=True))
     for family, paged in MESH_FORWARDS[mesh]:
         cases.append(dict(name=f"forward-{family}-{paged}", kind="forward",
                           config=family, target=family, batch=2, paged=paged,
@@ -294,8 +350,8 @@ def runs(tmp_path_factory):
             logits = {family: _ref_logits(
                 family, params[family], ctx if family == "audio" else None)
                 for family in FAMILIES}
-            ref = {name: _ref_streams(*SERVES[name], params[SERVES[name][0]],
-                                      params[SERVES[name][0] + "-d"])
+            ref = {name: _ref_result(name, params[_family(name)],
+                                     params[_family(name) + "-d"])
                    for name in REF_SPLIT[0]}
             for i, other in enumerate(others):
                 ref.update(_finish_reference(other, base / f"ref{i}",
@@ -348,6 +404,24 @@ def test_hybrid_ring_pipelined_equals_sync(runs):
     results, ref, _, _ = runs
     assert _streams(results, "2x2", "hybrid-ring-pipe") == \
         _streams(results, "2x2", "hybrid-ring") == ref["hybrid-ring"]
+
+
+@pytest.mark.parametrize("name", list(WARM_SERVES))
+def test_meshed_warm_serves_equal_the_reference_engines(runs, name):
+    """Prefix caching on the 2x2 mesh for the MoE and vlm targets on the
+    pool: every rank's streams, hit blocks, COW copies (at least one)
+    and prefix-token counts equal the reference engine's; the pools are
+    bitwise equal across data ranks."""
+    results, ref, _, _ = runs
+    ranks = results["2x2"]
+    assert _streams(results, "2x2", name) == ref[name]["streams"]
+    for r in ranks:
+        assert r[name]["prefix"] == ref[name]["prefix"], name
+    assert ref[name]["prefix"]["hit_blocks"] > 0
+    assert ref[name]["prefix"]["cow_copies"] >= 1
+    for m in range(2):
+        assert ranks[m][name]["pool_digest"] == \
+            ranks[2 + m][name]["pool_digest"], (name, m)
 
 
 def test_hybrid_pool_bitwise_equal_across_data_ranks(runs):
@@ -549,6 +623,6 @@ if __name__ == "__main__":
     # ``_start_reference``)
     names = sys.argv[1].split(",")
     params = {f: _ref_params(f) for f in dict.fromkeys(
-        SERVES[name][0] for name in names)}
-    torch.save({name: _ref_streams(*SERVES[name], *params[SERVES[name][0]])
+        _family(name) for name in names)}
+    torch.save({name: _ref_result(name, *params[_family(name)])
                 for name in names}, sys.argv[2])
