@@ -57,6 +57,18 @@ Phases, each printing one JSON line:
              verify passes past one launch of B1 and B4; adaedl,
              goodput and slo on the fp32 pool, goodput x n-gram on the
              int8 pool, the self drafter on the pool and the ring).
+4a. loadgen — (in the default run the ``examples`` side process's first
+             work, below) the full-width trace replay (``LOADGEN_TRACE``):
+             smollm-135m at 30 layers behind ``examples.stream_serving``'s
+             engine (the fp32 pool in blocks of 16, pipelined, dsde,
+             batch 4, 256 tokens), a seeded bursty trace of 16 requests
+             at 4 requests/s (``repro_torch.serving.loadgen``) replayed
+             open loop through the ``ServingFrontend``'s driver thread:
+             the report's TTFT and TPOT p50 / p99, queue depth,
+             throughput, goodput and SLO attainment; then
+             ``replay_at_zero`` of the same trace, whose streams must
+             equal ``run()``'s; B1 and B2 must launch in both replays and
+             ``dispatch`` make no synchronising call.
 4b. mesh   — the serving engine on a (data, model) mesh (ROADMAP A10;
              it runs after the frontdoor phase, 5): smollm-135m at full
              width, each serve's 8 requests and prompts those of its
@@ -223,11 +235,14 @@ Phases, each printing one JSON line:
              fall); ``train_step`` on the card against the CPU at the
              reduced width (loss 1e-4, params 1e-4, the first grad norm
              2e-3); then the reference benchmark's draft/target pair
-             (``benchmarks/common.build_pair("llama")``'s recipe: four
+             (``repro_torch.workloads``, the copy of
+             ``benchmarks/common.build_pair("llama")``'s recipe: four
              Markov corpora, target 1600 steps, draft 1000) trained on
-             the card from seeded inits (by the ``train`` side process, below), each final loss within 5% of
-             the reference's, and served on code and on dialogue prompts
-             with ``common.serve``'s settings (``PAIR_SERVES``: the model
+             the card from seeded inits (by the ``train`` side process,
+             below, into ``workloads``' cache, where the examples find
+             it), each final loss within 5% of the reference's, and
+             served on code and on dialogue prompts with
+             ``workloads.serve``'s settings (``PAIR_SERVES``: the model
              drafter under static SL 4 and dsde on the fp32 pool, dsde
              on the dense ring, the undamped n-gram drafter on the int8
              pool): the path's kernels must launch, dispatch must not
@@ -243,6 +258,23 @@ Phases, each printing one JSON line:
              smollm's heads, T 2048 and 4096 (forward + backward ms, peak
              memory, differences); smollm-135m at B 2 x S 2048 for 5
              steps through it.
+11. examples — the paper pipeline's entry points
+             (``repro_torch.examples``, ``EXAMPLES``), each ``main`` on the
+             card as a user runs it: ``quickstart``, ``serve_dynamic_sl
+             --smoke`` with ``--drafter ngram --kv-quant int8`` and with
+             ``--prefix-share 0.5``, then on the trained llama pair (the
+             train phase's, through ``workloads``' cache)
+             ``serve_dynamic_sl`` (six policies, slo == dsde, sync ==
+             pipelined), ``stream_serving`` (streamed tokens == each
+             output, the open-loop replay, replay at arrival 0 ==
+             ``run()``), ``train_draft_model`` (40 / 120 / 250 steps) and
+             ``low_acceptance_regime`` (static-opt, dsde and adaedl on
+             both pairs; the gemma draft trained on the card, its loss
+             within 5% of the reference's).  Each run prints what the
+             example printed, then its serves' rounds, acceptance and
+             latency units, its dispatch syncs (must be 0) and launches;
+             B1-B5 must each launch in the phase.  In the default run it
+             is the ``examples`` side process, below.
 
 10. dryrun — the dry run (``repro_torch.launch.dryrun``, ROADMAP A11):
              smollm-135m x decode_32k, granite-8b x train_4k and
@@ -260,18 +292,23 @@ Phases, each printing one JSON line:
              roofline share.
 
 The default run gives what times nothing the script reports as the
-card's rate to two processes of this script (``--side DUTY DIR``, 2 CPU
-threads each) that start after the kernel phase and run beside the
-others: ``train``, the train phase's corpus and pair training, then
-every profile; ``checks``, the reduced-width card == CPU checks of the
-serve, frontdoor, families, recurrent and multimodal phases.  The main
-process loads the corpus and the pair's params from DIR when its train
-phase needs them (``side-file``: the seconds it waited), stops both
-while the shared-card mesh worlds run (``side-pause``; never inside the
-pair's training or a profiled run), and relays their rows at the end
-(``"process": "side-train"`` / ``"side-checks"``), after each one's
-``side-wait``.  Every phase row carries ``t``, the seconds since its
-process started.
+card's rate to three processes of this script (``--side DUTY DIR``, 2
+CPU threads each, DIR also their temporary directory) that start after
+the kernel phase and run beside the others: ``train``, the train
+phase's corpus and pair training, then every profile; ``checks``, the
+reduced-width card == CPU checks of the serve, frontdoor, families,
+recurrent and multimodal phases; ``examples``, the examples phase
+(11), whose trained-pair runs wait for the ``train`` process's pair.
+The main process loads the corpus from DIR and the pair from the run's
+fresh ``workloads`` cache (``REPRO_TORCH_BENCH_CACHE`` under
+``build/``) when its train phase needs them (``side-file``: the seconds
+it waited), stops the side processes while the shared-card mesh worlds
+run (``side-pause``; never inside the pair's training, a profiled run
+or ``stream_serving``'s timed arrivals), and relays their rows at the
+end (``"process": "side-train"`` / ``"side-checks"`` /
+``"side-examples"``), after each one's ``side-wait``; the examples'
+launches join the kernels line.  Every phase row carries ``t``, the
+seconds since its process started.
 
 It ends with the script's seconds so far, the kernels line, the
 ``nvidia-smi`` line and the result line ``{"ok": true, "device":
@@ -2975,15 +3012,20 @@ def multimodal_phase(smi, side=False):
 
 
 # -- train phase ---------------------------------------------------------
-# The reference's benchmark pair (benchmarks/common.py): four Markov
-# corpora over 512 tokens, from predictable ("code") to not ("dialogue"),
-# a target (smollm-135m reduced) trained 1600 steps and a draft (d 128)
-# trained 1000 steps on their mixed stream.
-PAIR_VOCAB = 512
-DATASETS = {"code": 3.0, "qa": 1.5, "news": 0.8, "dialogue": 0.35}
-# name: (steps, seed, the reference's final loss: JAX on a CPU,
-# build_pair("llama")); the card's must be within PAIR_LOSS_RTOL of it
-PAIR_MODELS = {"target": (1600, 0, 4.781), "draft": (1000, 5, 5.030)}
+# The reference's benchmark pair (``repro_torch.workloads``, the copy of
+# benchmarks/common.py): four Markov corpora over 512 tokens, from
+# predictable ("code") to not ("dialogue"), a target (smollm-135m
+# reduced) trained 1600 steps and a draft (d 128) trained 1000 steps on
+# their mixed stream.
+# name: (cache tag, steps, seed, the reference's final loss: JAX on a
+# CPU, build_pair("llama")); the card's must be within PAIR_LOSS_RTOL
+PAIR_MODELS = {"target": ("target", 1600, 0, 4.781),
+               "draft": ("draft_llama", 1000, 5, 5.030)}
+# the gemma pair's weak draft (build_pair("gemma"): d 64, 180 steps,
+# seed 9, on the code + news half-stream), trained on the card by the
+# examples phase: the reference's final loss, JAX on a CPU through
+# benchmarks/common._train_cached("draft_gemma", ...)
+GEMMA_DRAFT_REFERENCE_LOSS = 6.087
 PAIR_LOSS_RTOL = 0.05
 # the model drafter's acceptance on code prompts must reach this, and
 # this multiple of its acceptance on dialogue prompts (reference: 0.373
@@ -3029,28 +3071,6 @@ PAIR_SERVES = (
               ("ngram_suffix_propose", "paged_ragged_verify_attention_quant"),
               vs_cpu=True),
 )
-
-
-def dataset(name: str):
-    import zlib
-    from repro_torch.training.data import MarkovTaskCorpus
-    return MarkovTaskCorpus(PAIR_VOCAB, peakedness=DATASETS[name],
-                            seed=zlib.crc32(name.encode()) % 1000)
-
-
-def mixed_stream(total_per: int = 150000):
-    import numpy as np
-    return np.concatenate([dataset(n).stream(total_per, seed=i)
-                           for i, n in enumerate(DATASETS)])
-
-
-def pair_configs():
-    import dataclasses
-    from repro_torch.configs import get_config
-    target = get_config("smollm-135m").reduced()
-    return target, dataclasses.replace(target, d_model=128, num_heads=2,
-                                       num_kv_heads=1, head_dim=64, d_ff=256,
-                                       name="draft")
 
 
 def logged_losses(text: str):
@@ -3383,9 +3403,10 @@ def flash_rows(smi) -> None:
 def family_train_phase(smi, stream=None) -> None:
     """The other families' training (``FAMILY_TRAINS``: full-width steps,
     card == CPU first steps at the reduced width) on ``stream`` (default:
-    :func:`mixed_stream`), then the flash rows."""
+    ``workloads.mixed_stream()``), then the flash rows."""
     if stream is None:
-        stream = mixed_stream()
+        from repro_torch import workloads
+        stream = workloads.mixed_stream()
     for arch, reduced, frames in FAMILY_TRAINS:
         family_train(stream, arch, reduced, frames, smi, **FAMILY_TRAIN_SHAPE)
         family_train_check(stream, arch, frames)
@@ -3393,23 +3414,22 @@ def family_train_phase(smi, stream=None) -> None:
 
 
 def train_pair(stream, smi):
-    """The reference pair's recipe (``_train_cached``: batch 16 x 64, lr
-    3e-3, warmup 30, clip 5.0) on the card from the port's seeded init,
-    with no cache on disk; each final loss within 5% of the reference's."""
-    from repro_torch.core.config import OptimizerConfig, TrainConfig
-    from repro_torch.training.data import lm_batches
-    from repro_torch.training.train import train_loop
+    """The reference pair's recipe (``workloads.train_model``: batch 16 x
+    64, lr 3e-3, warmup 30, clip 5.0) on the card from the port's seeded
+    init; each final loss within 5% of the reference's, each model then
+    saved to ``workloads``' cache (``REPRO_TORCH_BENCH_CACHE``, a fresh
+    directory of this run's), where the examples phase's
+    ``build_pair("llama")`` finds it."""
+    import os
+    from repro_torch import workloads
+    from repro_torch.training.checkpoint import save_checkpoint
     out = {}
-    for (name, (steps, seed, ref_loss)), cfg in zip(PAIR_MODELS.items(),
-                                                     pair_configs()):
-        tc = TrainConfig(global_batch_size=16, seq_len=64,
-                         optimizer=OptimizerConfig(learning_rate=3e-3,
-                                                   warmup_steps=30,
-                                                   total_steps=steps,
-                                                   grad_clip=5.0))
-        params, m = train_loop(cfg, tc, lm_batches(stream, 16, 64, seed=seed),
-                               num_steps=steps, verbose=False, seed=seed,
-                               device="cuda")
+    cfgs = {"target": workloads.target_config(),
+            "draft": workloads.draft_config()}
+    for name, (tag, steps, seed, ref_loss) in PAIR_MODELS.items():
+        cfg = cfgs[name]
+        params, m = workloads.train_model(cfg, stream, steps, seed,
+                                          device="cuda")
         emit({"phase": "train-pair", "model": name, "arch": cfg.name,
               "d_model": cfg.d_model, "layers": cfg.num_layers,
               **m, "ms_per_step": 1e3 * m["wall_s"] / m["steps"],
@@ -3421,6 +3441,9 @@ def train_pair(stream, smi):
                                  f"not within {PAIR_LOSS_RTOL:.0%} of the "
                                  f"reference's {ref_loss}")
         out[name] = (cfg, params)
+    for name, (tag, steps, _, _) in PAIR_MODELS.items():
+        save_checkpoint(os.path.join(workloads.CACHE_DIR, tag), steps,
+                        out[name][1])
     return out
 
 
@@ -3460,11 +3483,12 @@ def pair_serves(pair, smi):
     must launch in it, dispatch must make no synchronising call, and the
     model drafter on the pool must accept well on code.  Returns the
     launches summed over the serves, and the card's streams."""
+    from repro_torch import workloads
     total = {k: 0 for k in read_launches()}
     acceptance, streams = {}, {}
     for ps in PAIR_SERVES:
         for corpus in ("code", "dialogue"):
-            prompts = dataset(corpus).prompts(6, 12, seed=1)
+            prompts = workloads.dataset(corpus).prompts(6, 12, seed=1)
             reset_launches()
             m, reqs, eng, syncs, wall = pair_serve(ps, pair, prompts, "cuda")
             launches = read_launches()
@@ -3511,6 +3535,7 @@ def pair_serves(pair, smi):
 def pair_card_equal_cpu(pair, streams) -> None:
     """The card-trained pair copied to the CPU: the engine on the plain
     kernels must emit the card's greedy streams."""
+    from repro_torch import workloads
     from repro_torch.models.weights import map_params
     cpu_pair = {k: (cfg, map_params(lambda t: t.cpu(), p))
                 for k, (cfg, p) in pair.items()}
@@ -3518,8 +3543,8 @@ def pair_card_equal_cpu(pair, streams) -> None:
         if not ps.vs_cpu:
             continue
         for corpus in ("code", "dialogue"):
-            _, reqs, _, _, wall = pair_serve(
-                ps, cpu_pair, dataset(corpus).prompts(6, 12, seed=1), "cpu")
+            prompts = workloads.dataset(corpus).prompts(6, 12, seed=1)
+            _, reqs, _, _, wall = pair_serve(ps, cpu_pair, prompts, "cpu")
             same = [r.output for r in reqs] == streams[ps.name, corpus]
             emit({"phase": "pair-check", "serve": ps.name, "prompts": corpus,
                   "what": "trained-pair greedy streams, card vs CPU",
@@ -3537,7 +3562,11 @@ def train_phase(smi, side=None):
     t0 = time.monotonic()
     train_demo(smi)
     t1 = time.monotonic()
-    stream = side_stream(side) if side else mixed_stream()
+    if side:
+        stream = side_stream(side)
+    else:
+        from repro_torch import workloads
+        stream = workloads.mixed_stream()
     emit({"phase": "train-corpus", "tokens": int(stream.shape[0]),
           "seconds": time.monotonic() - t1})
     train_full_width(stream, smi)
@@ -3550,6 +3579,231 @@ def train_phase(smi, side=None):
     pair_card_equal_cpu(pair, streams)
     emit({"phase": "train-total", "seconds": time.monotonic() - t0})
     return launches
+
+
+# -- examples phase and the full-width trace replay ------------------------
+# The paper pipeline's entry points (``repro_torch.examples``), each
+# ``main`` run on the card as a user runs it (the default device): (module,
+# flags, whether it serves the trained llama pair).  The two smoke runs
+# make sure of B3 and B4 (n-gram x int8) and of B1 (prefix caching on
+# the pool); the full runs serve the pair the ``train`` side process
+# trained (``workloads``' cache), and ``low_acceptance_regime`` trains
+# the gemma pair's draft on the card.
+EXAMPLES = (
+    ("quickstart", (), False),
+    ("serve_dynamic_sl", ("--smoke", "--drafter", "ngram", "--kv-quant",
+                          "int8"), False),
+    ("serve_dynamic_sl", ("--smoke", "--prefix-share", "0.5"), False),
+    ("serve_dynamic_sl", (), True),
+    ("stream_serving", (), True),
+    ("train_draft_model", (), True),
+    ("low_acceptance_regime", (), True),
+)
+# the kernels the phase must launch, over all its runs
+EXAMPLE_KERNELS = ("paged_ragged_verify_attention", "fused_kld_accept",
+                   "ngram_suffix_propose",
+                   "paged_ragged_verify_attention_quant",
+                   "ragged_verify_attention")
+# the summary fields each example run prints per serve
+EXAMPLE_FIELDS = ("rounds", "tokens_emitted", "draft_steps",
+                  "draft_steps_effective", "mean_acceptance",
+                  "block_efficiency", "latency_units", "k_opt", "loss",
+                  "wall_time_s", "requests_finished")
+
+
+@contextlib.contextmanager
+def engine_syncs():
+    """Every ``ServingEngine`` made in the block counts its dispatch's
+    synchronising calls (:func:`count_syncs`); the counts, summed, fill
+    the yielded Counter when the block ends."""
+    from repro_torch.serving.engine import ServingEngine
+    counters, init = [], ServingEngine.__init__
+
+    def counted(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        counters.append(count_syncs(self))
+
+    total = collections.Counter()
+    ServingEngine.__init__ = counted
+    try:
+        yield total
+    finally:
+        ServingEngine.__init__ = init
+        for c in counters:
+            total.update(c)
+
+
+def example_runs(out):
+    """The serves of an example's result, by label: their
+    ``EXAMPLE_FIELDS``."""
+    runs = {}
+    for label, m in out.items():
+        if isinstance(m, dict) and "rounds" in m:
+            runs[label] = {k: m[k] for k in EXAMPLE_FIELDS if k in m}
+    return runs
+
+
+def examples_phase(smi, side=False):
+    """Each of ``EXAMPLES``' ``main`` on the card, its printed lines and
+    its serves' rounds, acceptance and latency units, dispatch syncs
+    (must be 0) and launches in rows of their own; its own assertions
+    hold inside it.  A trained-pair run first waits for the ``train``
+    side process's pair (``side``; run alone, ``build_pair`` trains it
+    here); ``stream_serving``'s timed arrivals run under
+    :func:`side_lock`.  The gemma draft's final loss must be within
+    ``PAIR_LOSS_RTOL`` of the reference's, and every kernel of
+    ``EXAMPLE_KERNELS`` must launch.  Returns the phase's launches."""
+    import importlib
+    import io
+    import re
+    import torch
+    t_phase = time.monotonic()
+    total = {k: 0 for k in read_launches()}
+    for name, flags, trained in EXAMPLES:
+        if trained and side:
+            side_file(pair_done())
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        printed = io.StringIO()
+        lock = (side_lock() if name == "stream_serving"
+                else contextlib.nullcontext())
+        reset_launches()
+        with lock, engine_syncs() as syncs:
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(printed):
+                out = module.main(list(flags))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        launches = read_launches()
+        for k in total:
+            total[k] += launches[k]
+        label = " ".join((name,) + flags)
+        lines = printed.getvalue().splitlines()
+        emit({"phase": "example-printed", "example": label, "lines": lines})
+        row = {"phase": "example", "example": label, "seconds": wall,
+               "runs": example_runs(out), "dispatch_syncs": sum(syncs.values()),
+               "dispatch_sync_sources": dict(syncs), "launches": launches,
+               "nvidia_smi": smi}
+        if name == "stream_serving":
+            row["replay"] = out["replay"]["report"]
+        emit(row)
+        if sum(syncs.values()):
+            raise AssertionError(f"example {label}: dispatch synchronised: "
+                                 f"{dict(syncs)}")
+        if name == "low_acceptance_regime":
+            found = re.findall(r"trained draft_gemma: steps=180 loss=(\S+)",
+                               printed.getvalue())
+            if len(found) != 1:
+                raise AssertionError("low_acceptance_regime did not train "
+                                     f"the gemma draft: {lines}")
+            loss, ref = float(found[0]), GEMMA_DRAFT_REFERENCE_LOSS
+            emit({"phase": "example-gemma-draft", "loss": loss,
+                  "reference_loss": ref, "loss_rel_to_reference": loss / ref - 1,
+                  "nvidia_smi": smi})
+            if not abs(loss / ref - 1) <= PAIR_LOSS_RTOL:
+                raise AssertionError(f"the gemma draft ends at {loss}, not "
+                                     f"within {PAIR_LOSS_RTOL:.0%} of the "
+                                     f"reference's {ref}")
+    emit({"phase": "examples-total", "seconds": time.monotonic() - t_phase,
+          "launches": total})
+    missing = [k for k in EXAMPLE_KERNELS if total[k] <= 0]
+    if missing:
+        raise AssertionError(f"examples: {missing} never launched: {total}")
+    return total
+
+
+# The full-width trace replay: smollm-135m at 30 layers
+# (``serve_weights``) behind ``stream_serving``'s engine (the fp32 pool in
+# blocks of 16, pipelined, dsde, batch 4, 256 tokens), a seeded bursty
+# trace replayed open loop through the front-end's driver thread.  The
+# random weights accept near 0: acceptance is printed, not judged.
+LOADGEN_TRACE = dict(n_requests=16, rate_rps=4.0, process="bursty", seed=13,
+                     max_new_cap=16)
+LOADGEN_KERNELS = ("paged_ragged_verify_attention", "fused_kld_accept")
+LOADGEN_REPORT = ("requests", "requests_finished", "requests_rejected",
+                  "tokens_emitted", "preemptions", "wall_s", "ttft_s_p50",
+                  "ttft_s_p99", "tpot_s_p50", "tpot_s_p99",
+                  "queue_wait_s_p50", "queue_wait_s_p99", "queue_depth_peak",
+                  "throughput_tok_s", "goodput_tok_s", "slo_attained_frac")
+
+
+def loadgen_phase(smi):
+    """The trace of ``LOADGEN_TRACE`` replayed open loop (its report's
+    TTFT / TPOT percentiles, queue depth, throughput and goodput), then
+    ``replay_at_zero`` and ``run()`` of the same trace, whose streams
+    must be equal; B1 and B2 must launch in the replays and dispatch
+    make no synchronising call.  The replays, whose reports read the
+    clock, run under :func:`side_lock`.  Returns the replays'
+    launches."""
+    import torch
+    from repro_torch.examples.stream_serving import make_engine
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.request import Request
+
+    t_phase = time.monotonic()
+    cfg, pt, pd = serve_weights()
+
+    def engine():
+        return make_engine(cfg, cfg, pt, pd, "cuda")
+
+    trace = loadgen.make_trace(**LOADGEN_TRACE)
+    # one-time set-up (library handles, allocator pools) outside the run
+    engine().run([Request(99, prompt=[1, 2, 3], max_new_tokens=4)])
+    total = {k: 0 for k in read_launches()}
+    row = {"phase": "loadgen", "arch": cfg.name, "layers": cfg.num_layers,
+           "trace": LOADGEN_TRACE, "nvidia_smi": smi}
+    streams = {}
+    for mode in ("open-loop", "replay-at-zero"):
+        reset_launches()
+        with side_lock(), engine_syncs() as syncs:
+            fe = ServingFrontend(engine())
+            if mode == "open-loop":
+                fe.start()
+                try:
+                    point = loadgen.replay(fe, trace)
+                finally:
+                    fe.stop()
+            else:
+                point = loadgen.replay_at_zero(fe, trace)
+            torch.cuda.synchronize()
+        launches = read_launches()
+        for k in total:
+            total[k] += launches[k]
+        m = fe.summary()
+        streams[mode] = [r.output for r in sorted(fe.finished,
+                                                  key=lambda r: r.request_id)]
+        row[mode] = {**{k: point[k] for k in LOADGEN_REPORT},
+                     "offered_rps": point["offered_rps"],
+                     "rounds": m["rounds"],
+                     "mean_acceptance": m["mean_acceptance"],
+                     "block_efficiency": m["block_efficiency"],
+                     "dispatch_syncs": sum(syncs.values()),
+                     "dispatch_sync_sources": dict(syncs),
+                     "launches": launches}
+        if min(launches[k] for k in LOADGEN_KERNELS) <= 0:
+            raise AssertionError(f"loadgen {mode}: a kernel of the path "
+                                 f"never ran: {launches}")
+        if sum(syncs.values()):
+            raise AssertionError(f"loadgen {mode}: dispatch synchronised: "
+                                 f"{dict(syncs)}")
+        if point["requests_finished"] != LOADGEN_TRACE["n_requests"]:
+            raise AssertionError(f"loadgen {mode}: not every request "
+                                 f"finished: {point}")
+    run = loadgen.trace_requests(trace)
+    engine().run(run)
+    streams["run"] = [r.output for r in run]
+    row["replay_at_zero_equal_to_run"] = streams["replay-at-zero"] == streams["run"]
+    # greedy streams do not depend on arrival times but for fp32 near
+    # ties between batch compositions: printed, not required
+    row["open_loop_equal_to_run"] = streams["open-loop"] == streams["run"]
+    row["seconds"] = time.monotonic() - t_phase
+    emit(row)
+    if not row["replay_at_zero_equal_to_run"]:
+        raise AssertionError("loadgen: replay at arrival 0 differs from "
+                             "run()")
+    if not all(0 <= t < cfg.vocab_size for s in streams["run"] for t in s):
+        raise AssertionError("loadgen: a token outside the vocabulary")
+    return total
 
 
 # the device kernels of the port's CUDA sources, by name; the attention
@@ -5054,24 +5308,36 @@ def side_profiles() -> None:
 
 def side_train(out) -> None:
     """The ``train`` side process's work: the corpus (``out``/stream.npy),
-    the trained pair (``out``/pair.pt), then the profiles."""
+    the trained pair (``workloads``' cache, then :func:`pair_done`),
+    then the profiles."""
     import os
     import numpy as np
-    import torch
-    stream = mixed_stream()
+    from repro_torch import workloads
+    stream = workloads.mixed_stream()
     np.save(out / "stream.part.npy", stream)
     os.replace(out / "stream.part.npy", out / "stream.npy")
     with side_lock():
         pair = train_pair(stream, query_smi())
-    torch.save({name: params for name, (_, params) in pair.items()},
-               out / "pair.pt.part")
-    os.replace(out / "pair.pt.part", out / "pair.pt")
+    pair_done().touch()
     del pair
     side_profiles()
 
 
+def side_examples(out) -> None:
+    """The ``examples`` side process's work: the full-width trace replay,
+    then the examples phase, whose trained-pair runs wait for the
+    ``train`` side process's pair; their launches in a ``side-launches``
+    row, which joins the kernels line."""
+    smi = query_smi()
+    total = loadgen_phase(smi)
+    for kernel, n in examples_phase(smi, side=True).items():
+        total[kernel] += n
+    emit({"phase": "side-launches", "launches": total})
+
+
 # the side processes by duty, each a function of its directory
-SIDE_DUTIES = {"train": side_train, "checks": lambda out: run_checks()}
+SIDE_DUTIES = {"train": side_train, "checks": lambda out: run_checks(),
+               "examples": side_examples}
 
 
 def side_main(duty, out) -> int:
@@ -5094,7 +5360,8 @@ class Side(NamedTuple):
 
 def start_side(duty):
     """The side process of ``duty``, its output to a file in its own
-    directory; the kernels were built before it starts."""
+    directory, which is also its temporary directory; the kernels were
+    built before it starts."""
     import os
     import tempfile
     tmp = Path(tempfile.mkdtemp(prefix=f"side-{duty}-", dir=ROOT / "build"))
@@ -5102,8 +5369,8 @@ def start_side(duty):
     proc = subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--side", duty,
          str(tmp)],
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
-        stdout=log, stderr=subprocess.STDOUT)
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), TMPDIR=str(tmp)),
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
     return Side(duty, proc, tmp, log)
 
 
@@ -5114,34 +5381,43 @@ def poll_side(side) -> None:
                              f"{(side.dir / 'side.log').read_text()[-6000:]}")
 
 
-def side_file(side, name):
-    """The side process's file ``name`` once it is written (the seconds
-    waited for it printed as ``side-file``)."""
+def side_file(path, side=None):
+    """``path`` once it is written (the seconds waited for it printed as
+    ``side-file``), by the side process ``side`` if given (a failure of
+    its raises at once), else by another process of this run."""
     t0 = time.monotonic()
-    while not (side.dir / name).exists():
-        poll_side(side)
-        if side.proc.poll() == 0 or time.monotonic() - t0 > SIDE_TIMEOUT_S:
-            raise AssertionError(f"the {side.duty} side process wrote no "
-                                 f"{name}")
+    while not path.exists():
+        if side is not None:
+            poll_side(side)
+        if ((side is not None and side.proc.poll() == 0)
+                or time.monotonic() - t0 > SIDE_TIMEOUT_S):
+            raise AssertionError(f"no side process wrote {path}")
         time.sleep(0.5)
-    emit({"phase": "side-file", "name": name,
+    emit({"phase": "side-file", "name": path.name,
           "seconds": time.monotonic() - t0})
-    return side.dir / name
+    return path
 
 
 def side_stream(side):
-    """The ``train`` side process's corpus (:func:`mixed_stream`)."""
+    """The ``train`` side process's corpus (``workloads.mixed_stream``)."""
     import numpy as np
-    return np.load(side_file(side, "stream.npy"))
+    return np.load(side_file(side.dir / "stream.npy", side))
+
+
+def pair_done():
+    """The mark the ``train`` side process leaves in ``workloads``' cache
+    once the pair's checkpoints are complete."""
+    from repro_torch import workloads
+    return Path(workloads.CACHE_DIR) / "pair.done"
 
 
 def side_pair(side):
     """The ``train`` side process's trained pair, {name: (cfg, params)}
-    on the card."""
-    import torch
-    params = torch.load(side_file(side, "pair.pt"), map_location="cuda")
-    return {name: (cfg, params[name])
-            for name, cfg in zip(PAIR_MODELS, pair_configs())}
+    on the card, restored from ``workloads``' cache."""
+    from repro_torch import workloads
+    side_file(pair_done(), side)
+    cfg_t, cfg_d, pt, pd, _ = workloads.build_pair("llama", device="cuda")
+    return {"target": (cfg_t, pt), "draft": (cfg_d, pd)}
 
 
 @contextlib.contextmanager
@@ -5189,9 +5465,10 @@ def side_paused(sides):
           "duties": [side.duty for side in live]})
 
 
-def finish_side(side) -> None:
+def finish_side(side) -> list:
     """Wait for the side process (the seconds waited printed as
-    ``side-wait``), relay its rows, and raise if it failed."""
+    ``side-wait``), relay its rows, and raise if it failed; returns the
+    rows."""
     t0 = time.monotonic()
     try:
         side.proc.wait(timeout=SIDE_TIMEOUT_S)
@@ -5200,13 +5477,16 @@ def finish_side(side) -> None:
     emit({"phase": "side-wait", "duty": side.duty,
           "seconds": time.monotonic() - t0})
     poll_side(side)
+    rows = []
     for line in (side.dir / "side.log").read_text().splitlines():
         try:
             row = json.loads(line)
         except ValueError:
             continue
         if isinstance(row, dict) and "phase" in row:
+            rows.append(row)
             emit({**row, "process": "side-" + side.duty})
+    return rows
 
 
 def stop_side(side) -> None:
@@ -5232,6 +5512,8 @@ ONLY = {
     "recurrent": recurrent_phase,
     "train-family": family_train_phase,
     "flash": flash_rows,
+    "examples": examples_phase,
+    "loadgen": loadgen_phase,
 }
 
 
@@ -5259,10 +5541,17 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--side":
         return side_main(sys.argv[2], sys.argv[3])
     t_start = time.monotonic()
+    import os
+    import tempfile
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    # the trained pairs' cache (``repro_torch.workloads``): a fresh one a
+    # run, which this process and its side processes share
+    (ROOT / "build").mkdir(exist_ok=True)
+    os.environ["REPRO_TORCH_BENCH_CACHE"] = tempfile.mkdtemp(
+        prefix="pair-cache-", dir=ROOT / "build")
     from repro_torch.kernels.build import build_all, ptxas_report
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5315,7 +5604,10 @@ def main() -> int:
                 launches[kernel] += n
         dryrun_phase(smi)
         for side in sides:
-            finish_side(side)
+            for row in finish_side(side):
+                if row["phase"] == "side-launches":
+                    for kernel, n in row["launches"].items():
+                        launches[kernel] += n
     finally:
         for side in sides:
             stop_side(side)

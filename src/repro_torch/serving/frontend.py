@@ -373,6 +373,12 @@ class ServingFrontend:
         return False
 
     # ------------------------------------------------------------- telemetry
+    @property
+    def finished(self) -> List[Request]:
+        """Every terminal request this front-end delivered, in completion
+        order."""
+        return list(self._done)
+
     def summary(self) -> Dict[str, float]:
         """Engine run-summary over every terminal request this front-end
         delivered, plus front-end queue-depth telemetry."""

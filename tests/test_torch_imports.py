@@ -39,7 +39,11 @@ def test_import_port_leaves_jax_out():
         "          'configs.qwen2_vl_2b', 'configs.seamless_m4t_medium',\n"
         "          'launch.mesh', 'launch.sharding', 'launch.steps',\n"
         "          'launch.op_cost', 'launch.dryrun', 'core.dtensor_ops',\n"
-        "          'core.cost_hooks', 'kernels.shape_only', 'core.tp'):\n"
+        "          'core.cost_hooks', 'kernels.shape_only', 'core.tp',\n"
+        "          'workloads', 'serving.loadgen', 'examples.quickstart',\n"
+        "          'examples.train_draft_model', 'examples.serve_dynamic_sl',\n"
+        "          'examples.stream_serving',\n"
+        "          'examples.low_acceptance_regime'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "import torch.distributed as dist\n"
         "assert 'torch.testing._internal.distributed.fake_pg' not in "
@@ -100,7 +104,7 @@ def test_layers_below_launch_import_nothing_of_it(layer):
 
 
 @pytest.mark.parametrize("entry", ["engine", "init_params",
-                                   "init_round_state"])
+                                   "init_round_state", "workloads.serve"])
 def test_entry_points_default_to_cuda(entry):
     """Without device='cpu' the entry points ask for CUDA, and on a
     machine without it they raise instead of moving to the CPU."""
@@ -117,6 +121,10 @@ def test_entry_points_default_to_cuda(entry):
             init_params(cfg, seed=0)
         elif entry == "init_round_state":
             init_round_state(cfg, cfg, SpecDecodeConfig(), 2, 64, paged=(8, 16))
+        elif entry == "workloads.serve":
+            from repro_torch import workloads
+            p = init_params(cfg, seed=0, device="cpu")
+            workloads.serve(cfg, cfg, p, p, [[1, 2, 3]], max_new=2)
         else:
             p = init_params(cfg, seed=0, device="cpu")
             ServingEngine(p, cfg, p, cfg, SpecDecodeConfig(),
